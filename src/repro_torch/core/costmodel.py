@@ -1,0 +1,273 @@
+"""Layer-wise cost model: the paper's (rho, delta, r) vectors and device models.
+
+Units (internal, everywhere in this package):
+  - FLOPs: floating point operations per *sample* (rho^FW, rho^BW).
+  - delta: smashed-data size in *bytes per sample* crossing the cut after layer l
+    (delta^FW activations, delta^BW gradients).
+  - r_mem / r_disk: bytes per layer.
+  - time: seconds.
+
+The paper's Table II constants (alpha_k, beta_k, alpha_tau, beta_tau) were fitted
+with time in *milliseconds*:  kappa_ms(b, phi) = (alpha_k * b + beta_k) * phi,
+tau_ms(b) = alpha_tau * b + beta_tau.  We verified this against the paper's worked
+examples (Fig. 6a: kappa_CPU(2, 105.3e9) = 25.8 -> printed 25.7 ms; kappa_GPU(2,
+131.56e9) = 3.3 -> printed 3.4 ms), so `ComputeModel` converts to seconds.
+"""
+from __future__ import annotations
+
+import json
+import math
+from dataclasses import dataclass, field
+from typing import Sequence
+
+FW = "FW"
+BW = "BW"
+IF = "IF"  # inference mode
+TR = "TR"  # training mode
+
+# Execution schedules.  "seq" is the paper's model: sub-model k+1 starts only
+# after sub-model k finished and its smashed data fully arrived.  "pipe" splits
+# the batch into n_microbatches that flow through the placed chain like a
+# pipeline (Wei et al., arXiv:2505.04368): end-to-end latency becomes pipeline
+# fill/drain plus (M-1) steady-state bottleneck-stage steps (docs/pipeline.md).
+SEQ = "seq"
+PIPE = "pipe"
+SCHEDULES = (SEQ, PIPE)
+
+
+def effective_microbatches(batch_size: int, n_microbatches: int) -> int:
+    """Clamp the microbatch count to [1, b]: a microbatch carries >= 1 sample,
+    so a b-sample batch pipelines at most b-deep.  M=1 is exactly the
+    sequential schedule."""
+    return max(1, min(int(n_microbatches), int(batch_size)))
+
+
+def dirs_for_mode(mode: str) -> tuple[str, ...]:
+    """D(mode) in the paper: {FW} for inference, {FW, BW} for training."""
+    if mode == TR:
+        return (FW, BW)
+    if mode == IF:
+        return (FW,)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+@dataclass(frozen=True)
+class ComputeModel:
+    """Piecewise-linear device compute model (paper Sec. VI-A2, Table II).
+
+    ``pieces`` is a tuple of (b_max, alpha_k, beta_k) segments: the first segment
+    with ``b <= b_max`` applies.  kappa/tau yield **seconds** (constants are the
+    paper's ms-fitted values; we divide by 1e3).
+    """
+
+    name: str
+    pieces: tuple[tuple[float, float, float], ...]
+    alpha_tau: float = 0.0
+    beta_tau: float = 0.0
+
+    def _coeffs(self, b: float) -> tuple[float, float]:
+        for b_max, a, beta in self.pieces:
+            if b <= b_max:
+                return a, beta
+        raise AssertionError("pieces must end with b_max=inf")
+
+    def kappa_s(self, b: float, flops: float) -> float:
+        """Compute time (s) for `flops` per-sample FLOPs at batch size b."""
+        a, beta = self._coeffs(b)
+        return max(0.0, (a * b + beta) * flops) / 1e3
+
+    def tau_s(self, b: float) -> float:
+        """Device I/O overhead (s); zero for CPU nodes per the paper."""
+        return max(0.0, (self.alpha_tau * b + self.beta_tau)) / 1e3
+
+    def comp_time_s(self, b: float, flops: float) -> float:
+        """T^comp = kappa_i(b, phi) + tau_i(b)   (Eq. 17)."""
+        return self.kappa_s(b, flops) + self.tau_s(b)
+
+
+# Paper Table II -----------------------------------------------------------------
+CPU_XEON_6226R = ComputeModel(
+    name="cpu-xeon-6226r",
+    pieces=((8, 1.04e-10, 3.74e-11), (math.inf, 2.07e-10, -1.60e-9)),
+    alpha_tau=0.0,
+    beta_tau=0.0,
+)
+GPU_RTX_A6000 = ComputeModel(
+    name="gpu-rtx-a6000",
+    pieces=((math.inf, 3.94e-12, 1.72e-11),),
+    alpha_tau=2.07e-13,
+    beta_tau=1.69e-13,
+)
+
+
+def tpu_group_compute_model(
+    chips: int,
+    peak_flops: float = 197e12,
+    mfu: float = 0.5,
+    dispatch_overhead_s: float = 5e-6,
+) -> ComputeModel:
+    """TPU-native adaptation: a stage *group* of `chips` v5e chips as one planner node.
+
+    kappa(b, phi) = b * phi / (chips * peak * mfu)  =>  alpha_k(ms/FLOP) = 1e3 /
+    (chips*peak*mfu), beta_k = 0.  tau models per-step dispatch overhead.
+    """
+    alpha = 1e3 / (chips * peak_flops * mfu)
+    return ComputeModel(
+        name=f"tpu-v5e-x{chips}",
+        pieces=((math.inf, alpha, 0.0),),
+        alpha_tau=0.0,
+        beta_tau=dispatch_overhead_s * 1e3,
+    )
+
+
+@dataclass(frozen=True)
+class LayerProfile:
+    """One global-model layer l: (rho_l^FW, rho_l^BW, delta_l^FW, delta_l^BW, r_l)."""
+
+    name: str
+    flops_fw: float  # rho^FW, per sample
+    flops_bw: float  # rho^BW, per sample
+    act_bytes: float  # delta^FW: smashed-data size emitted AFTER this layer, per sample
+    grad_bytes: float  # delta^BW
+    mem_bytes: float  # r^mem
+    disk_bytes: float  # r^disk
+
+    def flops(self, direction: str) -> float:
+        return self.flops_fw if direction == FW else self.flops_bw
+
+    def smashed_bytes(self, direction: str) -> float:
+        return self.act_bytes if direction == FW else self.grad_bytes
+
+
+@dataclass
+class ModelProfile:
+    """The planner's view of a global model F: an ordered list of L layers.
+
+    Segment aggregates are served from lazily-built prefix-sum tables so the
+    O(K L^2) solver DPs pay O(1) per segment query instead of O(L).  The layer
+    list must not be mutated after the first query; call :meth:`invalidate_cache`
+    if you do.
+    """
+
+    model_id: str
+    layers: list[LayerProfile]
+    _cum: dict | None = field(default=None, init=False, repr=False, compare=False)
+    _peak_memo: dict = field(default_factory=dict, init=False, repr=False,
+                             compare=False)
+    _content_key: str | None = field(default=None, init=False, repr=False,
+                                     compare=False)
+
+    def __post_init__(self) -> None:
+        if len(self.layers) < 2:
+            raise ValueError("a splittable model needs at least 2 layers")
+
+    @property
+    def L(self) -> int:
+        return len(self.layers)
+
+    def invalidate_cache(self) -> None:
+        """Drop the prefix-sum tables after mutating ``layers`` in place."""
+        self._cum = None
+        self._peak_memo.clear()
+        self._content_key = None
+
+    def content_key(self) -> str:
+        """Canonical serialization of the profile's content (model_id + the
+        full layer cost table) — the profile half of ProblemInstance identity.
+        Cached; dropped by :meth:`invalidate_cache`."""
+        if self._content_key is None:
+            self._content_key = json.dumps(
+                [self.model_id,
+                 [[l.name, l.flops_fw, l.flops_bw, l.act_bytes, l.grad_bytes,
+                   l.mem_bytes, l.disk_bytes] for l in self.layers]],
+                separators=(",", ":"))
+        return self._content_key
+
+    def _cumsums(self) -> dict:
+        if self._cum is None:
+            def cum(vals: list[float]) -> list[float]:
+                out = [0.0] * (len(vals) + 1)
+                for i, v in enumerate(vals):
+                    out[i + 1] = out[i] + v
+                return out
+
+            self._cum = {
+                (FW, "flops"): cum([l.flops_fw for l in self.layers]),
+                (BW, "flops"): cum([l.flops_bw for l in self.layers]),
+                "mem": cum([l.mem_bytes for l in self.layers]),
+                "disk": cum([l.disk_bytes for l in self.layers]),
+            }
+        return self._cum
+
+    # --- segment aggregates (segments are 1-indexed inclusive [lo, hi]) ----------
+    def seg_flops(self, lo: int, hi: int, direction: str) -> float:
+        c = self._cumsums()[(direction, "flops")]
+        return c[hi] - c[lo - 1]
+
+    def seg_mem_bytes(self, lo: int, hi: int) -> float:
+        c = self._cumsums()["mem"]
+        return c[hi] - c[lo - 1]
+
+    def seg_disk_bytes(self, lo: int, hi: int) -> float:
+        c = self._cumsums()["disk"]
+        return c[hi] - c[lo - 1]
+
+    def seg_peak_smashed(self, lo: int, hi: int, mode: str) -> float:
+        """max_{l in seg, dir in D(mode)} delta_l^dir  (constraint (15) 2nd term)."""
+        key = (lo, hi, mode)
+        peak = self._peak_memo.get(key)
+        if peak is None:
+            peak = 0.0
+            for l in self.layers[lo - 1 : hi]:
+                for d in dirs_for_mode(mode):
+                    peak = max(peak, l.smashed_bytes(d))
+            self._peak_memo[key] = peak
+        return peak
+
+    def cut_bytes(self, cut_after: int, direction: str) -> float:
+        """delta at the cut after layer `cut_after` (1 <= cut_after <= L-1)."""
+        assert 1 <= cut_after < self.L
+        return self.layers[cut_after - 1].smashed_bytes(direction)
+
+    def total_flops(self, direction: str) -> float:
+        return self.seg_flops(1, self.L, direction)
+
+
+def segments_from_sizes(sizes: Sequence[int]) -> list[tuple[int, int]]:
+    """(L^1..L^K) -> 1-indexed inclusive [lo, hi] ranges."""
+    segs, lo = [], 1
+    for n in sizes:
+        if n < 1:
+            raise ValueError("each sub-model must hold >= 1 layer (constraint (10))")
+        segs.append((lo, lo + n - 1))
+        lo += n
+    return segs
+
+
+def even_split(L: int, K: int) -> list[tuple[int, int]]:
+    """BCD initialization y_0: evenly divide L layers into K sub-models."""
+    base, rem = divmod(L, K)
+    sizes = [base + (1 if k < rem else 0) for k in range(K)]
+    return segments_from_sizes(sizes)
+
+
+def cuts_from_segments(segments: Sequence[tuple[int, int]]) -> list[int]:
+    """Cut positions: layer index after which each of the first K-1 segments ends."""
+    return [hi for (_, hi) in segments[:-1]]
+
+
+def validate_segments(segments: Sequence[tuple[int, int]], L: int) -> None:
+    """Constraints (6)-(13): contiguous, ordered, covering partition of 1..L."""
+    if not segments:
+        raise ValueError("empty segmentation")
+    if segments[0][0] != 1:
+        raise ValueError("constraint (7): first layer must be in sub-model 1")
+    if segments[-1][1] != L:
+        raise ValueError("constraint (8): last layer must be in sub-model K")
+    prev_hi = 0
+    for lo, hi in segments:
+        if lo != prev_hi + 1:
+            raise ValueError("constraints (12)-(13): segments must be contiguous & ordered")
+        if hi < lo:
+            raise ValueError("constraint (10): each sub-model holds >= 1 layer")
+        prev_hi = hi
