@@ -1,49 +1,111 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's two paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-The main path is the batched planner: ``ProblemInstance`` ->
+Path 1 is the batched planner: ``ProblemInstance`` ->
 ``repro_torch.core.solve_batch`` -> ``dfts_torch`` / ``bcd_torch`` on
-``cuda`` -> ``Plan`` + ``LatencyBreakdown``.  Phases, in order; any failure
-exits non-zero:
+``cuda`` -> ``Plan`` + ``LatencyBreakdown``, through the min-plus kernel.
+Path 2 is plan execution: ``repro_torch.msl.plan_pipeline`` (``bcd_torch``
+on ``cuda``, the min-plus kernel again) -> ``ChainSimulator.run_plan``,
+which runs qwen2-1.5b (every block through the flash-attention kernel) and
+then mamba2-370m (every block through the SSD kernel) at full width and
+full depth, B 2 x S 2048 tokens, random weights from a seed.  Phases, in
+order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
-2. build: every kernel of the path is built from the sources in the checkout
-   (``nvcc`` for sm_90a, into ``build/kernels/``);
-3. kernel vs plain, generic: each kernel is held with ``==`` against its
-   plain PyTorch version on the card (random costs with +inf holes, forced
-   ties, all-+inf rows, off-tile shapes with batch dims);
-4. main path: the 96-instance population of the solver benchmark (NSFNET,
+   TF32 is switched off for float32 products and convolutions;
+2. build: every kernel is built from the sources in the checkout, one
+   ``nvcc`` per source, all started together (sm_90a, ``build/kernels/``);
+3. kernel vs plain, generic: min-plus held with ``==`` against its plain
+   version (ties, +inf holes, off-tile shapes); flash attention in bf16 at
+   FLASH_TOL and SSD in float32 at SSD_TOL (the tolerances of
+   ``tests/test_kernels.py``), at that file's shapes and a few more;
+4. path 1: the 96-instance population of the solver benchmark (NSFNET,
    ResNet-101 at its full 37 layer groups) through ``dfts_torch`` (distinct,
-   then cycled to 1024) and ``bcd_torch`` on ``cuda``, every outcome held
-   with ``==`` against the port's NumPy oracles ``dfts_np`` / ``bcd`` on the
-   CPU, with the kernels' launch counts taken over exactly this run and the
-   operand shapes and first operands of every launch recorded;
-5. kernel vs plain at the path's shapes: ``==`` on the recorded operands and
-   on random and tie-forcing ones of each recorded shape, then each shape
-   timed by ``torch.profiler`` device time beside its plain version and its
-   bound; the kernels line carries the shape with the most launches;
-6. one JSON line of per-kernel numbers, the card line, then the result line.
+   then cycled to 1024) and ``bcd_torch``, every outcome ``==`` the port's
+   NumPy oracles, with the min-plus launch count over exactly this run and
+   every launch's shape and first operands recorded; then min-plus against
+   its plain version on the recorded operands, each shape timed;
+5. path 2, one model after the other: the counts set to 0, the plan and the
+   planned chain run on the card, the counts read (min-plus and the model's
+   kernel must both have launched), every kernel call's shape and first
+   operands recorded; the chain's hidden state ``==`` the port's monolithic
+   ``apply_stack`` on the card (the same blocks in the same order); the
+   first two groups at S 512 on the card (kernels) within CHECK_TOL of
+   their largest magnitude of the same groups on the CPU (plain versions),
+   in bf16; each stage's measured compute printed beside the planner's
+   prediction; the model freed before the next;
+6. kernel vs plain at path 2's shapes, on the recorded operands and random
+   ones: flash attention at FLASH_TOL, which must also reject two wrong
+   outputs (l off by 5 %, each row's diagonal key tile dropped); SSD's y and
+   chunk states on the recorded operands against a float64 witness, at
+   SSD_WITNESS times the plain version's own error (random operands at
+   SSD_TOL); then each shape timed by ``torch.profiler`` device
+   time beside its plain version, its bound and (flash attention) one
+   ``scaled_dot_product_attention`` call; SSD has no single library call;
+7. one JSON line of per-kernel numbers, the card line, then the result line.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import importlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12      # H100 SXM fp64 outside the tensor cores (ditto)
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (ditto)
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (ditto)
 EXTRA_SHAPE = (1024, 1, 16, 16)  # (batch, M, K, N): a scan at Sp = 16
 RECORDED_OPERANDS = 3  # operand pairs kept per (batch, M, K, N) on the path
+SEQ, BATCH = 2048, 2   # path 2: tokens per sequence, sequences
+CHECK_SEQ = 512        # path 2: sequence of the card-vs-CPU check
+# Flash attention, bf16: kernel and plain version round fp32 values summed
+# in different orders once to bf16, so they differ by an ulp of bf16 in a
+# few elements.  Held per (batch, query, head) row of width hd, scaled to
+# the row: ||got - want|| / ||want|| below FLASH_TOL[0], and
+# max |got - want| at most FLASH_TOL[1] * max |want| over the whole output.
+FLASH_TOL = (1e-2, 2.0 ** -6)
+FLASH_TILE = 64  # keys per tile of csrc/flash_attention.cu (BK)
+SSD_TOL = (1e-4, 1e-4, 1e-5)  # y, chunk states, decay (tests/test_kernels.py)
+# SSD on the path's recorded operands: y and the chunk states are held to
+# their float64 values; over each output the kernel's largest error there
+# may be SSD_WITNESS times the plain version's own (or eps of the largest
+# value, where the plain version is exact).  The decay stays at SSD_TOL[2].
+SSD_WITNESS = 4.0
+FP32_EPS = 2.0 ** -23
+CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
+#                   magnitude (PERF.md gives the readings it was set from)
+# path 2, in this order: each model and the kernel its blocks run
+MODELS = {"qwen2-1.5b": "flash_attention", "mamba2-370m": "ssd"}
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): tests/test_kernels.py's
+# cases, rows that see no key, and randomised GQA shapes
+FLASH_GENERIC = [
+    (2, 128, 128, 4, 2, 64, True, None, None),
+    (1, 200, 200, 8, 1, 64, True, None, 50.0),
+    (2, 256, 256, 4, 4, 128, True, 64, None),
+    (1, 64, 256, 2, 2, 64, False, None, None),
+    (1, 96, 96, 6, 3, 32, True, 32, 30.0),
+    (1, 48, 16, 2, 1, 32, False, 8, None),
+    (1, 37, 37, 8, 2, 128, True, None, None),
+    (1, 130, 130, 4, 4, 32, True, None, None),
+    (3, 70, 70, 2, 1, 64, False, None, None),
+]
+# (B, S, H, P, N, Q): tests/test_kernels.py's cases, head width 16, a ragged Q
+SSD_GENERIC = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
+               (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100)]
 
 
 def _card_line() -> str:
@@ -162,30 +224,6 @@ def check_minplus_generic(mp, device) -> dict:
     return {"cases": n, "max_abs_err": max_err}
 
 
-@contextlib.contextmanager
-def record_minplus(TS, mp):
-    """Record every minplus call the planner makes inside the block: a
-    count per ``(batch, M, K, N)`` and up to RECORDED_OPERANDS clones of
-    its operands per shape.  The recorder calls the wrapper itself, so the
-    wrapper's launch count is untouched."""
-    shapes: collections.Counter = collections.Counter()
-    operands: dict = collections.defaultdict(list)
-    wrapped = TS.minplus_matmul
-
-    def recorder(a, b):
-        key = (tuple(a.shape[:-2]), a.shape[-2], a.shape[-1], b.shape[-1])
-        shapes[key] += 1
-        if len(operands[key]) < RECORDED_OPERANDS:
-            operands[key].append((a.clone(), b.clone()))
-        return mp.minplus_matmul(a, b)
-
-    TS.minplus_matmul = recorder
-    try:
-        yield shapes, operands
-    finally:
-        TS.minplus_matmul = wrapped
-
-
 def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     """Device time per call of ``fn`` under ``torch.profiler``, summed over
     every device kernel (or only those whose name holds ``must_see``).
@@ -221,7 +259,7 @@ def check_minplus_path(mp, device, shapes, operands, generic) -> dict:
     launches."""
     gen = torch.Generator().manual_seed(1)
     all_shapes = sorted(shapes, key=lambda s: (-shapes[s], s))
-    pairs = [p for s in all_shapes for p in operands[s]]
+    pairs = [args for s in all_shapes for args, _ in operands[s]]
     for s in all_shapes + [((EXTRA_SHAPE[0],),) + EXTRA_SHAPE[1:]]:
         pairs += _random_pairs(gen, s, device)
     n, mismatches, max_err = _compare(mp, pairs)
@@ -254,8 +292,8 @@ def check_minplus_path(mp, device, shapes, operands, generic) -> dict:
     print(f"minplus at {top}, per call seen by the caller (CUDA events): "
           f"kernel {call_ms!r} ms, plain {plain_call_ms!r} ms")
     return {"name": "minplus", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/minplus.cu",
-            "replaces": "src/repro/kernels/minplus.py:35",
+            "source": KERNELS["minplus"].source,
+            "replaces": KERNELS["minplus"].replaces,
             "max_abs_err": max(max_err, generic["max_abs_err"]),
             "mismatches": mismatches, "shape": [list(top[0]), *top[1:]],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -309,7 +347,8 @@ def run_main_path(C, TS, mp, device: str = "cuda") -> dict:
         if p.profile.L != 37 or len(p.net.nodes) != 14:
             raise AssertionError("ResNet-101 at full width on NSFNET expected")
 
-    with record_minplus(TS, mp) as (shapes, operands):
+    with record_calls(TS, "minplus_matmul", _minplus_key) as (shapes,
+                                                             operands):
         mp.launch_count = 0
         t0 = time.perf_counter()
         dfts_distinct = C.solve_batch(problems, "dfts_torch", dedup=False,
@@ -380,6 +419,484 @@ def _wall(fn) -> float:
     return time.perf_counter() - t0
 
 
+# ------------------------------------------------------------------ builds --
+def build_kernels(mods: dict) -> None:
+    """Phase 2: every kernel built at once, one ``nvcc`` per source; the
+    first failure raises."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.build(), mods.values()))
+    for name, m in mods.items():
+        info = m.LIBRARY.build_info
+        print(f"build: {name} in {info['seconds']!r} s ({info['path']})")
+        if info["log"]:
+            print(info["log"].strip())
+    print(f"build: all kernels in {time.perf_counter() - t0!r} s of wall "
+          f"time")
+
+
+# ------------------------------------------------ flash attention and SSD --
+def _flash_operands(gen, shape, device):
+    B, Sq, Sk, Hq, Hkv, hd = shape[:6]
+    return tuple(torch.randn(s, generator=gen).to(device, torch.bfloat16)
+                 for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                           (B, Sk, Hkv, hd)))
+
+
+def _flash_kw(shape) -> dict:
+    return dict(zip(("causal", "window", "softcap"), shape[6:]))
+
+
+def _flash_errors(got, want) -> tuple[float, float]:
+    """(the worst (batch, query, head) row's ||got - want|| / ||want||,
+    max |got - want| / max |want|), in float32."""
+    g, w = got.float(), want.float()
+    d = g - w
+    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    return float(rows.max()), float(d.abs().max() / w.abs().max())
+
+
+def _flash_within(errors) -> bool:
+    return errors[0] < FLASH_TOL[0] and errors[1] <= FLASH_TOL[1]
+
+
+def _flash_check(fa, cases, what: str) -> float:
+    """The kernel against its plain version on each ``((q, k, v), kw)`` at
+    FLASH_TOL; raises on a failure, else returns the max_abs_err."""
+    failures, worst, max_err = 0, (0.0, 0.0), 0.0
+    for (q, k, v), kw in cases:
+        out = fa.flash_attention(q, k, v, **kw)
+        want = fa.reference_attention(q, k, v, **kw)
+        errors = _flash_errors(out, want)
+        failures += not _flash_within(errors)
+        worst = tuple(map(max, worst, errors))
+        max_err = max(max_err, float((out.float() - want.float()).abs().max()))
+    line = (f"flash_attention {what}: {len(cases)} bf16 cases, worst row "
+            f"{worst[0]!r} (limit {FLASH_TOL[0]}), max error {worst[1]!r} of "
+            f"the largest |want| (limit {FLASH_TOL[1]}), max_abs_err "
+            f"{max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} cases past the limits")
+    print(line)
+    return max_err
+
+
+def _flash_rejects_wrong_outputs(fa, args, kw) -> None:
+    """FLASH_TOL must reject two deliberately wrong outputs on these causal
+    operands: the plain version with the normaliser l off by 5 %, and
+    attention with each row's diagonal key tile dropped (rows past the
+    first tile; the tile the kernel would skip if its causal walk stopped
+    one tile short)."""
+    q, k, v = args
+    if not kw.get("causal") or kw.get("window") or kw.get("softcap"):
+        raise ValueError(f"plain causal attention expected, got {kw}")
+    want = fa.reference_attention(q, k, v, **kw)
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    diagonal = (qi // FLASH_TILE == ki // FLASH_TILE) & (qi >= FLASH_TILE)
+    s = torch.einsum("bqkgh,bskh->bkgqs",
+                     q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd), k.float())
+    s = s * (kw.get("scale") or hd ** -0.5)
+    w = torch.softmax(s.masked_fill((qi < ki) | diagonal, -1e30), dim=-1)
+    dropped = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    wrong = {"l off by 5 %": (want.float() / 1.05).to(want.dtype),
+             "diagonal key tile dropped":
+                 dropped.reshape(q.shape).to(want.dtype)}
+    for what, out in wrong.items():
+        errors = _flash_errors(out, want)
+        if _flash_within(errors):
+            raise AssertionError(f"FLASH_TOL passes a wrong output ({what}): "
+                                 f"{errors}")
+        print(f"flash_attention check rejects a wrong output ({what}): worst "
+              f"row {errors[0]!r}, max error {errors[1]!r} of the largest "
+              f"|want|")
+
+
+def _ssd_operands(gen, shape, device):
+    B, S, H, P, N, Q = shape
+    nc = S // Q
+    return (torch.randn((B, nc, H, Q, P), generator=gen).to(device),
+            (torch.randn((B, nc, Q, N), generator=gen) * 0.3).to(device),
+            (torch.randn((B, nc, Q, N), generator=gen) * 0.3).to(device),
+            (torch.rand((B, nc, H, Q), generator=gen) * 0.19 + 0.01
+             ).to(device),
+            (torch.rand((H,), generator=gen) * 3.5 + 0.5).to(device))
+
+
+def _ssd_check(ssd, cases, what: str) -> float:
+    """The kernel against its plain version on each case, each output at
+    its tolerance in SSD_TOL; raises on a failure, else returns the
+    max_abs_err."""
+    failures, max_err = 0, 0.0
+    for args in cases:
+        got = ssd.ssd_intra_chunk(*args)
+        want = ssd.reference_ssd_intra_chunk(*args)
+        for g, w, tol in zip(got, want, SSD_TOL):
+            failures += not torch.allclose(g, w, atol=tol, rtol=tol)
+            max_err = max(max_err, float((g - w).abs().max()))
+    line = (f"ssd {what}: {len(cases)} float32 cases within {SSD_TOL} of the "
+            f"plain version, max_abs_err {max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} outputs past the limits")
+    print(line)
+    return max_err
+
+
+def _by_head(t):
+    """The largest |t| of each head (axis 2 of an SSD output)."""
+    return t.abs().amax(dim=(0, 1, 3, 4))
+
+
+def _ssd_check_witness(ssd, cases, what: str) -> float:
+    """The kernel and its plain version against the plain version computed
+    in float64: over each case's y and chunk states, the kernel's largest
+    error may be SSD_WITNESS times the plain version's (or eps of the
+    largest value, where the plain version is exact), so the kernel is
+    within (1 + SSD_WITNESS) times the plain version's own error of it; the
+    decay is held to the plain version at SSD_TOL[2].  Prints the errors
+    per head.  Raises on a failure, else returns the max_abs_err against
+    the plain version."""
+    failures, max_err = 0, 0.0
+    for n, args in enumerate(cases):
+        got = ssd.ssd_intra_chunk(*args)
+        want = ssd.reference_ssd_intra_chunk(*args)
+        exact = ssd.reference_ssd_intra_chunk(*args, dtype=torch.float64)
+        cum_max = float((args[4][None, None, :, None].double()
+                         * args[3].double()).sum(-1).max())
+        for name, g, w, e in zip(("y", "chunk states"), got, want, exact):
+            err_k, err_p = _by_head(g.double() - e), _by_head(w.double() - e)
+            worst_k, worst_p = float(err_k.max()), float(err_p.max())
+            limit = SSD_WITNESS * max(worst_p, FP32_EPS * float(e.abs().max()))
+            failures += not worst_k <= limit
+            vs_plain = float((g - w).abs().max())
+            max_err = max(max_err, vs_plain)
+            ratio = err_k / err_p.clamp_min(1e-300)
+            print(f"ssd {what}, case {n}, {name} against float64: kernel "
+                  f"{worst_k!r} (limit {limit!r}), plain {worst_p!r}; kernel "
+                  f"vs plain {vs_plain!r}; largest |value| "
+                  f"{float(e.abs().max())!r}, |cum|max {cum_max!r}; per "
+                  f"head, kernel over plain error {float(ratio.min())!r} to "
+                  f"{float(ratio.max())!r}:")
+            print("  " + " ".join(f"{a:.3g}/{b:.3g}" for a, b in
+                                  zip(err_k.tolist(), err_p.tolist())))
+        if not torch.allclose(got[2], want[2], atol=SSD_TOL[2],
+                              rtol=SSD_TOL[2]):
+            failures += 1
+        max_err = max(max_err, float((got[2] - want[2]).abs().max()))
+    if failures:
+        raise AssertionError(f"ssd {what}: {failures} outputs past the "
+                             f"limits")
+    return max_err
+
+
+def check_generic(fa, ssd, device) -> dict:
+    """Phase 3 for flash attention and SSD: the kernels against their plain
+    versions on random operands at shapes off the path."""
+    gen = torch.Generator().manual_seed(2)
+    err = _flash_check(fa, [(_flash_operands(gen, s, device), _flash_kw(s))
+                            for s in FLASH_GENERIC], "generic")
+    err2 = _ssd_check(ssd, [_ssd_operands(gen, s, device)
+                            for s in SSD_GENERIC], "generic")
+    return {"flash_attention": err, "ssd": err2}
+
+
+@contextlib.contextmanager
+def record_calls(module, name: str, key_fn):
+    """Record every call of ``module.<name>`` inside the block: a count per
+    ``key_fn(*args, **kw)`` and up to RECORDED_OPERANDS clones of its
+    operands per key.  The recorder calls the function it replaced, so the
+    wrappers' launch counts are untouched."""
+    shapes: collections.Counter = collections.Counter()
+    operands: dict = collections.defaultdict(list)
+    wrapped = getattr(module, name)
+
+    def recorder(*args, **kw):
+        key = key_fn(*args, **kw)
+        shapes[key] += 1
+        if len(operands[key]) < RECORDED_OPERANDS:
+            operands[key].append((tuple(a.clone() for a in args), dict(kw)))
+        return wrapped(*args, **kw)
+
+    setattr(module, name, recorder)
+    try:
+        yield shapes, operands
+    finally:
+        setattr(module, name, wrapped)
+
+
+def _flash_key(q, k, v, *, causal=True, window=None, softcap=None,
+               scale=None):
+    return (*q.shape[:3], k.shape[1], k.shape[2], q.shape[3], causal, window,
+            softcap)  # (B, Sq, Hq, Skv, Hkv, hd, ...)
+
+
+def _ssd_key(x, Bm, Cm, dt, A):
+    B, nc, H, Q, P = x.shape
+    return (B, nc, H, Q, P, Bm.shape[-1])
+
+
+def _minplus_key(a, b):
+    return (tuple(a.shape[:-2]), a.shape[-2], a.shape[-1], b.shape[-1])
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float().cpu() - want.cpu()).abs().max()
+                 / want.abs().max())
+
+
+def run_model_path(name: str, mods: dict, device) -> dict:
+    """Phase 5 for one model: plan and run its chain on ``device`` with the
+    kernels' counts taken over exactly that, then the checks.  Returns the
+    counts and the recorded kernel calls."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import ChainSimulator, plan_pipeline
+
+    cfg = ARCHS[name]
+    t0 = time.perf_counter()
+    params = MT.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    n_params = sum(t.numel() for t in MT.tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    torch.cuda.synchronize()
+    print(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}) on the card in "
+          f"{time.perf_counter() - t0!r} s")
+
+    with contextlib.ExitStack() as stack:
+        recorded = {k: stack.enter_context(record_calls(
+            importlib.import_module(spec.site[0]), spec.site[1], spec.key))
+            for k, spec in KERNELS.items()}
+        for m in mods.values():
+            m.launch_count = 0
+        t1 = time.perf_counter()
+        pp = plan_pipeline(cfg, seq_len=SEQ, microbatch=BATCH, mode="IF",
+                           device=device)
+        t2 = time.perf_counter()
+        sim = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
+                             pp.problem.request)
+        out = sim.run_plan(pp.plan, tokens)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = {k: m.launch_count for k, m in mods.items()}
+    for k in ("minplus", MODELS[name]):
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: path 2 launched no {k} kernel")
+    for k, (shapes, _) in recorded.items():
+        if sum(shapes.values()) != launches[k]:
+            raise AssertionError(f"{name}: {sum(shapes.values())} recorded "
+                                 f"{k} calls against {launches[k]} launches")
+    print(f"{name}: plan_pipeline (bcd_torch on cuda) K {pp.K}, groups "
+          f"{pp.segments} on {pp.placement}, predicted "
+          f"{pp.predicted_latency_s!r} s, in {t2 - t1!r} s; chain run in "
+          f"{t3 - t2!r} s; launches on path 2 {launches}")
+    for t in out.traces:
+        print(f"{name}: stage {t.stage} on {t.node}, groups {t.groups}: "
+              f"measured compute {t.compute_s_measured!r} s, predicted "
+              f"{t.compute_s_predicted!r} s; transfer charged "
+              f"{t.transfer_s_charged!r} s, smashed {t.smashed_bytes!r} B")
+
+    wall, busy, by_name = _device_us(lambda: sim.run_plan(pp.plan, tokens))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{name}: warm chain run under the profiler: wall {wall!r} us, "
+          f"device busy {busy!r} us (share {busy / wall!r}); top device "
+          f"time: {top}")
+    warm = sim.run_plan(pp.plan, tokens)
+    for t in warm.traces:
+        print(f"{name}: warm stage {t.stage}, groups {t.groups}: measured "
+              f"compute {t.compute_s_measured!r} s")
+
+    h = out.hidden
+    if h.shape != (BATCH, SEQ, cfg.d_model) or not torch.isfinite(h).all():
+        raise AssertionError(f"{name}: hidden state {tuple(h.shape)} is not "
+                             f"finite of shape {(BATCH, SEQ, cfg.d_model)}")
+    pos = torch.arange(SEQ, device=device).expand(BATCH, SEQ)
+    ctx = ML.Ctx(mode="prefill", positions=pos)
+    mono, _, _ = MT.apply_stack(params["stack"], cfg, cfg.n_layers,
+                                cfg.pattern, MT.embed_tokens(params, cfg,
+                                                             tokens), ctx,
+                                None)
+    if not torch.equal(h, mono):
+        raise AssertionError(f"{name}: the chain's hidden state differs from "
+                             f"apply_stack by up to "
+                             f"{float((h.float() - mono.float()).abs().max())}")
+    print(f"{name}: chain's hidden state == monolithic apply_stack on the card "
+          f"(max |h| {float(h.float().abs().max())!r})")
+
+    n = 2 * len(cfg.pattern)  # the first two groups, at S = CHECK_SEQ
+    sub = {"layers": params["stack"]["layers"][:n]}
+    x = MT.embed_tokens(params, cfg, tokens[:, :CHECK_SEQ])
+    ctx = ML.Ctx(mode="prefill", positions=pos[:, :CHECK_SEQ])
+    t4 = time.perf_counter()
+    on_card, _, _ = MT.apply_stack(sub, cfg, n, cfg.pattern, x, ctx, None)
+    on_cpu, _, _ = MT.apply_stack(
+        MT.tree_map(lambda t: t.cpu(), sub), cfg, n, cfg.pattern, x.cpu(),
+        ML.Ctx(mode="prefill", positions=ctx.positions.cpu()), None)
+    err = _rel_err(on_card, on_cpu)
+    if not err < CHECK_TOL:
+        raise AssertionError(f"{name}: first two groups on the card differ "
+                             f"from the CPU by {err!r} of the largest "
+                             f"magnitude (limit {CHECK_TOL})")
+    print(f"{name}: first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
+          f"(plain versions) in {cfg.compute_dtype}: {err!r} of the largest "
+          f"magnitude (limit {CHECK_TOL}), in {time.perf_counter() - t4!r} s")
+    del params, sim, out, warm, h, mono, sub, x, on_card, on_cpu
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recorded": recorded}
+
+
+def _flash_bound(key) -> tuple[float, str, int, int]:
+    B, Sq, Hq, Skv, Hkv, hd, causal, window, _ = key
+    qi = torch.arange(Sq)[:, None]
+    ki = torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= qi >= ki
+    if window is not None:
+        mask &= qi - ki < window
+    pairs = int(mask.sum())
+    n_ops = 4 * B * Hq * hd * pairs  # q.k and p.v, a multiply-add each
+    n_bytes = 2 * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd)
+    op_ms = n_ops / BF16_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _ssd_bound(key) -> tuple[float, str, int, int]:
+    """C B^T counted once per (batch, chunk), as the heads share it, and
+    every product over causal pairs only: the least work."""
+    B, nc, H, Q, P, N = key
+    pairs = Q * (Q + 1) // 2
+    n_ops = (2 * N * pairs * B * nc + 2 * P * pairs * B * nc * H
+             + 2 * Q * N * P * B * nc * H)
+    n_bytes = 4 * (B * nc * H * Q * P * 2 + 2 * B * nc * Q * N
+                   + 2 * B * nc * H * Q + H + B * nc * H * N * P)
+    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _flash_path_check(fa, recorded, random) -> float:
+    err = _flash_check(fa, recorded + random, "at path 2's shapes (recorded "
+                       "operands and random)")
+    _flash_rejects_wrong_outputs(fa, *recorded[0])
+    return err
+
+
+def _ssd_path_check(ssd, recorded, random) -> float:
+    err = _ssd_check_witness(ssd, [args for args, _ in recorded],
+                             "recorded at path 2's shapes")
+    return max(err, _ssd_check(ssd, [args for args, _ in random],
+                               "random at path 2's shapes"))
+
+
+def _flash_library(args, kw):
+    """One ``scaled_dot_product_attention`` call on the same operands, the
+    library yardstick (never called by the port), or None where the
+    options have no such call."""
+    if not kw.get("causal", True) or kw.get("window") is not None \
+            or kw.get("softcap"):
+        return None
+    qt, kt, vt = (t.transpose(1, 2) for t in args)
+    return lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+class Kernel(NamedTuple):
+    """What the script knows of one kernel: where it comes from, where path
+    2 calls it (the function recorded), and, for the kernels of path 2's
+    models, how it is checked, timed and bounded at the recorded shapes."""
+    source: str
+    replaces: str
+    site: tuple[str, str]   # (module, name) of the call that is recorded
+    key: Callable           # a recorded call -> its shape key
+    profiled: str = ""      # part of the kernel's name in the profiler
+    wrapper: str = ""       # the wrapper's and the plain version's names
+    plain: str = ""
+    random_operands: Callable | None = None  # (gen, key, kw, device)
+    check: Callable | None = None  # (module, recorded, random) -> max err
+    bound: Callable | None = None  # key -> (ms, by, operations, bytes)
+    library: Callable = lambda args, kw: None  # noqa: E731
+
+
+KERNELS = {
+    "minplus": Kernel(
+        "src/repro_torch/kernels/csrc/minplus.cu",
+        "src/repro/kernels/minplus.py:35",
+        ("repro_torch.core.torch_solvers", "minplus_matmul"), _minplus_key),
+    "flash_attention": Kernel(
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:29",
+        ("repro_torch.models.layers", "flash_attention"), _flash_key,
+        "flash_attention_kernel", "flash_attention", "reference_attention",
+        lambda gen, s, kw, device: (_flash_operands(
+            gen, (s[0], s[1], s[3], s[2], s[4], s[5]), device), kw),
+        _flash_path_check, _flash_bound, _flash_library),
+    "ssd": Kernel(
+        "src/repro_torch/kernels/csrc/ssd.cu",
+        "src/repro/kernels/ssd.py:25",
+        ("repro_torch.kernels.ops", "ssd_intra_chunk"), _ssd_key,
+        "ssd_intra_chunk_kernel", "ssd_intra_chunk",
+        "reference_ssd_intra_chunk",
+        lambda gen, s, kw, device: (_ssd_operands(
+            gen, (s[0], s[1] * s[3], s[2], s[4], s[5], s[3]), device), kw),
+        _ssd_path_check, _ssd_bound),
+}
+
+
+def check_model_path(name: str, mod, recorded, launches_by_path: dict,
+                     generic_err: float, device) -> dict:
+    """Phase 6 for a kernel of path 2: the kernel against its plain version
+    at every shape path 2 launched (recorded operands and random ones),
+    then each shape timed.  Returns the kernels-line entry of the shape
+    with the most launches."""
+    spec = KERNELS[name]
+    shapes, operands = recorded
+    gen = torch.Generator().manual_seed(3)
+    order = sorted(shapes, key=lambda s: (-shapes[s], str(s)))
+    err = spec.check(mod, [case for s in order for case in operands[s]],
+                     [spec.random_operands(gen, s, operands[s][0][1], device)
+                      for s in order])
+    rows = {}
+    for s in order:
+        args, kw = operands[s][0]
+        wrapper, plain = getattr(mod, spec.wrapper), getattr(mod, spec.plain)
+        ms = _kernel_device_ms(lambda: wrapper(*args, **kw), 20,
+                               spec.profiled)
+        plain_ms = _kernel_device_ms(lambda: plain(*args, **kw), 20, None)
+        bound, by, n_ops, n_bytes = spec.bound(s)
+        library = spec.library(args, kw)
+        library_ms = None
+        if library is not None:
+            lib_err = float((library().float()
+                             - plain(*args, **kw).float()).abs().max())
+            library_ms = _kernel_device_ms(library, 20, None)
+            print(f"{name} {s}: library yardstick (never called by the port) "
+                  f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
+        rows[s] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by, "library_ms": library_ms}
+        print(f"{name} {s}, {shapes[s]} launches on path 2: device time per "
+              f"launch (torch.profiler) kernel {ms!r} ms, plain {plain_ms!r} "
+              f"ms; bound {bound!r} ms by {by} ({n_ops} operations, "
+              f"{n_bytes} B)")
+    top = order[0]
+    return {"name": name, "route": "cuda", "source": spec.source,
+            "replaces": spec.replaces,
+            "launches": sum(launches_by_path.values()),
+            "max_abs_err": max(err, generic_err), "mismatches": 0,
+            **rows[top], "shape": list(top),
+            "launches_by_path": launches_by_path}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -388,29 +905,48 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as C
     import repro_torch.core.torch_solvers as TS
-    from repro_torch.kernels import minplus as mp
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card}; torch {torch.__version__}, cuda "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; TF32 off for float32 products")
 
-    t0 = time.perf_counter()
-    mp.build()
-    print(f"build: minplus in {time.perf_counter() - t0!r} s "
-          f"({mp.build_info['path']})")
-    if mp.build_info["log"]:
-        print(mp.build_info["log"].strip())
-
+    mods = {k: importlib.import_module(f"repro_torch.kernels.{k}")
+            for k in KERNELS}
+    mp = mods["minplus"]
+    build_kernels(mods)
     generic = check_minplus_generic(mp, device)
+    generic_new = check_generic(mods["flash_attention"], mods["ssd"], device)
+
     path = run_main_path(C, TS, mp)
-    kernel = check_minplus_path(mp, device, path["shapes"], path["operands"],
-                                generic)
-    kernel["launches"] = path["launches"]
+    minplus = check_minplus_path(mp, device, path["shapes"],
+                                 path["operands"], generic)
+    minplus["launches"] = path["launches"]
+    minplus["launches_by_path"] = {"planner": path["launches"]}
+
+    by_model = {}
+    for name in MODELS:
+        by_model[name] = run_model_path(name, mods, device)
+        minplus["launches_by_path"][name] = \
+            by_model[name]["launches"]["minplus"]
+    kernels = [minplus]
+    for model, kernel in MODELS.items():
+        kernels.append(check_model_path(
+            kernel, mods[kernel], by_model[model]["recorded"][kernel],
+            {m: by_model[m]["launches"][kernel] for m in MODELS},
+            generic_new[kernel], device))
+
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape", "call_ms", "plain_call_ms"]
-    print(json.dumps({"kernels": [{k: kernel[k] for k in order}]}))
+             "library_ms", "shape", "launches_by_path", "call_ms",
+             "plain_call_ms"]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start!r} s")
+    print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
+                                  for kern in kernels]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

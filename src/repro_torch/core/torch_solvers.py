@@ -98,16 +98,16 @@ def _even_split_t(L: int, K: int) -> tuple:
 
 # ------------------------------------------------------------- device scans
 def resolve_device(device: str | torch.device) -> torch.device:
-    """The device a solve runs on: what the caller names, ``"cuda"`` by
-    default.  Without a usable card a CUDA device raises -- the solvers never
-    fall back to the CPU unless the caller asks for it."""
+    """The device a solve (or a model) runs on: what the caller names,
+    ``"cuda"`` by default.  Without a usable card a CUDA device raises -- the
+    port never falls back to the CPU unless the caller asks for it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to solve on the "
+            "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"the torch solvers run on cuda or cpu, got {dev}")
+        raise ValueError(f"the port runs on cuda or cpu, got {dev}")
     return dev
 
 

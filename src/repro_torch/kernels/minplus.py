@@ -15,26 +15,22 @@ version with the same semantics.  Nothing here touches CUDA at import.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import build as _build
+
+LIBRARY = _build.KernelLibrary("minplus", {
+    "minplus_f64": [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]})
+SOURCE = LIBRARY.source
+BUILD_DIR = _build.BUILD_DIR
 
 # Kernel launches made by minplus_matmul since the count was last set to 0.
 launch_count = 0
-# What the last build of the library printed and took (seconds); None until
-# the library is first loaded in this process.
-build_info: dict | None = None
+
 
 def minplus_reference(a: torch.Tensor, b: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,50 +50,11 @@ def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(a.shape)} vs {tuple(b.shape)}")
 
 
-def _nvcc() -> Path:
-    """``$CUDA_HOME/bin/nvcc``, else the ``nvcc`` on the PATH, else the
-    toolkit's default place."""
-    if "CUDA_HOME" in os.environ:
-        return Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"
-    found = shutil.which("nvcc")
-    return Path(found) if found else Path("/usr/local/cuda/bin/nvcc")
-
-
 def build() -> Path:
-    """Compile ``csrc/minplus.cu`` into ``build/kernels/`` unless a library
-    built from the same source is already there; returns its path."""
-    global build_info
-    src = SOURCE.read_bytes()
-    out = BUILD_DIR / f"minplus_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        build_info = {"seconds": 0.0, "log": "", "path": str(out)}
-        return out
-    nvcc = _nvcc()
-    if not nvcc.is_file():
-        raise RuntimeError(f"nvcc not found at {nvcc}: the minplus kernel "
-                           f"needs the CUDA toolkit (set CUDA_HOME)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([str(nvcc), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    build_info = {"seconds": time.perf_counter() - t0,
-                  "log": proc.stdout + proc.stderr, "path": str(out)}
-    return out
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    lib.minplus_f64.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.minplus_f64.restype = ctypes.c_int
-    return lib
+    """Compile ``csrc/minplus.cu`` into ``BUILD_DIR`` unless a library
+    built from the same source is already there; returns its path (what
+    the build printed and took is then in ``LIBRARY.build_info``)."""
+    return LIBRARY.build(BUILD_DIR)
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor
@@ -133,7 +90,7 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor
     nb = 1
     for d in batch:
         nb *= d
-    fn = _lib().minplus_f64
+    fn = LIBRARY.entry("minplus_f64")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), val.data_ptr(), idx.data_ptr(),

@@ -1,0 +1,180 @@
+"""Model assembly: embedding + the block pattern repeated over the layers +
+head, for the block kinds the port runs so far (``attn``, ``local_attn``,
+``ssd``).
+
+Parameters are plain dicts of tensors.  Where the JAX package stacks each
+pattern slot's parameters over repetitions for one ``lax.scan``, the port
+keeps one dict per layer in layer order (``params["stack"]["layers"]``) and
+walks them in a Python loop.  ``models/convert.py`` carries JAX parameters
+over.  Initialisation draws from an explicit ``torch.Generator`` on the
+device the parameters live on.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.torch_solvers import resolve_device
+from . import layers as L
+from .layers import Ctx
+
+KINDS = ("attn", "local_attn", "ssd")  # block kinds the port runs
+# ROADMAP items of the block kinds that are not ported yet.
+PENDING_KINDS = {
+    "moe": "ROADMAP A, next 1: the MoE slice",
+    "moe_dense": "ROADMAP A, next 1: the MoE slice",
+    "rglru": "ROADMAP A, next 2: the RG-LRU slice",
+    "xattn": L.CROSS_ITEM,
+    "dec_block": L.CROSS_ITEM,
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in PENDING_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                  f"{PENDING_KINDS[kind]}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind}")
+
+
+# ------------------------------------------------------------------- params --
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    _check_kind(kind)
+    dt = L.pdt(cfg)
+    D = cfg.d_model
+    p: dict = {"ln1": L._zeros(gen, (D,), dt)}
+    if kind in ("attn", "local_attn"):
+        p["attn"] = L.init_attention(gen, cfg)
+        p["ln2"] = L._zeros(gen, (D,), dt)
+        p["mlp"] = L.init_mlp(gen, cfg)
+    else:  # ssd
+        p["ssd"] = L.init_ssd(gen, cfg)
+    return p
+
+
+def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
+    """Pre-norm block; returns (x, new_cache, aux_loss)."""
+    _check_kind(kind)
+    if ctx.mode == "decode":
+        raise NotImplementedError(f"decode is not ported yet: "
+                                  f"{L.CACHE_ITEM}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "local_attn"):
+        window = cfg.window if kind == "local_attn" else None
+        h, cache = L.attention_block(
+            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx, cache,
+            window=window)
+        x = x + h
+        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    else:  # ssd
+        h, cache = L.ssd_block(p["ssd"], cfg,
+                               L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
+                               cache)
+        x = x + h
+    return x, cache, aux
+
+
+def layer_kinds(n_layers: int, pattern) -> list[str]:
+    return [pattern[i % len(pattern)] for i in range(n_layers)]
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+               pattern: tuple[str, ...]) -> dict:
+    return {"layers": [init_block(gen, cfg, kind)
+                       for kind in layer_kinds(n_layers, pattern)]}
+
+
+def apply_stack(p, cfg: ModelConfig, n_layers: int, pattern, x, ctx: Ctx,
+                cache):
+    """Every layer in order.  Returns (x, new_cache, aux_sum)."""
+    if cache is not None:
+        raise NotImplementedError(f"the stack with caches is not ported yet: "
+                                  f"{L.CACHE_ITEM}")
+    kinds = layer_kinds(n_layers, pattern)
+    if len(p["layers"]) != len(kinds):
+        raise ValueError(f"{len(p['layers'])} layers of parameters for "
+                         f"{len(kinds)} layers")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(p["layers"], kinds):
+        x, _, aux = apply_block(lp, cfg, kind, x, ctx, None)
+        aux_total = aux_total + aux
+    return x, None, aux_total
+
+
+# ---------------------------------------------------------------- full model --
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts and lists (parameters,
+    or a sub-stack of them), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters drawn from ``gen``, which must live on ``device``
+    (``"cuda"`` unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator lives on {gen.device}, the "
+                         f"parameters are asked for on {dev}")
+    if cfg.enc_layers:
+        raise NotImplementedError(f"encoder stacks are not ported yet: "
+                                  f"{L.CROSS_ITEM}")
+    dt = L.pdt(cfg)
+    V, D = cfg.vocab_size, cfg.d_model
+    params = {
+        "embed": (torch.randn((V, D), generator=gen, device=gen.device)
+                  * 0.02).to(dt),
+        "final_norm": L._zeros(gen, (D,), dt),
+        "stack": init_stack(gen, cfg, cfg.n_layers, cfg.pattern),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = (torch.randn((D, V), generator=gen,
+                                      device=gen.device) / D ** 0.5).to(dt)
+    return params
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens].to(L.cdt(cfg))
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model, dtype=L.cdt(cfg),
+                             device=x.device).sqrt()
+    return x
+
+
+def head_matrix(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward(params, cfg: ModelConfig, tokens, ctx: Ctx, cache=None,
+            memory=None):
+    """tokens (B, S) -> (hidden (B, S, D), new_cache, aux)."""
+    if memory is not None:
+        raise NotImplementedError(f"modality memory is not ported yet: "
+                                  f"{L.CROSS_ITEM}")
+    x = embed_tokens(params, cfg, tokens)
+    x, new_cache, aux = apply_stack(params["stack"], cfg, cfg.n_layers,
+                                    cfg.pattern, x, ctx, cache)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_cache, aux
+
+
+def logits_last(params, cfg: ModelConfig, hidden):
+    """Final-position logits (serving)."""
+    W = head_matrix(params, cfg).to(L.cdt(cfg))
+    logits = hidden[:, -1:] @ W
+    if cfg.final_softcap:
+        logits = L.softcap(logits.float(), cfg.final_softcap)
+    return logits.float()

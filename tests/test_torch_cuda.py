@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA min-plus kernel against its plain version,
-and ``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy oracles.
+"""The port on the card: the CUDA min-plus, flash-attention and SSD kernels
+against their plain versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda``
+against the NumPy oracles, and a planned chain of a reduced model through
+the kernels against the same chain on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -13,8 +15,14 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import minplus as mp
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd
 from repro_torch.kernels.minplus import minplus_matmul, minplus_reference
+from repro_torch.models import transformer as MT
+from repro_torch.msl import ChainSimulator, plan_pipeline
 
 INF = np.inf
 pytestmark = pytest.mark.cuda
@@ -110,3 +118,127 @@ def test_solvers_on_cuda_match_numpy_oracles(cuda):
     for p, got_d, got_b in zip(problems, dfts, bcd):
         assert _plain(got_d) == _plain(T.solve(p, "dfts_np"))
         assert _plain(got_b) == _plain(T.solve(p, "bcd"))
+
+
+# flash attention: the shapes of tests/test_kernels.py plus the model path's
+# (qwen2-1.5b at B 2, S 2048), in bf16, the type the path gives the kernel.
+# Both sides round fp32 sums taken in other orders once to bf16, so they
+# differ by an ulp of bf16 in a few elements: each (batch, query, head) row
+# is held to 1e-2 of its own norm, and the largest error to 2**-6 of the
+# largest magnitude (chip_smoke.py's FLASH_TOL, which rejects an output
+# with l off by 5 % or with each row's diagonal key tile dropped).
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None, None),
+    (1, 200, 200, 8, 1, 64, True, None, 50.0),
+    (2, 256, 256, 4, 4, 128, True, 64, None),
+    (1, 64, 256, 2, 2, 64, False, None, None),
+    (1, 96, 96, 6, 3, 32, True, 32, 30.0),
+    (1, 48, 16, 2, 1, 32, False, 8, None),  # rows that see no key at all
+    (2, 2048, 2048, 12, 2, 128, True, None, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap",
+                         FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, hd, causal,
+                                       window, softcap):
+    gen = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.launch_count
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_count == before + 1
+    want = fa.reference_attention(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    d, w = out.float() - want.float(), want.float()
+    assert float((d.norm(dim=-1) / w.norm(dim=-1)).max()) < 1e-2
+    assert float(d.abs().max()) <= 2.0 ** -6 * float(w.abs().max())
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="head widths"):
+        fa.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                           q[..., :48].contiguous())
+    with pytest.raises(ValueError, match="devices"):
+        fa.flash_attention(q, q.cpu(), q)
+
+
+# SSD intra-chunk: the shapes of tests/test_kernels.py, the reduced mamba2's
+# head width 16, and the model path's (mamba2-370m at B 2, S 2048), float32;
+# 1e-4 (1e-5 for the decay), the tolerances of tests/test_kernels.py
+SSD_CASES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
+             (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100),
+             (2, 2048, 32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES)
+def test_ssd_matches_plain(cuda, B, S, H, P, N, Q):
+    gen = torch.Generator(device=cuda).manual_seed(S + N)
+    nc = S // Q
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    x = randn(B, nc, H, Q, P)
+    Bm, Cm = randn(B, nc, Q, N, scale=0.3), randn(B, nc, Q, N, scale=0.3)
+    dt = torch.rand((B, nc, H, Q), generator=gen, device=cuda) * 0.19 + 0.01
+    A = torch.rand((H,), generator=gen, device=cuda) * 3.5 + 0.5
+    before = ssd.launch_count
+    got = ssd.ssd_intra_chunk(x, Bm, Cm, dt, A)
+    torch.cuda.synchronize()
+    assert ssd.launch_count == before + 1
+    want = ssd.reference_ssd_intra_chunk(x, Bm, Cm, dt, A)
+    for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-5)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.allclose(g, w, atol=tol, rtol=tol)
+
+
+def test_ssd_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 2, 2, 32, 32), device=cuda)
+    Bm = torch.zeros((1, 2, 32, 16), device=cuda)
+    dt = torch.zeros((1, 2, 2, 32), device=cuda)
+    A = torch.ones((2,), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_intra_chunk(x.double(), Bm, Bm, dt, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_intra_chunk(x, Bm.transpose(-1, -2).contiguous().transpose(
+            -1, -2), Bm, dt, A)
+    with pytest.raises(ValueError, match="HEAD_WIDTHS|head|P in"):
+        ssd.ssd_intra_chunk(torch.zeros((1, 2, 2, 32, 24), device=cuda), Bm,
+                            Bm, dt, A)
+    with pytest.raises(ValueError, match="devices"):
+        ssd.ssd_intra_chunk(x, Bm, Bm, dt, A.cpu())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m"])
+def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch):
+    """A reduced model, planned with ``bcd_torch`` and run by the chain
+    simulator on the card (through the kernels), against the same chain on
+    the CPU (plain versions), in bf16: 5e-2 of the largest magnitude, the
+    bound of a bf16 stack in tests/test_torch_models.py."""
+    cfg = ARCHS[arch].reduced(n_layers=4 * len(ARCHS[arch].pattern),
+                              ssm_head_dim=32, head_dim=32)
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    pp = plan_pipeline(cfg, seq_len=64, microbatch=2, mode="IF",
+                       candidate_K=(2,), n_groups_mesh=4, chips_per_group=8)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    launches = fa.launch_count + ssd.launch_count
+    got = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
+                         pp.problem.request).run_plan(pp.plan, tokens.to(cuda))
+    assert fa.launch_count + ssd.launch_count == launches + cfg.n_layers
+    want = ChainSimulator(cfg, cpu_params, pp.problem.net, pp.problem.profile,
+                          pp.problem.request).run_plan(pp.plan, tokens)
+    ref = want.hidden.float()
+    err = (got.hidden.float().cpu() - ref).abs().max()
+    assert float(err / ref.abs().max()) < 5e-2
+

@@ -48,7 +48,10 @@ def test_scan_catches_forbidden_imports():
 
 def test_import_initialises_no_cuda():
     code = ("import sys, torch, repro_torch, repro_torch.core, "
-            "repro_torch.core.torch_solvers, repro_torch.kernels.minplus\n"
+            "repro_torch.core.torch_solvers, repro_torch.kernels.minplus, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd, "
+            "repro_torch.kernels.ops, repro_torch.configs, "
+            "repro_torch.models, repro_torch.msl\n"
             "assert not torch.cuda.is_initialized()\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               or m == 'repro' for m in sys.modules)\n")

@@ -1,0 +1,126 @@
+"""The port's SSD intra-chunk terms and composed SSD forward on the CPU,
+against the JAX package.
+
+``repro_torch.kernels.ssd`` holds the plain version
+``reference_ssd_intra_chunk`` and the wrapper ``ssd_intra_chunk`` (the plain
+version for CPU tensors); ``repro_torch.kernels.ops.ssd_forward`` composes it
+with the inter-chunk recurrence.  They are held against the JAX oracle
+``ref.reference_ssd_intra_chunk``, the Pallas kernel in interpret mode, the
+JAX ``ops.ssd_forward`` and the model's own ``layers._ssd_chunked`` (which
+takes ``-A``), on the same numpy inputs, at the tolerances of
+``tests/test_kernels.py``: 1e-4 absolute and relative (1e-5 for the decay
+``exp(cum)``); float32 sums taken in other orders.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.models.layers import _ssd_chunked
+from repro_torch.kernels import ops, ssd
+
+SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64)]
+
+
+def _chunked(seed, B, S, H, P, N, Q):
+    rng = np.random.default_rng(seed)
+    nc = S // Q
+    f32 = np.float32
+    return (rng.standard_normal((B, nc, H, Q, P)).astype(f32),
+            (rng.standard_normal((B, nc, Q, N)) * 0.3).astype(f32),
+            (rng.standard_normal((B, nc, Q, N)) * 0.3).astype(f32),
+            rng.uniform(0.01, 0.2, (B, nc, H, Q)).astype(f32),
+            rng.uniform(0.5, 4.0, (H,)).astype(f32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SHAPES)
+def test_intra_chunk_matches_jax_oracle_and_pallas(B, S, H, P, N, Q):
+    args = _chunked(S + N, B, S, H, P, N, Q)
+    before = ssd.launch_count
+    got = ssd.ssd_intra_chunk(*map(torch.from_numpy, args))
+    assert ssd.launch_count == before  # the CPU takes the plain version
+    plain = ssd.reference_ssd_intra_chunk(*map(torch.from_numpy, args))
+    for g, p in zip(got, plain):
+        assert g.dtype == torch.float32 and torch.equal(g, p)
+    for want in (ref.reference_ssd_intra_chunk(*map(jnp.asarray, args)),
+                 jops.ssd_intra_chunk(*map(jnp.asarray, args))):
+        (y, hc, dec), (ye, hce, dece) = got, want
+        assert hc.shape == (B, S // Q, H, N, P)
+        _close(y, ye, 1e-4)
+        _close(hc, hce, 1e-4)
+        _close(dec, dece, 1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SHAPES)
+def test_plain_version_in_float64_is_a_witness_of_the_jax_oracle(B, S, H, P,
+                                                                 N, Q):
+    """``dtype=torch.float64`` computes the same terms in float64 (the
+    witness chip_smoke.py holds the kernel to): within the float32 oracle's
+    tolerance of it, and in float64 throughout."""
+    args = _chunked(S + N + 1, B, S, H, P, N, Q)
+    got = ssd.reference_ssd_intra_chunk(*map(torch.from_numpy, args),
+                                        dtype=torch.float64)
+    want = ref.reference_ssd_intra_chunk(*map(jnp.asarray, args))
+    for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-5)):
+        assert g.dtype == torch.float64
+        _close(g, w, tol)
+
+
+def _sequence(seed, B, S, H, P, N):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return (rng.standard_normal((B, S, H, P)).astype(f32),
+            rng.uniform(0.01, 0.2, (B, S, H)).astype(f32),
+            rng.uniform(0.5, 4.0, (H,)).astype(f32),
+            (rng.standard_normal((B, S, N)) * 0.3).astype(f32),
+            (rng.standard_normal((B, S, N)) * 0.3).astype(f32))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SHAPES + [(2, 64, 3, 16, 16, 16)])
+def test_ssd_forward_matches_jax_forward_and_model_layer(B, S, H, P, N, Q):
+    x, dt, A, Bm, Cm = _sequence(S + P, B, S, H, P, N)
+    y, h = ops.ssd_forward(*map(torch.from_numpy, (x, dt, A, Bm, Cm)),
+                           chunk=Q)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    j = list(map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    y_k, h_k = jops.ssd_forward(*j, chunk=Q)
+    y_m, h_m = _ssd_chunked(j[0], j[1], -j[2], j[3], j[4], None, chunk=Q)
+    for yw, hw in ((y_k, h_k), (y_m, h_m)):
+        _close(y, yw, 1e-4)
+        _close(h, hw, 1e-4)
+
+
+def test_ssd_forward_carries_an_initial_state():
+    x, dt, A, Bm, Cm = _sequence(3, 1, 64, 2, 16, 8)
+    h0 = np.random.default_rng(4).standard_normal((1, 2, 16, 8)).astype(
+        np.float32)
+    y, h = ops.ssd_forward(*map(torch.from_numpy, (x, dt, A, Bm, Cm, h0)),
+                           chunk=16)
+    j = list(map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    y_m, h_m = _ssd_chunked(j[0], j[1], -j[2], j[3], j[4], jnp.asarray(h0),
+                            chunk=16)
+    _close(y, y_m, 1e-4)
+    _close(h, h_m, 1e-4)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    x, Bm, Cm, dt, A = map(torch.from_numpy, _chunked(0, 1, 64, 2, 16, 8, 32))
+    with pytest.raises(ValueError, match="B and C"):
+        ssd.ssd_intra_chunk(x, Bm[..., :-1, :], Cm, dt, A)
+    with pytest.raises(ValueError, match="dt"):
+        ssd.ssd_intra_chunk(x, Bm, Cm, dt, A[:1])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssd.ssd_intra_chunk(*(t.to("meta") for t in (x, Bm, Cm, dt, A)))
+    with pytest.raises(ValueError, match="divide"):
+        ops.ssd_forward(torch.zeros((1, 48, 2, 16)), torch.zeros((1, 48, 2)),
+                        A, torch.zeros((1, 48, 8)), torch.zeros((1, 48, 8)),
+                        chunk=32)
