@@ -8,10 +8,21 @@ Path 1 is the batched planner: ``ProblemInstance`` ->
 ``cuda`` -> ``Plan`` + ``LatencyBreakdown``, through the min-plus kernel.
 Path 2 is plan execution: ``repro_torch.msl.plan_pipeline`` (``bcd_torch``
 on ``cuda``, the min-plus kernel again) -> ``ChainSimulator.run_plan``,
-which runs qwen2-1.5b (every block through the flash-attention kernel) and
-then mamba2-370m (every block through the SSD kernel) at full width and
-full depth, B 2 x S 2048 tokens, random weights from a seed.  Phases, in
-order; any failure exits non-zero:
+which runs four models at full width and full depth with random weights
+from a seed, one after the other (MODELS):
+
+* qwen2-1.5b, B 2 x S 2048, every block through the flash-attention kernel;
+* mamba2-370m, B 2 x S 2048, every block through the SSD kernel;
+* qwen3-moe-30b-a3b, B 2 x S 2048, every block through flash attention and
+  three launches of the expert-matmul kernel.  Its one change from the
+  published config: the weights are stored in bf16 (61.1 GB; 122 GB in
+  float32 fits no card), which the bf16 compute rounds them to at every use
+  anyway; the router stays float32;
+* recurrentgemma-9b, B 1 x S 4096 (so that the 2048-token window of its
+  local attention cuts keys), its ``rglru`` blocks through the RG-LRU kernel
+  and its ``local_attn`` blocks through flash attention at head width 256.
+
+Phases, in order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
    TF32 is switched off for float32 products and convolutions;
@@ -19,8 +30,9 @@ order; any failure exits non-zero:
    ``nvcc`` per source, all started together (sm_90a, ``build/kernels/``);
 3. kernel vs plain, generic: min-plus held with ``==`` against its plain
    version (ties, +inf holes, off-tile shapes); flash attention in bf16 at
-   FLASH_TOL and SSD in float32 at SSD_TOL (the tolerances of
-   ``tests/test_kernels.py``), at that file's shapes and a few more;
+   FLASH_TOL, SSD in float32 at SSD_TOL, the expert matmul in bf16 at
+   GMM_TOL and the RG-LRU scan at RGLRU_TOL, at ``tests/test_kernels.py``'s
+   shapes and a few more;
 4. path 1: the 96-instance population of the solver benchmark (NSFNET,
    ResNet-101 at its full 37 layer groups) through ``dfts_torch`` (distinct,
    then cycled to 1024) and ``bcd_torch``, every outcome ``==`` the port's
@@ -28,28 +40,34 @@ order; any failure exits non-zero:
    every launch's shape and first operands recorded; then min-plus against
    its plain version on the recorded operands, each shape timed;
 5. path 2, one model after the other: the counts set to 0, the plan and the
-   planned chain run on the card, the counts read (min-plus and the model's
-   kernel must both have launched), every kernel call's shape and first
+   planned chain run on the card, the counts read (min-plus and each of the
+   model's kernels must have launched), every kernel call's shape and first
    operands recorded; the chain's hidden state ``==`` the port's monolithic
    ``apply_stack`` on the card (the same blocks in the same order); the
    first two groups at S 512 on the card (kernels) within CHECK_TOL of
    their largest magnitude of the same groups on the CPU (plain versions),
-   in bf16; each stage's measured compute printed beside the planner's
-   prediction; the model freed before the next;
+   in bf16 (route-aware for MoE: a token whose kept experts differ must
+   first differ at a near tie on the CPU side, and the tokens that keep
+   the same experts at every layer are compared); each stage's measured compute printed beside the
+   planner's prediction; the model freed before the next;
 6. kernel vs plain at path 2's shapes, on the recorded operands and random
    ones: flash attention at FLASH_TOL, which must also reject two wrong
    outputs (l off by 5 %, each row's diagonal key tile dropped); SSD's y and
-   chunk states on the recorded operands against a float64 witness, at
-   SSD_WITNESS times the plain version's own error (random operands at
-   SSD_TOL); then each shape timed by ``torch.profiler`` device
-   time beside its plain version, its bound and (flash attention) one
-   ``scaled_dot_product_attention`` call; SSD has no single library call;
+   chunk states, and the RG-LRU scan, on the recorded operands against a
+   float64 witness, at SSD_WITNESS and RGLRU_WITNESS times the plain
+   version's own error (random operands at SSD_TOL and RGLRU_TOL); the
+   expert matmul at GMM_TOL; then each shape timed by ``torch.profiler``
+   device time beside its plain version, its bound and its library
+   yardstick (``scaled_dot_product_attention`` for flash attention,
+   ``torch.bmm`` with the activation for the expert matmul; SSD and RG-LRU
+   have no single library call);
 7. one JSON line of per-kernel numbers, the card line, then the result line.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import importlib
 import json
 import statistics
@@ -69,8 +87,7 @@ FP64_OPS_PER_S = 34e12      # H100 SXM fp64 outside the tensor cores (ditto)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (ditto)
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (ditto)
 EXTRA_SHAPE = (1024, 1, 16, 16)  # (batch, M, K, N): a scan at Sp = 16
-RECORDED_OPERANDS = 3  # operand pairs kept per (batch, M, K, N) on the path
-SEQ, BATCH = 2048, 2   # path 2: tokens per sequence, sequences
+RECORDED_OPERANDS = 3  # operand sets kept per shape of a kernel's calls
 CHECK_SEQ = 512        # path 2: sequence of the card-vs-CPU check
 # Flash attention, bf16: kernel and plain version round fp32 values summed
 # in different orders once to bf16, so they differ by an ulp of bf16 in a
@@ -86,10 +103,39 @@ SSD_TOL = (1e-4, 1e-4, 1e-5)  # y, chunk states, decay (tests/test_kernels.py)
 # value, where the plain version is exact).  The decay stays at SSD_TOL[2].
 SSD_WITNESS = 4.0
 FP32_EPS = 2.0 ** -23
+# Expert matmul, bf16: both sides sum exact products in fp32 (in other
+# orders) and round once to bf16, so they differ by an ulp of bf16 in a few
+# elements: elementwise within GMM_TOL of |want| plus GMM_TOL of max |want|.
+GMM_TOL = 2.0 ** -7
+# RG-LRU, float32: the kernel's sequential chunks and the plain version's
+# doubling scan round the same recurrence in other orders: max |got - want|
+# at most RGLRU_TOL of max |want| (tests/test_kernels.py's 1e-5).  On the
+# path's recorded operands both are held to the float64 witness: the
+# kernel's largest error at most RGLRU_WITNESS times the plain version's
+# (or eps of the largest value, where the plain version is exact).
+RGLRU_TOL = 1e-5
+RGLRU_WITNESS = 4.0
 CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 #                   magnitude (PERF.md gives the readings it was set from)
-# path 2, in this order: each model and the kernel its blocks run
-MODELS = {"qwen2-1.5b": "flash_attention", "mamba2-370m": "ssd"}
+
+
+class PathModel(NamedTuple):
+    """One model of path 2: the kernels its blocks run, its batch and
+    sequence, and its changes from the published config."""
+    kernels: tuple[str, ...]
+    batch: int
+    seq: int
+    overrides: dict = {}
+
+
+# path 2, in this order
+MODELS = {
+    "qwen2-1.5b": PathModel(("flash_attention",), 2, 2048),
+    "mamba2-370m": PathModel(("ssd",), 2, 2048),
+    "qwen3-moe-30b-a3b": PathModel(("flash_attention", "moe_gmm"), 2, 2048,
+                                   {"param_dtype": "bfloat16"}),
+    "recurrentgemma-9b": PathModel(("flash_attention", "rglru"), 1, 4096),
+}
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): tests/test_kernels.py's
 # cases, rows that see no key, and randomised GQA shapes
 FLASH_GENERIC = [
@@ -102,10 +148,21 @@ FLASH_GENERIC = [
     (1, 37, 37, 8, 2, 128, True, None, None),
     (1, 130, 130, 4, 4, 32, True, None, None),
     (3, 70, 70, 2, 1, 64, False, None, None),
+    (1, 200, 200, 4, 1, 256, True, None, None),
+    (1, 300, 300, 4, 2, 256, True, 128, None),
+    (2, 96, 96, 2, 1, 256, False, 40, 30.0),
 ]
 # (B, S, H, P, N, Q): tests/test_kernels.py's cases, head width 16, a ragged Q
 SSD_GENERIC = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
                (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100)]
+# (E, C, D, F, activation): tests/test_kernels.py's cases, a ragged D and F
+# (element loads), one row tile short of the MoE path's C
+GMM_GENERIC = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
+               (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
+               (2, 256, 2048, 768, "none")]
+# (B, S, W): tests/test_kernels.py's cases, one step, a chunk and a half
+RGLRU_GENERIC = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
+                 (1, 192, 1000)]
 
 
 def _card_line() -> str:
@@ -591,15 +648,105 @@ def _ssd_check_witness(ssd, cases, what: str) -> float:
     return max_err
 
 
-def check_generic(fa, ssd, device) -> dict:
-    """Phase 3 for flash attention and SSD: the kernels against their plain
-    versions on random operands at shapes off the path."""
+def _gmm_operands(gen, shape, device):
+    """x and w of an expert matmul at ``(E, C, D, F, activation)`` in bf16,
+    w scaled by D^-1/2 (outputs of order 1), with the activation as kw."""
+    E, C, D, F_, act = shape
+    x = torch.randn((E, C, D), generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn((E, D, F_), generator=gen) * D ** -0.5).to(
+        device, torch.bfloat16)
+    return (x, w), {"activation": act}
+
+
+def _gmm_check(gmm, cases, what: str) -> float:
+    """The kernel against its plain version on each ``((x, w), kw)`` at
+    GMM_TOL; raises on a failure, else returns the max_abs_err."""
+    failures, max_err, worst = 0, 0.0, 0.0
+    for (x, w), kw in cases:
+        got = gmm.expert_matmul(x, w, **kw).float()
+        want = gmm.reference_expert_matmul(x, w, **kw).float()
+        top = float(want.abs().max())
+        d = (got - want).abs()
+        failures += not bool((d <= GMM_TOL * (want.abs() + top)).all())
+        max_err = max(max_err, float(d.max()))
+        worst = max(worst, float(d.max()) / top)
+    line = (f"moe_gmm {what}: {len(cases)} bf16 cases, max error {worst!r} of "
+            f"the largest |want| (elementwise limit {GMM_TOL} of |want| + "
+            f"{GMM_TOL} of the largest), max_abs_err {max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} cases past the limit")
+    print(line)
+    return max_err
+
+
+def _rglru_operands(gen, shape, device):
+    """a in [0.7, 0.999) and b of an RG-LRU scan at ``(B, S, W)``."""
+    return ((torch.rand(shape, generator=gen) * 0.299 + 0.7).to(device),
+            (torch.randn(shape, generator=gen) * 0.1).to(device))
+
+
+def _rglru_check(rglru, cases, what: str) -> float:
+    """The kernel against its plain version on each ``(a, b)`` at RGLRU_TOL
+    of the largest |h|; raises on a failure, else returns the
+    max_abs_err."""
+    failures, max_err, worst = 0, 0.0, 0.0
+    for a, b in cases:
+        got, want = rglru.rglru_scan(a, b), rglru.reference_rglru_scan(a, b)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        failures += not rel <= RGLRU_TOL
+        max_err, worst = max(max_err, err), max(worst, rel)
+    line = (f"rglru {what}: {len(cases)} float32 cases, max error {worst!r} "
+            f"of the largest |h| (limit {RGLRU_TOL}), max_abs_err {max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} cases past the limit")
+    print(line)
+    return max_err
+
+
+def _rglru_check_witness(rglru, cases, what: str) -> float:
+    """The kernel and its plain version against the plain version computed
+    in float64: the kernel's largest error at most RGLRU_WITNESS times the
+    plain version's (or eps of the largest value, where the plain version
+    is exact).  Raises on a failure, else returns the max_abs_err against
+    the plain version."""
+    failures, max_err = 0, 0.0
+    for n, (a, b) in enumerate(cases):
+        got, want = rglru.rglru_scan(a, b), rglru.reference_rglru_scan(a, b)
+        exact = rglru.reference_rglru_scan(a, b, dtype=torch.float64)
+        top = float(exact.abs().max())
+        err_k = float((got.double() - exact).abs().max())
+        err_p = float((want.double() - exact).abs().max())
+        limit = RGLRU_WITNESS * max(err_p, FP32_EPS * top)
+        failures += not err_k <= limit
+        vs_plain = float((got - want).abs().max())
+        max_err = max(max_err, vs_plain)
+        print(f"rglru {what}, case {n}, against float64: kernel {err_k!r} "
+              f"(limit {limit!r}), plain {err_p!r}; kernel vs plain "
+              f"{vs_plain!r}; largest |h| {top!r}, a in "
+              f"[{float(a.min())!r}, {float(a.max())!r}]")
+    if failures:
+        raise AssertionError(f"rglru {what}: {failures} cases past the "
+                             f"limit")
+    return max_err
+
+
+def check_generic(mods, device) -> dict:
+    """Phase 3 for the kernels of path 2: each against its plain version on
+    random operands at shapes off the path."""
     gen = torch.Generator().manual_seed(2)
-    err = _flash_check(fa, [(_flash_operands(gen, s, device), _flash_kw(s))
-                            for s in FLASH_GENERIC], "generic")
-    err2 = _ssd_check(ssd, [_ssd_operands(gen, s, device)
-                            for s in SSD_GENERIC], "generic")
-    return {"flash_attention": err, "ssd": err2}
+    return {
+        "flash_attention": _flash_check(
+            mods["flash_attention"], [(_flash_operands(gen, s, device),
+                                       _flash_kw(s)) for s in FLASH_GENERIC],
+            "generic"),
+        "ssd": _ssd_check(mods["ssd"], [_ssd_operands(gen, s, device)
+                                        for s in SSD_GENERIC], "generic"),
+        "moe_gmm": _gmm_check(mods["moe_gmm"], [
+            _gmm_operands(gen, s, device) for s in GMM_GENERIC], "generic"),
+        "rglru": _rglru_check(mods["rglru"], [
+            _rglru_operands(gen, s, device) for s in RGLRU_GENERIC],
+            "generic")}
 
 
 @contextlib.contextmanager
@@ -616,7 +763,8 @@ def record_calls(module, name: str, key_fn):
         key = key_fn(*args, **kw)
         shapes[key] += 1
         if len(operands[key]) < RECORDED_OPERANDS:
-            operands[key].append((tuple(a.clone() for a in args), dict(kw)))
+            operands[key].append((tuple(a.clone() if torch.is_tensor(a)
+                                        else a for a in args), dict(kw)))
         return wrapped(*args, **kw)
 
     setattr(module, name, recorder)
@@ -641,10 +789,85 @@ def _minplus_key(a, b):
     return (tuple(a.shape[:-2]), a.shape[-2], a.shape[-1], b.shape[-1])
 
 
-def _rel_err(got, want) -> float:
-    want = want.float()
-    return float((got.float().cpu() - want.cpu()).abs().max()
-                 / want.abs().max())
+def _gmm_key(x, w, activation="none"):
+    return (*x.shape, w.shape[2], activation)  # (E, C, D, F, activation)
+
+
+def _rglru_key(a, b):
+    return tuple(a.shape)  # (B, S, W)
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Record every MoE layer's routing inside the block: yields a list of
+    (logits, idx, keep), one per layer in order."""
+    from repro_torch.models import layers as ML
+
+    routes: list = []
+    route = ML.moe_route
+
+    def recorder(router, cfg, toks):
+        r = route(router, cfg, toks)
+        routes.append((r.logits, r.idx, r.keep))
+        return r
+
+    ML.moe_route = recorder
+    try:
+        yield routes
+    finally:
+        ML.moe_route = route
+
+
+def _check_on_cpu(name, cfg, params, tokens, pos) -> None:
+    """The first two groups at S = CHECK_SEQ on the card (kernels) against
+    the same groups on the CPU (plain versions), within CHECK_TOL of the
+    largest magnitude; route-aware where they hold MoE layers: every token
+    whose kept experts differ must first differ at a near tie on the CPU
+    side (``routing_agreement``, within CHECK_TOL of the largest |logit|),
+    half the tokens at least must keep the same experts at every layer, and
+    those are compared."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    n = 2 * len(cfg.pattern)
+    sub = {"layers": params["stack"]["layers"][:n]}
+    x = MT.embed_tokens(params, cfg, tokens[:, :CHECK_SEQ])
+    ctx = ML.Ctx(mode="prefill", positions=pos[:, :CHECK_SEQ])
+    t0 = time.perf_counter()
+    with record_routes() as card_routes:
+        on_card, _, _ = MT.apply_stack(sub, cfg, n, cfg.pattern, x, ctx,
+                                       None)
+    with record_routes() as cpu_routes:
+        on_cpu, _, _ = MT.apply_stack(
+            MT.tree_map(lambda t: t.cpu(), sub), cfg, n, cfg.pattern,
+            x.cpu(), ML.Ctx(mode="prefill", positions=ctx.positions.cpu()),
+            None)
+    got = on_card.float().cpu().reshape(-1, cfg.d_model)
+    want = on_cpu.float().reshape(-1, cfg.d_model)
+    routed = ""
+    if cpu_routes:
+        ra = ML.routing_agreement(card_routes, cpu_routes)
+        routed = (f"; routing: {ra.flips} of {ra.picks} expert picks differ "
+                  f"by slot, {ra.diverged} of {len(want)} tokens keep other "
+                  f"experts at some layer, each first at a near tie (the "
+                  f"largest distance of a differing expert from the CPU's "
+                  f"top-k cut {ra.worst_gap!r} of the largest |logit|, "
+                  f"limit {CHECK_TOL}); {int(ra.agree.sum())} tokens keep "
+                  f"the same experts at every layer and are compared")
+        if not ra.flips_are_near_ties(CHECK_TOL) \
+                or 2 * int(ra.agree.sum()) < len(want):
+            raise AssertionError(f"{name}: the card's routing is not the "
+                                 f"CPU's up to near ties{routed}")
+        got, want = got[ra.agree], want[ra.agree]
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err < CHECK_TOL:
+        raise AssertionError(f"{name}: first two groups on the card differ "
+                             f"from the CPU by {err!r} of the largest "
+                             f"magnitude (limit {CHECK_TOL}){routed}")
+    print(f"{name}: first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
+          f"(plain versions) in {cfg.compute_dtype}: {err!r} of the largest "
+          f"magnitude (limit {CHECK_TOL}){routed}, in "
+          f"{time.perf_counter() - t0!r} s")
 
 
 def run_model_path(name: str, mods: dict, device) -> dict:
@@ -656,28 +879,34 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     from repro_torch.models import transformer as MT
     from repro_torch.msl import ChainSimulator, plan_pipeline
 
-    cfg = ARCHS[name]
+    spec = MODELS[name]
+    cfg = dataclasses.replace(ARCHS[name], **spec.overrides)
+    B, S = spec.batch, spec.seq
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = MT.init_params(torch.Generator(device=device).manual_seed(0),
                             cfg, device=device)
     n_params = sum(t.numel() for t in MT.tree_leaves(params))
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in MT.tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(1)
                            ).to(device)
     torch.cuda.synchronize()
     print(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params} parameters ({cfg.param_dtype}, compute "
-          f"{cfg.compute_dtype}) on the card in "
-          f"{time.perf_counter() - t0!r} s")
+          f"{n_params} parameters, {n_bytes} B ({cfg.param_dtype}, compute "
+          f"{cfg.compute_dtype}; changed from the published config: "
+          f"{spec.overrides or 'nothing'}) on the card in "
+          f"{time.perf_counter() - t0!r} s; B {B} x S {S}")
 
     with contextlib.ExitStack() as stack:
         recorded = {k: stack.enter_context(record_calls(
-            importlib.import_module(spec.site[0]), spec.site[1], spec.key))
-            for k, spec in KERNELS.items()}
+            importlib.import_module(ks.site[0]), ks.site[1], ks.key))
+            for k, ks in KERNELS.items()}
         for m in mods.values():
             m.launch_count = 0
         t1 = time.perf_counter()
-        pp = plan_pipeline(cfg, seq_len=SEQ, microbatch=BATCH, mode="IF",
+        pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="IF",
                            device=device)
         t2 = time.perf_counter()
         sim = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
@@ -686,7 +915,7 @@ def run_model_path(name: str, mods: dict, device) -> dict:
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         launches = {k: m.launch_count for k, m in mods.items()}
-    for k in ("minplus", MODELS[name]):
+    for k in ("minplus",) + spec.kernels:
         if launches[k] == 0:
             raise AssertionError(f"{name}: path 2 launched no {k} kernel")
     for k, (shapes, _) in recorded.items():
@@ -714,10 +943,10 @@ def run_model_path(name: str, mods: dict, device) -> dict:
               f"compute {t.compute_s_measured!r} s")
 
     h = out.hidden
-    if h.shape != (BATCH, SEQ, cfg.d_model) or not torch.isfinite(h).all():
+    if h.shape != (B, S, cfg.d_model) or not torch.isfinite(h).all():
         raise AssertionError(f"{name}: hidden state {tuple(h.shape)} is not "
-                             f"finite of shape {(BATCH, SEQ, cfg.d_model)}")
-    pos = torch.arange(SEQ, device=device).expand(BATCH, SEQ)
+                             f"finite of shape {(B, S, cfg.d_model)}")
+    pos = torch.arange(S, device=device).expand(B, S)
     ctx = ML.Ctx(mode="prefill", positions=pos)
     mono, _, _ = MT.apply_stack(params["stack"], cfg, cfg.n_layers,
                                 cfg.pattern, MT.embed_tokens(params, cfg,
@@ -728,26 +957,10 @@ def run_model_path(name: str, mods: dict, device) -> dict:
                              f"apply_stack by up to "
                              f"{float((h.float() - mono.float()).abs().max())}")
     print(f"{name}: chain's hidden state == monolithic apply_stack on the card "
-          f"(max |h| {float(h.float().abs().max())!r})")
-
-    n = 2 * len(cfg.pattern)  # the first two groups, at S = CHECK_SEQ
-    sub = {"layers": params["stack"]["layers"][:n]}
-    x = MT.embed_tokens(params, cfg, tokens[:, :CHECK_SEQ])
-    ctx = ML.Ctx(mode="prefill", positions=pos[:, :CHECK_SEQ])
-    t4 = time.perf_counter()
-    on_card, _, _ = MT.apply_stack(sub, cfg, n, cfg.pattern, x, ctx, None)
-    on_cpu, _, _ = MT.apply_stack(
-        MT.tree_map(lambda t: t.cpu(), sub), cfg, n, cfg.pattern, x.cpu(),
-        ML.Ctx(mode="prefill", positions=ctx.positions.cpu()), None)
-    err = _rel_err(on_card, on_cpu)
-    if not err < CHECK_TOL:
-        raise AssertionError(f"{name}: first two groups on the card differ "
-                             f"from the CPU by {err!r} of the largest "
-                             f"magnitude (limit {CHECK_TOL})")
-    print(f"{name}: first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
-          f"(plain versions) in {cfg.compute_dtype}: {err!r} of the largest "
-          f"magnitude (limit {CHECK_TOL}), in {time.perf_counter() - t4!r} s")
-    del params, sim, out, warm, h, mono, sub, x, on_card, on_cpu
+          f"(max |h| {float(h.float().abs().max())!r}); peak device memory "
+          f"{torch.cuda.max_memory_allocated()} B")
+    _check_on_cpu(name, cfg, params, tokens, pos)
+    del params, sim, out, warm, h, mono
     torch.cuda.empty_cache()
     return {"launches": launches, "recorded": recorded}
 
@@ -785,11 +998,47 @@ def _ssd_bound(key) -> tuple[float, str, int, int]:
             "bytes", n_ops, n_bytes)
 
 
+def _gmm_bound(key) -> tuple[float, str, int, int]:
+    """Every row of the buffers, filled or not, as the function computes
+    them: 2 E C D F operations, x and w read and the output written once."""
+    E, C, D, F_, _ = key
+    n_ops = 2 * E * C * D * F_
+    n_bytes = 2 * (E * C * D + E * D * F_ + E * C * F_)
+    op_ms = n_ops / BF16_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _rglru_bound(key) -> tuple[float, str, int, int]:
+    """a and b read and h written once; a multiply-add per element."""
+    n = key[0] * key[1] * key[2]
+    n_ops, n_bytes = 2 * n, 12 * n
+    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
 def _flash_path_check(fa, recorded, random) -> float:
     err = _flash_check(fa, recorded + random, "at path 2's shapes (recorded "
                        "operands and random)")
-    _flash_rejects_wrong_outputs(fa, *recorded[0])
+    _flash_rejects_wrong_outputs(fa, *next(
+        case for case in recorded if case[1].get("causal", True)
+        and not case[1].get("window") and not case[1].get("softcap")))
     return err
+
+
+def _gmm_path_check(gmm, recorded, random) -> float:
+    return _gmm_check(gmm, recorded + random, "at path 2's shapes (recorded "
+                      "operands and random)")
+
+
+def _rglru_path_check(rglru, recorded, random) -> float:
+    err = _rglru_check_witness(rglru, [args for args, _ in recorded],
+                               "recorded at path 2's shapes")
+    return max(err, _rglru_check(rglru, [args for args, _ in random],
+                                 "random at path 2's shapes"))
 
 
 def _ssd_path_check(ssd, recorded, random) -> float:
@@ -801,14 +1050,31 @@ def _ssd_path_check(ssd, recorded, random) -> float:
 
 def _flash_library(args, kw):
     """One ``scaled_dot_product_attention`` call on the same operands, the
-    library yardstick (never called by the port), or None where the
-    options have no such call."""
-    if not kw.get("causal", True) or kw.get("window") is not None \
-            or kw.get("softcap"):
+    library yardstick (never called by the port): causal, or with the
+    causal window as a boolean mask; None where the options have no such
+    call (a softcap, or no causal mask)."""
+    if not kw.get("causal", True) or kw.get("softcap"):
         return None
     qt, kt, vt = (t.transpose(1, 2) for t in args)
+    window = kw.get("window")
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    qi = torch.arange(qt.shape[2], device=qt.device)[:, None]
+    ki = torch.arange(kt.shape[2], device=qt.device)[None, :]
+    mask = (qi >= ki) & (qi - ki < window)
     return lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def _gmm_library(args, kw):
+    """One ``torch.bmm`` (with the activation, for the gate) on the same
+    operands, the library yardstick (never called by the port)."""
+    x, w = args
+    act = {"none": lambda t: t, "silu": F.silu,
+           "gelu": lambda t: F.gelu(t, approximate="tanh")}[
+        kw.get("activation", "none")]
+    return lambda: act(torch.bmm(x, w))  # noqa: E731
 
 
 class Kernel(NamedTuple):
@@ -850,6 +1116,20 @@ KERNELS = {
         lambda gen, s, kw, device: (_ssd_operands(
             gen, (s[0], s[1] * s[3], s[2], s[4], s[5], s[3]), device), kw),
         _ssd_path_check, _ssd_bound),
+    "moe_gmm": Kernel(
+        "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "src/repro/kernels/moe_gmm.py:22",
+        ("repro_torch.models.layers", "expert_matmul"), _gmm_key,
+        "expert_matmul_kernel", "expert_matmul", "reference_expert_matmul",
+        lambda gen, s, kw, device: _gmm_operands(gen, s, device),
+        _gmm_path_check, _gmm_bound, _gmm_library),
+    "rglru": Kernel(
+        "src/repro_torch/kernels/csrc/rglru.cu",
+        "src/repro/kernels/rglru.py:23",
+        ("repro_torch.models.layers", "rglru_scan"), _rglru_key,
+        "rglru_chunk", "rglru_scan", "reference_rglru_scan",
+        lambda gen, s, kw, device: (_rglru_operands(gen, s, device), kw),
+        _rglru_path_check, _rglru_bound),
 }
 
 
@@ -857,8 +1137,8 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                      generic_err: float, device) -> dict:
     """Phase 6 for a kernel of path 2: the kernel against its plain version
     at every shape path 2 launched (recorded operands and random ones),
-    then each shape timed.  Returns the kernels-line entry of the shape
-    with the most launches."""
+    then each shape timed.  Returns the kernels-line entry: the numbers of
+    the shape with the most launches, and every shape's under ``shapes``."""
     spec = KERNELS[name]
     shapes, operands = recorded
     gen = torch.Generator().manual_seed(3)
@@ -882,19 +1162,31 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
             library_ms = _kernel_device_ms(library, 20, None)
             print(f"{name} {s}: library yardstick (never called by the port) "
                   f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
-        rows[s] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": by, "library_ms": library_ms}
+        rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": library_ms}
         print(f"{name} {s}, {shapes[s]} launches on path 2: device time per "
               f"launch (torch.profiler) kernel {ms!r} ms, plain {plain_ms!r} "
               f"ms; bound {bound!r} ms by {by} ({n_ops} operations, "
               f"{n_bytes} B)")
-    top = order[0]
+    top = rows[order[0]]
     return {"name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces,
             "launches": sum(launches_by_path.values()),
             "max_abs_err": max(err, generic_err), "mismatches": 0,
-            **rows[top], "shape": list(top),
-            "launches_by_path": launches_by_path}
+            **{k: v for k, v in top.items() if k != "launches"},
+            "launches_by_path": launches_by_path,
+            "shapes": [rows[s] for s in order]}
+
+
+def _merge(recorded: list) -> tuple:
+    """One kernel's recorded calls of several models, as one record."""
+    shapes: collections.Counter = collections.Counter()
+    operands: dict = {}
+    for s, ops in recorded:
+        shapes.update(s)
+        operands.update(ops)
+    return shapes, operands
 
 
 def main() -> int:
@@ -919,7 +1211,7 @@ def main() -> int:
     mp = mods["minplus"]
     build_kernels(mods)
     generic = check_minplus_generic(mp, device)
-    generic_new = check_generic(mods["flash_attention"], mods["ssd"], device)
+    generic_new = check_generic(mods, device)
 
     path = run_main_path(C, TS, mp)
     minplus = check_minplus_path(mp, device, path["shapes"],
@@ -933,16 +1225,18 @@ def main() -> int:
         minplus["launches_by_path"][name] = \
             by_model[name]["launches"]["minplus"]
     kernels = [minplus]
-    for model, kernel in MODELS.items():
+    for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru"):
+        models = [m for m, spec in MODELS.items() if kernel in spec.kernels]
         kernels.append(check_model_path(
-            kernel, mods[kernel], by_model[model]["recorded"][kernel],
-            {m: by_model[m]["launches"][kernel] for m in MODELS},
+            kernel, mods[kernel],
+            _merge([by_model[m]["recorded"][kernel] for m in models]),
+            {m: by_model[m]["launches"][kernel] for m in models},
             generic_new[kernel], device))
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "launches_by_path", "call_ms",
-             "plain_call_ms"]
+             "plain_call_ms", "shapes"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}

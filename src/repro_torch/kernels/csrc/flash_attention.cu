@@ -38,7 +38,8 @@
 // over the buffer K used, and the probabilities transposed.  Each row's 16
 // threads reduce max and sum with warp shuffles.  Blocks take the longest
 // causal query tiles first, so the last wave is the shortest.  87 KB of
-// shared memory at hd 128: two blocks fit on an SM.
+// shared memory at hd 128: two blocks fit on an SM; 153 KB at hd 256 (64
+// fp32 accumulators a thread), one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -243,7 +244,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 when it was accepted).  window <= 0
-// and softcap <= 0 mean none; hd must be 32, 64 or 128.
+// and softcap <= 0 mean none; hd must be 32, 64, 128 or 256.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int Sq, int Skv, int Hq,
                                     int Hkv, int hd, float scale, int causal,
@@ -256,6 +257,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
       return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
+    case 256:
+      return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -26,7 +26,7 @@ LIBRARY = _build.KernelLibrary("flash_attention", {
     "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_void_p]})
-HEAD_DIMS = (32, 64, 128)  # head widths the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernel is built for
 MASKED = -1e30
 
 # Kernel launches made by flash_attention since the count was last set to 0.

@@ -1,11 +1,17 @@
-"""The composed SSD forward: the intra-chunk kernel plus the inter-chunk
-recurrence, a short sequential loop over chunks in plain PyTorch (the JAX
-package leaves it to ``lax.scan``)."""
+"""The kernels' entry points, as the JAX package's ``kernels/ops.py`` has
+them: ``expert_matmul``, ``rglru_scan`` and ``ssd_intra_chunk`` as they are,
+and ``ssd_forward``, the composed SSD forward: the intra-chunk kernel plus
+the inter-chunk recurrence, a short sequential loop over chunks in plain
+PyTorch (the JAX package leaves it to ``lax.scan``)."""
 from __future__ import annotations
 
 import torch
 
+from .moe_gmm import expert_matmul
+from .rglru import rglru_scan
 from .ssd import ssd_intra_chunk
+
+__all__ = ["expert_matmul", "rglru_scan", "ssd_intra_chunk", "ssd_forward"]
 
 
 def ssd_forward(xh, dtv, A, Bm, Cm, h0=None, chunk: int = 256):

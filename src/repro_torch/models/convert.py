@@ -18,7 +18,11 @@ from .transformer import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch cannot read
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_jax(tree, cfg: ModelConfig, device) -> dict:

@@ -1,35 +1,41 @@
-"""PyTorch building blocks of the two model families the port runs so far:
-attention (GQA with rope, QKV bias, qk-norm, softcap, sliding window) with
-an MLP, and the Mamba-2 SSD block.
+"""PyTorch building blocks of the model families the port runs: attention
+(GQA with rope, QKV bias, qk-norm, softcap, sliding window) with an MLP, the
+capacity-routed MoE FFN, the Griffin RG-LRU block and the Mamba-2 SSD block.
 
 Conventions, those of the JAX package's ``models/layers.py``:
   * parameters are plain dicts of tensors, stored in ``cfg.param_dtype`` and
-    cast to ``cfg.compute_dtype`` at use;
+    cast to ``cfg.compute_dtype`` at use (the MoE router and the RG-LRU's
+    ``lam`` stay float32);
   * activations x: (B, S, D); positions: (B, S) int;
   * every block returns ``(y, new_cache)``; the port runs without a cache
     (training and prefill from nothing), so ``new_cache`` is None.
 
-Attention runs through the flash-attention kernel and the SSD scan through
-the SSD kernel (``repro_torch.kernels``); both take their plain versions on
-the CPU.  Caches, decode, cross-attention, MoE and RG-LRU are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+Attention runs through the flash-attention kernel, the MoE FFN's expert
+products through the expert-matmul kernel, the RG-LRU recurrence through
+the RG-LRU kernel and the SSD scan through the SSD kernel
+(``repro_torch.kernels``); each takes its plain version on the CPU.  Caches,
+decode and cross-attention are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
+from ..kernels.moe_gmm import expert_matmul
 from ..kernels.ops import ssd_forward
+from ..kernels.rglru import rglru_scan
 
 Params = dict
 
 # ROADMAP items of what is not ported yet, named by the errors that say so.
-CACHE_ITEM = "ROADMAP A, next 4: the serving engine (caches and decode)"
+CACHE_ITEM = "ROADMAP A, next 5: the serving engine (caches and decode)"
 CROSS_ITEM = ("ROADMAP A, later 9: the encoder-decoder and vision families "
               "(cross-attention)")
 
@@ -190,6 +196,187 @@ def mlp(p, cfg: ModelConfig, x):
     return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
+# ====================================================================== MoE ====
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    D, F_, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dt = pdt(cfg)
+    return {
+        "router": _dense_init(gen, (D, E), torch.float32),  # router in fp32
+        "w_gate": _dense_init(gen, (E, D, F_), dt),
+        "w_up": _dense_init(gen, (E, D, F_), dt),
+        "w_down": _dense_init(gen, (E, F_, D), dt),
+    }
+
+
+MOE_GROUP = 1024  # tokens per dispatch group (as in the JAX package)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing of G groups of g tokens to their top-k
+    experts, slot j being the j-th most probable expert."""
+
+    logits: torch.Tensor  # (G, g, E) float32 router logits
+    probs: torch.Tensor   # (G, g, E) their softmax
+    gates: torch.Tensor   # (G, g, k) top-k probabilities, renormalised
+    idx: torch.Tensor     # (G, g, k) the experts, int64
+    pos: torch.Tensor     # (G, g, k) place in the expert's buffer, int64
+    keep: torch.Tensor    # (G, g, k) pos < capacity: the slot is not dropped
+    capacity: int         # C, rows of each expert's buffer per group
+
+
+def _router_logits(toks, router):
+    """``toks @ router`` in full float32, also where the caller has switched
+    TF32 on: a routing decision must not hang on TF32's 10-bit mantissa."""
+    if toks.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return toks.float() @ router.float()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = True
+    return toks.float() @ router.float()
+
+
+def moe_route(router, cfg: ModelConfig, toks) -> Routing:
+    """GShard top-k routing with capacity, ``layers.py:400-420`` of the JAX
+    package step for step.  toks: (G, g, D)."""
+    g = toks.shape[1]
+    E, k = cfg.n_experts, cfg.moe_top_k
+    C = max(1, int(g * k / E * cfg.capacity_factor))
+    logits = _router_logits(toks, router)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: descending probability, the lower index first on
+    # ties (a stable sort; torch.topk leaves its tie order unspecified)
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    gates = torch.gather(probs, -1, idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # position in the expert's buffer: the tokens before this one in the same
+    # slot, after every earlier slot's tokens of that expert
+    mask = F.one_hot(idx, E)  # (G, g, k, E)
+    totals = mask.sum(dim=1, keepdim=True)
+    pos = torch.cumsum(mask, dim=1) - mask + torch.cumsum(totals, dim=2) \
+        - totals
+    pos = torch.gather(pos, -1, idx[..., None])[..., 0]
+    return Routing(logits, probs, gates, idx, pos, pos < C, C)
+
+
+def moe_ffn(p, cfg: ModelConfig, x):
+    """Capacity-routed top-k MoE FFN, ``layers.py:391-446`` of the JAX
+    package; returns ``(out (B, S, D), aux)`` with the Switch load-balance
+    loss ``aux``.
+
+    The JAX package dispatches and combines with one-hot einsums, whose
+    every (expert, buffer row) holds at most one token: here they are an
+    index scatter and gather with the same values.  The groups are folded
+    into the buffer axis, (E, G * C, D), so each expert product is one launch
+    of the expert-matmul kernel that reads each expert's weights once.
+    """
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T_ = B * S
+    g = min(MOE_GROUP, T_)
+    G = max(1, T_ // g)
+    toks = x.reshape(G, g, D)
+    r = moe_route(p["router"], cfg, toks)
+    C = r.capacity
+    dt = cdt(cfg)
+    dev = x.device
+    group = torch.arange(G, device=dev)[:, None, None].expand_as(r.idx)
+    token = torch.arange(g, device=dev)[None, :, None].expand_as(r.idx)
+    row = group * C + torch.where(r.keep, r.pos, 0)
+    # dropped slots go to a spare expert E, which is never computed
+    buf = torch.zeros((E + 1, G * C, D), dtype=dt, device=dev)
+    buf[torch.where(r.keep, r.idx, E), row] = toks[group, token].to(dt)
+    xe = buf[:E]
+    act = "gelu" if cfg.mlp_variant == "gelu" else "silu"
+    h = expert_matmul(xe, p["w_gate"].to(dt), activation=act) \
+        * expert_matmul(xe, p["w_up"].to(dt))
+    expert_out = expert_matmul(h, p["w_down"].to(dt))  # (E, G * C, D)
+    comb = (r.gates * r.keep).to(dt)  # (G, g, k), 0 where dropped
+    picked = expert_out[r.idx, row]   # (G, g, k, D)
+    out = (comb.float()[..., None] * picked.float()).sum(dim=2).to(dt)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e
+    f = F.one_hot(r.idx[..., 0], E).float().mean(dim=1)  # top-1 routing
+    aux = E * (f * r.probs.mean(dim=1)).sum(-1).mean()
+    return out.reshape(B, S, D), aux
+
+
+class RouteAgreement(NamedTuple):
+    """Two runs' routings of the same tokens, layer by layer (see
+    :func:`routing_agreement`)."""
+
+    picks: int           # (token, slot) picks compared, over every layer
+    flips: int           # picks whose expert differs (a swap of two slots
+    #                      of one token counts twice)
+    diverged: int        # tokens whose kept experts differ at some layer
+    worst_gap: float     # see routing_agreement
+    agree: torch.Tensor  # (T,) bool: the same kept experts at every layer
+
+    def flips_are_near_ties(self, tol: float) -> bool:
+        """Every token that diverged did so at a near tie: an expert that
+        one run picks and the other does not lay within ``tol`` of the
+        largest |logit| of the reference's top-k cut."""
+        return self.worst_gap <= tol
+
+
+def routing_agreement(got, want) -> RouteAgreement:
+    """Compares the routings of two runs of the same MoE layers on the same
+    tokens (``got`` and ``want``, one ``(logits (..., E), idx (..., k),
+    keep (..., k))`` per layer in order, ``want`` the reference), on the
+    CPU.
+
+    In bf16 the two runs round the residual stream differently, so a token
+    whose k-th and (k+1)-th experts nearly tie may pick another expert; its
+    output then differs by its gate times an expert's output, and through
+    attention it perturbs the later tokens' inputs a little.  A token's
+    output depends on the set of experts it keeps, not on their slot order,
+    so tokens agree where that set is the same at every layer; they are the
+    ones to compare by value.  At the first layer where a token's set
+    differs, each expert that only one run picked is measured by its
+    distance, in the reference's logits, from the reference's top-k cut
+    (halfway between its k-th and (k+1)-th logits): ``worst_gap`` is the
+    largest such distance over the tokens, relative to the largest |logit|
+    of the layer (0 where only a capacity drop differs).  Where the router's
+    inputs differ by rounding only, it is small."""
+    if len(got) != len(want):
+        raise ValueError(f"{len(got)} routed layers against {len(want)}")
+    picks = flips = 0
+    worst_gap = 0.0
+    agree = None
+    for g, w in zip(got, want):
+        gl, gi, gk = (t.detach().cpu().flatten(0, -2) for t in g)
+        wl, wi, wk = (t.detach().cpu().flatten(0, -2) for t in w)
+        if gi.shape != wi.shape or gl.shape != wl.shape:
+            raise ValueError(f"routings of {tuple(gi.shape)} and "
+                             f"{tuple(wi.shape)} picks")
+        T_, E = wl.shape
+        k = wi.shape[1]
+        picks += gi.numel()
+        flips += int((gi != wi).sum())
+
+        def chosen(idx, keep=None):
+            m = torch.zeros((T_, E), dtype=torch.bool)
+            src = torch.ones_like(idx, dtype=torch.bool) if keep is None \
+                else keep
+            return m.scatter(1, idx, src)
+
+        picked_g, picked_w = chosen(gi), chosen(wi)
+        same = (picked_g == picked_w).all(1) & \
+            (chosen(gi, gk) == chosen(wi, wk)).all(1)
+        first = ~same if agree is None else agree & ~same
+        if first.any():
+            wl64 = wl.double()
+            top = wl64.sort(dim=1, descending=True).values
+            cut = top[:, k - 1] if k == E else (top[:, k - 1] + top[:, k]) / 2
+            dist = (wl64 - cut[:, None]).abs() * (picked_g ^ picked_w)
+            worst_gap = max(worst_gap, float(dist[first].max())
+                            / float(wl64.abs().max()))
+        agree = same if agree is None else agree & same
+    diverged = 0 if agree is None else int((~agree).sum())
+    return RouteAgreement(picks, flips, diverged, worst_gap, agree)
+
+
 def _causal_depthwise_conv(x, w, state=None):
     """x: (B, S, W) causal depthwise conv, kernel (cw, W).
 
@@ -201,6 +388,44 @@ def _causal_depthwise_conv(x, w, state=None):
     xp = torch.cat([hist, x], dim=1)
     y = sum(xp[:, i : i + x.shape[1]] * w[i][None, None, :] for i in range(cw))
     return y, xp[:, -(cw - 1):]
+
+
+# =================================================================== RG-LRU ====
+def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    D = cfg.d_model
+    W = cfg.rnn_width or D
+    dt = pdt(cfg)
+    return {
+        "w_x": _dense_init(gen, (D, W), dt),  # recurrent branch input
+        "w_gate_branch": _dense_init(gen, (D, W), dt),  # gelu gate branch
+        "conv_w": _dense_init(gen, (cfg.conv_width, W), dt, scale=0.3),
+        "w_input_gate": _dense_init(gen, (W, W), dt),
+        "w_rec_gate": _dense_init(gen, (W, W), dt),
+        "lam": torch.linspace(0.9, 0.999, W, device=gen.device),  # fp32
+        "w_out": _dense_init(gen, (W, D), dt),
+    }
+
+
+def rglru_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
+    """Griffin recurrent block, ``layers.py:491-518`` of the JAX package:
+    (conv -> RG-LRU) * gelu gate -> out projection, with the recurrence
+    through the RG-LRU kernel.  The gates' sigmoids are taken in the compute
+    type and only then cast to float32, as there."""
+    if cache is not None:
+        raise NotImplementedError(f"the RG-LRU block with a state cache is "
+                                  f"not ported yet: {CACHE_ITEM}")
+    dt = cdt(cfg)
+    u = x @ p["w_x"].to(dt)  # (B, S, W)
+    gate_branch = gelu_tanh(x @ p["w_gate_branch"].to(dt))
+    u, _ = _causal_depthwise_conv(u, p["conv_w"].to(dt))
+    i_gate = torch.sigmoid(u @ p["w_input_gate"].to(dt)).float()
+    r_gate = torch.sigmoid(u @ p["w_rec_gate"].to(dt)).float()
+    log_a = -8.0 * r_gate * F.softplus(p["lam"].float())  # gated decay
+    a = torch.exp(log_a)
+    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i_gate * u.float())
+    y32 = rglru_scan(a.contiguous(), bx.contiguous())
+    return (y32.to(dt) * gate_branch) @ p["w_out"].to(dt), None
 
 
 # ================================================================ Mamba-2 SSD ==

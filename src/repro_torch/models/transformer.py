@@ -1,6 +1,6 @@
 """Model assembly: embedding + the block pattern repeated over the layers +
 head, for the block kinds the port runs so far (``attn``, ``local_attn``,
-``ssd``).
+``moe``, ``moe_dense``, ``rglru``, ``ssd``).
 
 Parameters are plain dicts of tensors.  Where the JAX package stacks each
 pattern slot's parameters over repetitions for one ``lax.scan``, the port
@@ -18,12 +18,10 @@ from ..core.torch_solvers import resolve_device
 from . import layers as L
 from .layers import Ctx
 
-KINDS = ("attn", "local_attn", "ssd")  # block kinds the port runs
+# block kinds the port runs
+KINDS = ("attn", "local_attn", "moe", "moe_dense", "rglru", "ssd")
 # ROADMAP items of the block kinds that are not ported yet.
 PENDING_KINDS = {
-    "moe": "ROADMAP A, next 1: the MoE slice",
-    "moe_dense": "ROADMAP A, next 1: the MoE slice",
-    "rglru": "ROADMAP A, next 2: the RG-LRU slice",
     "xattn": L.CROSS_ITEM,
     "dec_block": L.CROSS_ITEM,
 }
@@ -47,23 +45,48 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
         p["attn"] = L.init_attention(gen, cfg)
         p["ln2"] = L._zeros(gen, (D,), dt)
         p["mlp"] = L.init_mlp(gen, cfg)
+    elif kind in ("moe", "moe_dense"):
+        p["attn"] = L.init_attention(gen, cfg)
+        p["ln2"] = L._zeros(gen, (D,), dt)
+        p["moe"] = L.init_moe(gen, cfg)
+        if kind == "moe_dense":
+            p["mlp"] = L.init_mlp(gen, cfg)
+    elif kind == "rglru":
+        p["rglru"] = L.init_rglru(gen, cfg)
+        p["ln2"] = L._zeros(gen, (D,), dt)
+        p["mlp"] = L.init_mlp(gen, cfg)
     else:  # ssd
         p["ssd"] = L.init_ssd(gen, cfg)
     return p
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
-    """Pre-norm block; returns (x, new_cache, aux_loss)."""
+    """Pre-norm block; returns (x, new_cache, aux_loss), the aux loss being
+    the MoE load-balance loss of a ``moe`` / ``moe_dense`` block and 0
+    otherwise."""
     _check_kind(kind)
     if ctx.mode == "decode":
         raise NotImplementedError(f"decode is not ported yet: "
                                   f"{L.CACHE_ITEM}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("attn", "local_attn"):
+    if kind in ("attn", "local_attn", "moe", "moe_dense"):
         window = cfg.window if kind == "local_attn" else None
         h, cache = L.attention_block(
             p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx, cache,
             window=window)
+        x = x + h
+        hin = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if kind in ("moe", "moe_dense"):
+            y, aux = L.moe_ffn(p["moe"], cfg, hin)
+            if kind == "moe_dense":
+                y = y + L.mlp(p["mlp"], cfg, hin)
+        else:
+            y = L.mlp(p["mlp"], cfg, hin)
+        x = x + y
+    elif kind == "rglru":
+        h, cache = L.rglru_block(p["rglru"], cfg,
+                                 L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
+                                 cache)
         x = x + h
         x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     else:  # ssd

@@ -61,30 +61,36 @@ class ChainSimulator:
 
     def __init__(self, cfg: ModelConfig, params, net, profile,
                  request: ServiceChainRequest):
-        if cfg.n_layers % len(cfg.pattern):
+        plen = len(cfg.pattern)
+        n_groups = -(-cfg.n_layers // plen)
+        if profile.L != n_groups:
             raise ValueError(
-                f"{cfg.name}: {cfg.n_layers} layers are not whole repetitions "
-                f"of the {len(cfg.pattern)}-block pattern; the chain walks "
-                f"pattern groups and has no stage for remainder layers")
+                f"{cfg.name}: the profile has {profile.L} groups, the config "
+                f"{n_groups}: {cfg.n_layers // plen} whole repetitions of the "
+                f"{plen}-block pattern and a last group of the "
+                f"{cfg.n_layers % plen} remainder layers, if any")
         self.cfg = cfg
         self.params = params
         self.ev = PlanEvaluator(net, profile, request)
         self.request = request
 
     def _stage_fn(self, lo: int, hi: int):
-        """Executor for group range [lo, hi] (1-indexed inclusive)."""
+        """Executor for group range [lo, hi] (1-indexed inclusive).  Group g
+        is repetition g of the pattern; where the layers are not whole
+        repetitions, the last group holds the remainder layers, as
+        ``group_profile`` groups them for the planner."""
         cfg = self.cfg
         plen = len(cfg.pattern)
+        kinds = T.layer_kinds(cfg.n_layers, cfg.pattern)
 
         def run(stack_params, x):
             B, S = x.shape[0], x.shape[1]
             pos = torch.arange(S, device=x.device).expand(B, S)
             ctx = Ctx(mode="prefill", positions=pos)
             h = x
-            for g in range(lo - 1, hi):
-                for i, kind in enumerate(cfg.pattern):
-                    p_g = stack_params["layers"][g * plen + i]
-                    h, _, _ = T.apply_block(p_g, cfg, kind, h, ctx, None)
+            for i in range((lo - 1) * plen, min(hi * plen, cfg.n_layers)):
+                h, _, _ = T.apply_block(stack_params["layers"][i], cfg,
+                                        kinds[i], h, ctx, None)
             return h
 
         return run

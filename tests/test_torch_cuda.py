@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA min-plus, flash-attention and SSD kernels
-against their plain versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda``
-against the NumPy oracles, and a planned chain of a reduced model through
-the kernels against the same chain on the CPU.
+"""The port on the card: the CUDA min-plus, flash-attention, SSD,
+expert-matmul and RG-LRU kernels against their plain versions,
+``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy oracles, and a
+planned chain of a reduced model through the kernels against the same chain
+on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -18,9 +19,10 @@ import repro_torch.core as T
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import minplus as mp
-from repro_torch.kernels import ops
+from repro_torch.kernels import moe_gmm, ops, rglru
 from repro_torch.kernels import ssd
 from repro_torch.kernels.minplus import minplus_matmul, minplus_reference
+from repro_torch.models import layers as ML
 from repro_torch.models import transformer as MT
 from repro_torch.msl import ChainSimulator, plan_pipeline
 
@@ -135,6 +137,10 @@ FLASH_CASES = [
     (1, 96, 96, 6, 3, 32, True, 32, 30.0),
     (1, 48, 16, 2, 1, 32, False, 8, None),  # rows that see no key at all
     (2, 2048, 2048, 12, 2, 128, True, None, None),
+    (1, 200, 200, 4, 1, 256, True, None, None),  # hd 256, ragged
+    (1, 300, 300, 4, 2, 256, True, 128, None),   # hd 256 with a window
+    (1, 4096, 4096, 16, 1, 256, True, 2048, None),  # recurrentgemma-9b's
+    (2, 2048, 2048, 32, 4, 128, True, None, None),  # qwen3-moe-30b-a3b's
 ]
 
 
@@ -164,9 +170,10 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                            q.transpose(1, 2))
-    with pytest.raises(ValueError, match="head widths"):
-        fa.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
-                           q[..., :48].contiguous())
+    for hd in (48, 512):
+        x = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head widths"):
+            fa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="devices"):
         fa.flash_attention(q, q.cpu(), q)
 
@@ -218,12 +225,116 @@ def test_ssd_rejects_what_it_does_not_take(cuda):
         ssd.ssd_intra_chunk(x, Bm, Bm, dt, A.cpu())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m"])
-def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch):
+# expert matmul: the shapes of tests/test_kernels.py and the MoE path's
+# (qwen3-moe-30b-a3b, 4 groups of capacity 80 folded to C 320), bf16, each
+# activation.  Both sides sum exact products in fp32 (in other orders) and
+# round once to bf16, so they differ by an ulp of bf16 in a few elements:
+# held to 2**-7 of the largest magnitude and 2**-7 relative, elementwise.
+GMM_CASES = [(4, 64, 96, 80), (2, 128, 256, 128), (8, 40, 72, 200),
+             (128, 320, 2048, 768), (128, 320, 768, 2048)]
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+@pytest.mark.parametrize("E,C,D,F", GMM_CASES)
+def test_expert_matmul_matches_plain(cuda, E, C, D, F, act):
+    gen = torch.Generator(device=cuda).manual_seed(C + D)
+    x = torch.randn((E, C, D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda)
+         * D ** -0.5).to(torch.bfloat16)
+    before = moe_gmm.launch_count
+    out = ops.expert_matmul(x, w, act)
+    torch.cuda.synchronize()
+    assert moe_gmm.launch_count == before + 1
+    want = moe_gmm.reference_expert_matmul(x, w, activation=act)
+    assert out.dtype == torch.bfloat16 and out.shape == (E, C, F)
+    tol = 2.0 ** -7
+    assert torch.allclose(out.float(), want.float(),
+                          atol=tol * float(want.float().abs().max()),
+                          rtol=tol)
+
+
+def test_expert_matmul_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 16, 32), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((2, 32, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        ops.expert_matmul(x.float(), w.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.expert_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="devices"):
+        ops.expert_matmul(x, w.cpu())
+    with pytest.raises(ValueError, match="activation"):
+        ops.expert_matmul(x, w, "relu")
+
+
+def test_router_runs_in_full_float32_under_tf32(cuda, monkeypatch):
+    """The MoE router keeps full float32 where the caller has switched TF32
+    on for float32 products, and leaves the switch as it found it: its
+    logits are within 1e-5 of float64 (TF32's 10-bit mantissa would be off
+    by ~1e-3 at D 2048)."""
+    cfg = ARCHS["qwen3-moe-30b-a3b"]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    toks = torch.randn((1, 64, cfg.d_model), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    router = torch.randn((cfg.d_model, cfg.n_experts), generator=gen,
+                         device=cuda) * cfg.d_model ** -0.5
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    r = ML.moe_route(router, cfg, toks)
+    assert torch.backends.cuda.matmul.allow_tf32
+    exact = toks.double() @ router.double()
+    assert float((r.logits.double() - exact).abs().max()) < 1e-5
+
+
+# RG-LRU: the shapes of tests/test_kernels.py and the RG-LRU path's
+# (recurrentgemma-9b, B 1, S 4096, W 4096), float32, at the 1e-5 of
+# tests/test_kernels.py; decays in [0.7, 0.999).
+RGLRU_CASES = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (1, 4096, 4096)]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_CASES)
+def test_rglru_matches_plain(cuda, B, S, W):
+    gen = torch.Generator(device=cuda).manual_seed(S + W)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.299 + 0.7
+    b = torch.randn((B, S, W), generator=gen, device=cuda) * 0.1
+    before = rglru.launch_count
+    h = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru.launch_count == before + 1
+    want = rglru.reference_rglru_scan(a, b)
+    assert h.dtype == torch.float32 and h.shape == (B, S, W)
+    assert torch.allclose(h, want, atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros((1, 8, 4), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_scan(a.double(), a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="devices"):
+        ops.rglru_scan(a, a.cpu())
+
+
+# the kernels each reduced model's blocks run, besides min-plus in the plan
+CHAIN_KERNELS = {"qwen2-1.5b": (fa,), "mamba2-370m": (ssd,),
+                 "qwen3-moe-30b-a3b": (fa, moe_gmm),
+                 "recurrentgemma-9b": (fa, rglru)}
+
+
+def _launches_per_layer(cfg, mod) -> int:
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    per_kind = {fa: {"attn": 1, "local_attn": 1, "moe": 1},
+                ssd: {"ssd": 1}, moe_gmm: {"moe": 3}, rglru: {"rglru": 1}}
+    return sum(per_kind[mod].get(k, 0) for k in kinds)
+
+
+@pytest.mark.parametrize("arch", list(CHAIN_KERNELS))
+def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
     """A reduced model, planned with ``bcd_torch`` and run by the chain
     simulator on the card (through the kernels), against the same chain on
     the CPU (plain versions), in bf16: 5e-2 of the largest magnitude, the
-    bound of a bf16 stack in tests/test_torch_models.py."""
+    bound of a bf16 stack in tests/test_torch_models.py, route-aware for
+    MoE as there (every token that diverged did so at a near tie on the
+    CPU side, the output compared where the kept experts agree)."""
     cfg = ARCHS[arch].reduced(n_layers=4 * len(ARCHS[arch].pattern),
                               ssm_head_dim=32, head_dim=32)
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
@@ -232,13 +343,29 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch):
                        candidate_K=(2,), n_groups_mesh=4, chips_per_group=8)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64),
                            generator=torch.Generator().manual_seed(1))
-    launches = fa.launch_count + ssd.launch_count
+    routes = {"cuda": [], "cpu": []}
+    route = ML.moe_route
+
+    def record(router, cfg_, toks):
+        r = route(router, cfg_, toks)
+        routes[toks.device.type].append((r.logits, r.idx, r.keep))
+        return r
+
+    monkeypatch.setattr(ML, "moe_route", record)
+    mods = CHAIN_KERNELS[arch]
+    before = [m.launch_count for m in mods]
     got = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
                          pp.problem.request).run_plan(pp.plan, tokens.to(cuda))
-    assert fa.launch_count + ssd.launch_count == launches + cfg.n_layers
+    for m, n in zip(mods, before):
+        assert m.launch_count == n + _launches_per_layer(cfg, m)
     want = ChainSimulator(cfg, cpu_params, pp.problem.net, pp.problem.profile,
                           pp.problem.request).run_plan(pp.plan, tokens)
-    ref = want.hidden.float()
-    err = (got.hidden.float().cpu() - ref).abs().max()
+    ref = want.hidden.float().reshape(-1, cfg.d_model)
+    out = got.hidden.float().cpu().reshape(-1, cfg.d_model)
+    if moe_gmm in mods:
+        ra = ML.routing_agreement(routes["cuda"], routes["cpu"])
+        assert ra.flips_are_near_ties(5e-2)
+        assert 2 * int(ra.agree.sum()) >= len(ref)
+        ref, out = ref[ra.agree], out[ra.agree]
+    err = (out - ref).abs().max()
     assert float(err / ref.abs().max()) < 5e-2
-
