@@ -9,9 +9,16 @@ build or the launch fails; the kernel takes bf16, the type the model path
 gives it.  On CPU tensors it computes :func:`reference_attention`, the plain
 PyTorch version, in any floating type.  Nothing here touches CUDA at import.
 
-The kernel keeps the softmax probabilities in fp32 for the product with v,
-as the TPU kernel does; the JAX model's own ``blocked_attention`` rounds
-them to bf16 first, so the two differ by bf16 rounding.
+The kernel runs both products on Hopper's tensor cores (``wgmma``, with
+TMA loads into a ring of shared-memory stages).  It rounds the softmax
+probabilities to bf16 before the product with v, as the JAX model's own
+``blocked_attention`` does (``src/repro/models/layers.py:222``); the TPU
+kernel and :func:`reference_attention` keep them fp32, so the kernel
+differs from its plain version by that rounding too: on an H100 its worst
+(batch, query, head) row lies within 4.9e-3 of the row's norm (2.2e-3
+with fp32 p), inside ``chip_smoke.py``'s FLASH_TOL of 1e-2.  The tensor
+cores' rate bounds it; it reaches about 350–370 TFLOP/s at head width 128
+and 550 at 256 (PERF.md).
 """
 from __future__ import annotations
 
@@ -86,7 +93,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``softcap * tanh(s / softcap)`` applied to the scores first.
 
     CPU tensors take :func:`reference_attention`.  CUDA tensors must be
-    contiguous bf16 on one device with a head width in ``HEAD_DIMS``; they
+    contiguous, 16-byte aligned bf16 on one device with a head width in
+    ``HEAD_DIMS``; they
     launch the kernel on the current stream, and anything the kernel does
     not take raises.
     """
@@ -114,6 +122,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernel takes head widths "
                          f"{HEAD_DIMS}, got {hd}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the flash attention kernel takes 16-byte aligned "
+                         "operands (its TMA loads need them)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -247,7 +247,14 @@ def moe_route(router, cfg: ModelConfig, toks) -> Routing:
     # lax.top_k's order: descending probability, the lower index first on
     # ties (a stable sort; torch.topk leaves its tie order unspecified)
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
-    idx = idx[..., :k]
+    return routing_of_picks(logits, probs, idx[..., :k], C)
+
+
+def routing_of_picks(logits, probs, idx, capacity: int) -> Routing:
+    """The routing that sends each token to the experts ``idx`` (G, g, k):
+    their renormalised gates, places in the experts' buffers and capacity
+    drops, as ``moe_route`` makes them from its own top-k."""
+    E = logits.shape[-1]
     gates = torch.gather(probs, -1, idx)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # position in the expert's buffer: the tokens before this one in the same
@@ -257,7 +264,7 @@ def moe_route(router, cfg: ModelConfig, toks) -> Routing:
     pos = torch.cumsum(mask, dim=1) - mask + torch.cumsum(totals, dim=2) \
         - totals
     pos = torch.gather(pos, -1, idx[..., None])[..., 0]
-    return Routing(logits, probs, gates, idx, pos, pos < C, C)
+    return Routing(logits, probs, gates, idx, pos, pos < capacity, capacity)
 
 
 def moe_ffn(p, cfg: ModelConfig, x):

@@ -122,13 +122,19 @@ def test_solvers_on_cuda_match_numpy_oracles(cuda):
         assert _plain(got_b) == _plain(T.solve(p, "bcd"))
 
 
-# flash attention: the shapes of tests/test_kernels.py plus the model path's
-# (qwen2-1.5b at B 2, S 2048), in bf16, the type the path gives the kernel.
-# Both sides round fp32 sums taken in other orders once to bf16, so they
-# differ by an ulp of bf16 in a few elements: each (batch, query, head) row
-# is held to 1e-2 of its own norm, and the largest error to 2**-6 of the
-# largest magnitude (chip_smoke.py's FLASH_TOL, which rejects an output
-# with l off by 5 % or with each row's diagonal key tile dropped).
+# flash attention: the shapes of tests/test_kernels.py, the model path's
+# (qwen2-1.5b and qwen3-moe-30b-a3b at B 2, S 2048; recurrentgemma-9b at
+# B 1, S 4096 with its window), and at every head width the kernel's
+# options and edges: causal, a window, a softcap, no causal mask with
+# Sq != Skv, rows that see no key, and Sq and Skv off the kernel's 128-row
+# query tile and 64-key tile; G = 8 and 16 at small S.  In bf16, the type
+# the path gives the kernel.  The kernel rounds p to bf16 before P.V (as
+# the JAX model's blocked_attention does) where the plain version keeps it
+# fp32, and both round fp32 sums taken in other orders once to bf16: each
+# (batch, query, head) row is held to 1e-2 of its own norm, and the largest
+# error to 2**-6 of the largest magnitude (chip_smoke.py's FLASH_TOL, which
+# rejects an output with l off by 5 % or with each row's diagonal key tile
+# dropped).
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, None, None),
     (1, 200, 200, 8, 1, 64, True, None, 50.0),
@@ -141,6 +147,16 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 256, True, 128, None),   # hd 256 with a window
     (1, 4096, 4096, 16, 1, 256, True, 2048, None),  # recurrentgemma-9b's
     (2, 2048, 2048, 32, 4, 128, True, None, None),  # qwen3-moe-30b-a3b's
+] + [case for hd in (32, 64, 128, 256) for case in (
+    (1, 129, 129, 4, 2, hd, True, None, None),    # causal, ragged
+    (1, 191, 191, 4, 1, hd, True, 64, None),      # a window, ragged
+    (2, 130, 130, 2, 2, hd, True, None, 30.0),    # a softcap
+    (1, 191, 300, 4, 2, hd, False, None, None),   # no causal mask, Sq != Skv
+    (1, 300, 129, 2, 1, hd, True, 16, None),      # rows 144.. see no key
+)] + [
+    (1, 200, 200, 8, 1, 128, True, None, None),   # G = 8
+    (1, 160, 160, 16, 1, 64, True, None, None),   # G = 16
+    (1, 256, 256, 16, 1, 256, True, 128, None),   # G = 16 at hd 256
 ]
 
 
@@ -176,6 +192,28 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
             fa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="devices"):
         fa.flash_attention(q, q.cpu(), q)
+    odd = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(odd[1:].view(q.shape), q, q)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window", [
+    (2, 2048, 2048, 12, 2, 128, True, None),
+    (1, 4096, 4096, 16, 1, 256, True, 2048),
+    (1, 191, 300, 4, 2, 32, False, None),
+])
+def test_flash_attention_repeats_bit_for_bit(cuda, B, Sq, Sk, Hq, Hkv, hd,
+                                             causal, window):
+    """The kernel uses no atomics, so two launches on the same operands
+    give the same bits; a difference would be a race in its ring of
+    shared-memory stages."""
+    gen = torch.Generator(device=cuda).manual_seed(Sk + hd)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    first = fa.flash_attention(q, k, v, causal=causal, window=window)
+    second = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # SSD intra-chunk: the shapes of tests/test_kernels.py, the reduced mamba2's
@@ -332,9 +370,17 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
     """A reduced model, planned with ``bcd_torch`` and run by the chain
     simulator on the card (through the kernels), against the same chain on
     the CPU (plain versions), in bf16: 5e-2 of the largest magnitude, the
-    bound of a bf16 stack in tests/test_torch_models.py, route-aware for
-    MoE as there (every token that diverged did so at a near tie on the
-    CPU side, the output compared where the kept experts agree)."""
+    bound of a bf16 stack in tests/test_torch_models.py, on every token.
+
+    For MoE the CPU chain runs twice.  First with its own routing: every
+    pick of the card that the CPU's router would not make must be a near
+    tie there, half the tokens at least must route alike at every layer,
+    and the tokens of each row before its first token that routes
+    otherwise are compared (causal attention carries a pick that differs
+    to every later token of its row, whatever experts those keep).  Then
+    it replays the card's expert picks, its gates, buffer places and
+    capacity drops made from them by its own ``routing_of_picks`` (the
+    places and drops ``==`` the card's), and every token is compared."""
     cfg = ARCHS[arch].reduced(n_layers=4 * len(ARCHS[arch].pattern),
                               ssm_head_dim=32, head_dim=32)
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
@@ -343,29 +389,66 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
                        candidate_K=(2,), n_groups_mesh=4, chips_per_group=8)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64),
                            generator=torch.Generator().manual_seed(1))
-    routes = {"cuda": [], "cpu": []}
+    card, cpu, replay = [], [], []
     route = ML.moe_route
 
-    def record(router, cfg_, toks):
+    def record_or_replay(router, cfg_, toks):
         r = route(router, cfg_, toks)
-        routes[toks.device.type].append((r.logits, r.idx, r.keep))
-        return r
+        if toks.device.type == "cuda":
+            card.append(r)
+            return r
+        cpu.append((r.logits, r.idx, r.keep))
+        if not replay:
+            return r
+        c = card[len(cpu) - 1]
+        picked = ML.routing_of_picks(r.logits, r.probs, c.idx.cpu(),
+                                     r.capacity)
+        assert torch.equal(picked.pos, c.pos.cpu())
+        assert torch.equal(picked.keep, c.keep.cpu())
+        return picked
 
-    monkeypatch.setattr(ML, "moe_route", record)
+    monkeypatch.setattr(ML, "moe_route", record_or_replay)
     mods = CHAIN_KERNELS[arch]
     before = [m.launch_count for m in mods]
     got = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
                          pp.problem.request).run_plan(pp.plan, tokens.to(cuda))
     for m, n in zip(mods, before):
         assert m.launch_count == n + _launches_per_layer(cfg, m)
-    want = ChainSimulator(cfg, cpu_params, pp.problem.net, pp.problem.profile,
-                          pp.problem.request).run_plan(pp.plan, tokens)
-    ref = want.hidden.float().reshape(-1, cfg.d_model)
+
+    def on_cpu():
+        want = ChainSimulator(cfg, cpu_params, pp.problem.net,
+                              pp.problem.profile, pp.problem.request
+                              ).run_plan(pp.plan, tokens)
+        return want.hidden.float().reshape(-1, cfg.d_model)
+
+    def rel(out, ref):  # 0 over no token
+        if not len(ref):
+            return 0.0
+        return float((out - ref).abs().max() / ref.abs().max())
+
+    ref = on_cpu()
     out = got.hidden.float().cpu().reshape(-1, cfg.d_model)
     if moe_gmm in mods:
-        ra = ML.routing_agreement(routes["cuda"], routes["cpu"])
+        card_routes = [(r.logits, r.idx, r.keep) for r in card]
+        ra = ML.routing_agreement(card_routes, cpu)
         assert ra.flips_are_near_ties(5e-2)
         assert 2 * int(ra.agree.sum()) >= len(ref)
-        ref, out = ref[ra.agree], out[ra.agree]
-    err = (out - ref).abs().max()
-    assert float(err / ref.abs().max()) < 5e-2
+        first = (~ra.agree).reshape(tokens.shape).cumsum(1) == 0
+        first = first.flatten()
+        split = (rel(out[first], ref[first]),
+                 rel(out[ra.agree], ref[ra.agree]),
+                 rel(out[~first], ref[~first]))
+        print(f"{arch} with the CPU's own routing: {ra.diverged} of "
+              f"{len(ref)} tokens route otherwise; largest error over the "
+              f"{int(first.sum())} tokens before their row's first such "
+              f"token {split[0]!r}, over the {int(ra.agree.sum())} that "
+              f"route alike {split[1]!r}, over the {int((~first).sum())} "
+              f"from each row's first such token on {split[2]!r}")
+        assert split[0] < 5e-2
+        cpu.clear()
+        replay.append(True)
+        ref = on_cpu()
+        ra = ML.routing_agreement(card_routes, cpu)
+        assert ra.flips_are_near_ties(5e-2)
+        assert 2 * int(ra.agree.sum()) >= len(ref)
+    assert rel(out, ref) < 5e-2
