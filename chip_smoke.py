@@ -56,9 +56,12 @@ Phases, in order; any failure exits non-zero:
    chunk states, and the RG-LRU scan, on the recorded operands against a
    float64 witness, at SSD_WITNESS and RGLRU_WITNESS times the plain
    version's own error (random operands at SSD_TOL and RGLRU_TOL); the
-   expert matmul at GMM_TOL; then each shape timed by ``torch.profiler``
-   device time beside its plain version, its bound, the operations per
-   second it achieved and its share of the bound, and its library
+   expert matmul at GMM_TOL, which must also reject two wrong outputs (one
+   GMM_TILE slice of D left out, one counted twice); then each shape timed
+   by ``torch.profiler`` device time (a time on a held stream by CUDA
+   events beside it, the clock used when the profiler loses events in
+   every window) beside its plain version, its bound, the operations and
+   bytes per second it achieved and its share of the bound, and its library
    yardstick (``scaled_dot_product_attention`` for flash attention,
    ``torch.bmm`` with the activation for the expert matmul; SSD and RG-LRU
    have no single library call), with the SM clock, its maximum and the
@@ -109,9 +112,13 @@ SSD_TOL = (1e-4, 1e-4, 1e-5)  # y, chunk states, decay (tests/test_kernels.py)
 SSD_WITNESS = 4.0
 FP32_EPS = 2.0 ** -23
 # Expert matmul, bf16: both sides sum exact products in fp32 (in other
-# orders) and round once to bf16, so they differ by an ulp of bf16 in a few
-# elements: elementwise within GMM_TOL of |want| plus GMM_TOL of max |want|.
+# orders: the kernel's wgmma sums 64-deep stages, the plain version's
+# einsum its own blocks) and apply the activation in fp32 (the kernel with
+# a fast exponential and division, a few fp32 ulps), then round once to
+# bf16, so they differ by an ulp of bf16 in a few elements: elementwise
+# within GMM_TOL of |want| plus GMM_TOL of max |want|.
 GMM_TOL = 2.0 ** -7
+GMM_TILE = 64  # depth of one ring stage of csrc/moe_gmm.cu (BK)
 # RG-LRU, float32: the kernel's sequential chunks and the plain version's
 # doubling scan round the same recurrence in other orders: max |got - want|
 # at most RGLRU_TOL of max |want| (tests/test_kernels.py's 1e-5).  On the
@@ -161,10 +168,12 @@ FLASH_GENERIC = [
 SSD_GENERIC = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
                (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100)]
 # (E, C, D, F, activation): tests/test_kernels.py's cases, a ragged D and F
-# (element loads), one row tile short of the MoE path's C
+# (the wrapper pads them to multiples of 8), one row tile short of the MoE
+# path's C, C 1 with D below one stage, and E 1 with C off the 128-row tile
 GMM_GENERIC = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
                (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
-               (2, 256, 2048, 768, "none")]
+               (2, 256, 2048, 768, "none"), (3, 1, 40, 24, "gelu"),
+               (1, 200, 136, 100, "silu")]
 # (B, S, W): tests/test_kernels.py's cases, one step, a chunk and a half
 RGLRU_GENERIC = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
                  (1, 192, 1000)]
@@ -202,6 +211,11 @@ PAD_LAUNCHES = 4
 # profiler windows a timing may take: even between PAD_KERNEL launches the
 # profiler lost 2 of 300 device events in one window on an H100
 PROFILE_WINDOWS = 3
+# PAD_KERNEL cycles that hold the stream while the host enqueues the calls
+# of a held-queue timing (_held_queue_ms); about 10 ms at the H100's clock,
+# four times more on each of HOLD_TRIES tries when the host is slower
+HOLD_CYCLES = 20_000_000
+HOLD_TRIES = 3
 
 
 def _pad() -> None:
@@ -323,31 +337,72 @@ def check_minplus_generic(mp, device) -> dict:
     return {"cases": n, "max_abs_err": max_err}
 
 
+def _held_queue_ms(fn, calls) -> float:
+    """Device time per call of ``fn`` by CUDA events: one long PAD_KERNEL
+    holds the stream while the host enqueues ``calls`` calls between two
+    events, so the events bracket the card's work alone, back to back (the
+    card's own gaps between launches included, the host's time not).  The
+    hold is checked: the first event must still be waiting when the last
+    call is enqueued, else the hold is made four times longer, up to
+    HOLD_TRIES tries, and then this raises."""
+    for _ in range(3):
+        fn()
+    cycles = HOLD_CYCLES
+    for _ in range(HOLD_TRIES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / calls
+        cycles *= 4
+    raise AssertionError(f"the host took longer to enqueue {calls} calls "
+                         f"than a hold of {cycles // 4} cycles")
+
+
 def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     """Device time per call of ``fn`` under ``torch.profiler``, summed over
     every device kernel (or only those whose name holds ``must_see``).
-    Every call launches the same kernels, so a count of device events that
-    is no multiple of ``calls`` means the profiler lost some, which would
-    read as a shorter time: such a window is timed again, up to
-    PROFILE_WINDOWS times, and never read.  Raises when every window lost
-    events, or when the profiler records no device time."""
+    Every call launches the same kernels, so a window with no device event
+    of them, or with a count that is no multiple of ``calls``, lost some
+    (the profiler has done both on an H100), which would read as no time or
+    a shorter time: such a window is timed again, up to PROFILE_WINDOWS
+    times, and never read.  When every window lost events (on one H100
+    run, all three windows of the min-plus kernel), the calls are timed by
+    :func:`_held_queue_ms` instead, which counts every kernel of the calls
+    and adds the card's gaps between launches (on an H100 about 1 us a
+    launch); the line printed says so.  A ``must_see`` that
+    matches none of the kernels the windows saw raises, naming those of the
+    last window."""
     what = must_see or "the plain version"
+    matched = any_events = False
     for _ in range(PROFILE_WINDOWS):
         _, by_name, count = _device_events(
             lambda: [fn() for _ in range(calls)])
         seen = [name for name in by_name
                 if must_see is None or must_see in name]
+        matched = matched or bool(seen)
+        any_events = any_events or bool(by_name)
         us = sum(by_name[name] for name in seen)
         events = sum(count[name] for name in seen)
-        if us <= 0.0:
-            raise AssertionError(f"the profiler recorded no device time for "
-                                 f"{what}: {sorted(by_name)}")
-        if events % calls == 0:
+        if events and events % calls == 0 and us > 0.0:
             return us / calls / 1e3
         print(f"profiler: {events} device events of {what} over {calls} "
               f"calls, some lost: timed again")
-    raise AssertionError(f"the profiler lost device events of {what} in "
-                         f"each of {PROFILE_WINDOWS} windows")
+    if any_events and not matched:
+        raise AssertionError(f"no profiler window saw a device event of "
+                             f"{what}; the last saw {sorted(by_name)}")
+    ms = _held_queue_ms(fn, calls)
+    print(f"profiler: device events of {what} lost in each of "
+          f"{PROFILE_WINDOWS} windows: timed by CUDA events on a held "
+          f"stream instead, {ms!r} ms per call")
+    return ms
 
 
 def _bound_ms(shape) -> tuple[float, str, int]:
@@ -389,12 +444,14 @@ def check_minplus_path(mp, device, shapes, operands, generic) -> dict:
                                "minplus_kernel")
         plain = _kernel_device_ms(lambda: mp.minplus_reference(a, b), 200,
                                   None)
+        held = _held_queue_ms(lambda: mp.minplus_matmul(a, b), 200)
         bound, by, n_bytes = _bound_ms(s)
-        rows[s] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                   "bound_by": by, "a": a, "b": b}
+        rows[s] = {"ms": ms, "plain_ms": plain, "held_ms": held,
+                   "bound_ms": bound, "bound_by": by, "a": a, "b": b}
         print(f"minplus {s} float64, {shapes[s]} launches on the path: "
               f"device time per launch (torch.profiler) kernel {ms!r} ms, "
-              f"plain {plain!r} ms; bound {bound!r} ms by {by} "
+              f"plain {plain!r} ms; kernel on a held stream (CUDA events) "
+              f"{held!r} ms; bound {bound!r} ms by {by} "
               f"({n_bytes} B at 3.35 TB/s)")
     top = all_shapes[0]
     row = rows[top]
@@ -409,6 +466,7 @@ def check_minplus_path(mp, device, shapes, operands, generic) -> dict:
             "max_abs_err": max(max_err, generic["max_abs_err"]),
             "mismatches": mismatches, "shape": [list(top[0]), *top[1:]],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "held_ms": row["held_ms"],
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None}
@@ -713,6 +771,13 @@ def _gmm_operands(gen, shape, device):
     return (x, w), {"activation": act}
 
 
+def _gmm_within(got, want) -> bool:
+    """Every element within GMM_TOL of |want| plus GMM_TOL of max |want|."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    return bool(((got - want).abs() <= GMM_TOL * (want.abs() + top)).all())
+
+
 def _gmm_check(gmm, cases, what: str) -> float:
     """The kernel against its plain version on each ``((x, w), kw)`` at
     GMM_TOL; raises on a failure, else returns the max_abs_err."""
@@ -720,11 +785,10 @@ def _gmm_check(gmm, cases, what: str) -> float:
     for (x, w), kw in cases:
         got = gmm.expert_matmul(x, w, **kw).float()
         want = gmm.reference_expert_matmul(x, w, **kw).float()
-        top = float(want.abs().max())
         d = (got - want).abs()
-        failures += not bool((d <= GMM_TOL * (want.abs() + top)).all())
+        failures += not _gmm_within(got, want)
         max_err = max(max_err, float(d.max()))
-        worst = max(worst, float(d.max()) / top)
+        worst = max(worst, float(d.max()) / float(want.abs().max()))
     line = (f"moe_gmm {what}: {len(cases)} bf16 cases, max error {worst!r} of "
             f"the largest |want| (elementwise limit {GMM_TOL} of |want| + "
             f"{GMM_TOL} of the largest), max_abs_err {max_err!r}")
@@ -732,6 +796,38 @@ def _gmm_check(gmm, cases, what: str) -> float:
         raise AssertionError(f"{line}: {failures} cases past the limit")
     print(line)
     return max_err
+
+
+def _gmm_rejects_wrong_outputs(gmm, args, kw) -> None:
+    """GMM_TOL must reject two deliberately wrong outputs on these operands,
+    both built from the plain version: the product with one GMM_TILE slice
+    of D left out (a ring stage skipped), and with one counted twice (a
+    stale stage read again)."""
+    x, w = args
+    if x.shape[2] < 3 * GMM_TILE:
+        raise ValueError(f"a depth of 3 GMM_TILE at least expected, got "
+                         f"{tuple(x.shape)}")
+    want = gmm.reference_expert_matmul(x, w, **kw)
+    sl = slice(GMM_TILE, 2 * GMM_TILE)  # the second stage
+    left_out = x.clone()
+    left_out[..., sl] = 0
+    wrong = {"one GMM_TILE slice of D left out":
+                 gmm.reference_expert_matmul(left_out, w, **kw),
+             "one GMM_TILE slice of D counted twice":
+                 gmm.reference_expert_matmul(
+                     torch.cat([x, x[..., sl]], dim=2),
+                     torch.cat([w, w[:, sl]], dim=1), **kw)}
+    w32 = want.float()
+    limit = GMM_TOL * (w32.abs() + w32.abs().max())
+    for what, out in wrong.items():
+        if _gmm_within(out, want):
+            raise AssertionError(f"GMM_TOL passes a wrong output ({what})")
+        d = (out.float() - w32).abs()
+        print(f"moe_gmm check rejects a wrong output ({what}; "
+              f"{tuple(x.shape)} x {tuple(w.shape)}, {kw}): max error "
+              f"{float(d.max() / w32.abs().max())!r} of the largest |want|, "
+              f"{float((d > limit).float().mean())!r} of the elements past "
+              f"the limit")
 
 
 def _rglru_operands(gen, shape, device):
@@ -1085,8 +1181,10 @@ def _flash_path_check(fa, recorded, random) -> float:
 
 
 def _gmm_path_check(gmm, recorded, random) -> float:
-    return _gmm_check(gmm, recorded + random, "at path 2's shapes (recorded "
-                      "operands and random)")
+    err = _gmm_check(gmm, recorded + random, "at path 2's shapes (recorded "
+                     "operands and random)")
+    _gmm_rejects_wrong_outputs(gmm, *recorded[0])
+    return err
 
 
 def _rglru_path_check(rglru, recorded, random) -> float:
@@ -1208,6 +1306,7 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
         ms = _kernel_device_ms(lambda: wrapper(*args, **kw), 20,
                                spec.profiled)
         plain_ms = _kernel_device_ms(lambda: plain(*args, **kw), 20, None)
+        held_ms = _held_queue_ms(lambda: wrapper(*args, **kw), 20)
         bound, by, n_ops, n_bytes = spec.bound(s)
         library = spec.library(args, kw)
         library_ms = None
@@ -1218,15 +1317,19 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
             print(f"{name} {s}: library yardstick (never called by the port) "
                   f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
         rate, share = n_ops / (ms * 1e-3), bound / ms
+        byte_rate = n_bytes / (ms * 1e-3)
         rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "plain_ms": plain_ms, "held_ms": held_ms,
+                   "bound_ms": bound, "bound_by": by,
                    "library_ms": library_ms, "ops_per_s": rate,
-                   "bound_share": share}
+                   "bytes_per_s": byte_rate, "bound_share": share}
         print(f"{name} {s}, {shapes[s]} launches on path 2: device time per "
               f"launch (torch.profiler) kernel {ms!r} ms, plain {plain_ms!r} "
-              f"ms, library {library_ms!r} ms; bound {bound!r} ms by {by} "
+              f"ms, library {library_ms!r} ms; kernel on a held stream "
+              f"(CUDA events) {held_ms!r} ms; bound {bound!r} ms by {by} "
               f"({n_ops} operations, {n_bytes} B); achieved "
-              f"{rate / 1e12!r} T operations/s, {share!r} of the bound")
+              f"{rate / 1e12!r} T operations/s, {byte_rate / 1e12!r} TB/s, "
+              f"{share!r} of the bound")
     top = rows[order[0]]
     return {"name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces,
@@ -1297,7 +1400,7 @@ def main() -> int:
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "ops_per_s", "bound_share", "shape",
+             "library_ms", "ops_per_s", "bytes_per_s", "bound_share", "shape",
              "launches_by_path", "call_ms", "plain_call_ms", "shapes"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start!r} s")

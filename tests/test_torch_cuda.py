@@ -263,13 +263,21 @@ def test_ssd_rejects_what_it_does_not_take(cuda):
         ssd.ssd_intra_chunk(x, Bm, Bm, dt, A.cpu())
 
 
-# expert matmul: the shapes of tests/test_kernels.py and the MoE path's
-# (qwen3-moe-30b-a3b, 4 groups of capacity 80 folded to C 320), bf16, each
-# activation.  Both sides sum exact products in fp32 (in other orders) and
-# round once to bf16, so they differ by an ulp of bf16 in a few elements:
-# held to 2**-7 of the largest magnitude and 2**-7 relative, elementwise.
+# expert matmul: the shapes of tests/test_kernels.py, the MoE path's
+# (qwen3-moe-30b-a3b, 4 groups of capacity 80 folded to C 320, both orders
+# of 2048 and 768), C off the kernel's 128-row tile (1, 70, 200, 320),
+# E = 1, D below and off its 64-deep stage (40, 72, 96, 136), and ragged
+# D and F that the wrapper pads to multiples of 8 (50 x 33, F 100), in
+# bf16, each activation.  Both sides sum exact products in fp32 (in other
+# orders: the kernel's wgmma by 64-deep stages) and apply the activation in
+# fp32 (the kernel with a fast exponential and division, a few fp32 ulps),
+# then round once to bf16, so they differ by an ulp of bf16 in a few
+# elements: held to 2**-7 of the largest magnitude and 2**-7 relative,
+# elementwise.
 GMM_CASES = [(4, 64, 96, 80), (2, 128, 256, 128), (8, 40, 72, 200),
-             (128, 320, 2048, 768), (128, 320, 768, 2048)]
+             (128, 320, 2048, 768), (128, 320, 768, 2048), (3, 1, 64, 64),
+             (3, 70, 50, 33), (1, 200, 136, 264), (2, 320, 40, 512),
+             (1, 320, 2048, 768), (2, 48, 64, 100)]
 
 
 @pytest.mark.parametrize("act", ["none", "silu", "gelu"])
@@ -285,10 +293,28 @@ def test_expert_matmul_matches_plain(cuda, E, C, D, F, act):
     assert moe_gmm.launch_count == before + 1
     want = moe_gmm.reference_expert_matmul(x, w, activation=act)
     assert out.dtype == torch.bfloat16 and out.shape == (E, C, F)
+    assert out.is_contiguous()
     tol = 2.0 ** -7
     assert torch.allclose(out.float(), want.float(),
                           atol=tol * float(want.float().abs().max()),
                           rtol=tol)
+
+
+@pytest.mark.parametrize("E,C,D,F,act", [(8, 320, 2048, 768, "silu"),
+                                         (4, 200, 768, 2048, "none")])
+def test_expert_matmul_repeats_bit_for_bit(cuda, E, C, D, F, act):
+    """The kernel uses no atomics, so two launches on the same operands
+    give the same bits; a difference would be a race in its ring of
+    shared-memory stages (a stage read before its load landed, or
+    overwritten before its products were done)."""
+    gen = torch.Generator(device=cuda).manual_seed(D + F)
+    x = torch.randn((E, C, D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda)
+         * D ** -0.5).to(torch.bfloat16)
+    first = moe_gmm.expert_matmul(x, w, act)
+    second = moe_gmm.expert_matmul(x, w, act)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_expert_matmul_rejects_what_it_does_not_take(cuda):
@@ -302,6 +328,12 @@ def test_expert_matmul_rejects_what_it_does_not_take(cuda):
         ops.expert_matmul(x, w.cpu())
     with pytest.raises(ValueError, match="activation"):
         ops.expert_matmul(x, w, "relu")
+    odd = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.expert_matmul(odd[1:].view(x.shape), w)
+    odd = torch.zeros(w.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.expert_matmul(x, odd[1:].view(w.shape))
 
 
 def test_router_runs_in_full_float32_under_tf32(cuda, monkeypatch):

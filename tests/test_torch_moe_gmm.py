@@ -82,6 +82,35 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         moe_gmm.expert_matmul(x, torch.zeros((2, 8, 3), device="meta"))
 
 
+@pytest.mark.parametrize("activation", ["none", "silu", "gelu"])
+@pytest.mark.parametrize("E,C,D,F", [(3, 70, 50, 33), (2, 5, 72, 200),
+                                     (1, 4, 1, 1), (2, 9, 13, 8),
+                                     (2, 6, 16, 100)])
+def test_padded_operands_give_the_unpadded_product(E, C, D, F, activation):
+    """The kernel takes D and F in multiples of TMA_ELEMS; pad_operands pads
+    a ragged D or F with zeros.  The padded product, sliced back to F
+    columns, is the unpadded product.  The operands are small integers, so
+    every fp32 sum is exact and the order of the sums cannot matter: the two
+    are compared with ==."""
+    rng = np.random.default_rng(E + C + D + F)
+    x = torch.from_numpy(rng.integers(-4, 5, (E, C, D)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-4, 5, (E, D, F)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    xp, wp = moe_gmm.pad_operands(x, w)
+    Dp, Fp = -(-D // moe_gmm.TMA_ELEMS) * moe_gmm.TMA_ELEMS, \
+        -(-F // moe_gmm.TMA_ELEMS) * moe_gmm.TMA_ELEMS
+    assert xp.shape == (E, C, Dp) and wp.shape == (E, Dp, Fp)
+    assert torch.equal(xp[..., :D], x) and not xp[..., D:].any()
+    assert torch.equal(wp[:, :D, :F], w) and not wp[:, D:].any() \
+        and not wp[..., F:].any()
+    if (Dp, Fp) == (D, F):
+        assert xp is x and wp is w  # nothing to pad, nothing copied
+    got = moe_gmm.reference_expert_matmul(xp, wp, activation=activation)
+    assert torch.equal(got[..., :F], moe_gmm.reference_expert_matmul(
+        x, w, activation=activation))
+
+
 def _moe_case(compute_dtype, T, capacity_factor, seed=0):
     over = dict(compute_dtype=compute_dtype, capacity_factor=capacity_factor)
     jcfg = JAX_ARCHS["qwen3-moe-30b-a3b"].reduced(**over)
