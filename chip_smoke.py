@@ -46,22 +46,29 @@ Phases, in order; any failure exits non-zero:
    ``apply_stack`` on the card (the same blocks in the same order); the
    first two groups at S 512 on the card (kernels) within CHECK_TOL of
    their largest magnitude of the same groups on the CPU (plain versions),
-   in bf16 (route-aware for MoE: a token whose kept experts differ must
-   first differ at a near tie on the CPU side, and the tokens that keep
-   the same experts at every layer are compared); each stage's measured compute printed beside the
-   planner's prediction; the model freed before the next;
+   in bf16; route-aware for MoE: every expert pick of the card that the
+   CPU's router would not make must be a near tie there, the tokens of
+   each sequence before its first token that routes otherwise are held to
+   the CPU's own run, and every token to a second CPU run that replays the
+   card's expert picks (whose buffer places and drops must be ``==`` the
+   card's); each stage's measured compute printed beside the planner's
+   prediction; the model freed before the next;
 6. kernel vs plain at path 2's shapes, on the recorded operands and random
    ones: flash attention at FLASH_TOL, which must also reject two wrong
    outputs (l off by 5 %, each row's diagonal key tile dropped); SSD's y and
    chunk states, and the RG-LRU scan, on the recorded operands against a
    float64 witness, at SSD_WITNESS and RGLRU_WITNESS times the plain
-   version's own error (random operands at SSD_TOL and RGLRU_TOL); the
+   version's own error (random operands at SSD_TOL and RGLRU_TOL), and the
+   SSD witness must also reject two wrong outputs (one head with its
+   neighbour's dt and A, each query tile's diagonal score tile dropped); the
    expert matmul at GMM_TOL, which must also reject two wrong outputs (one
    GMM_TILE slice of D left out, one counted twice); then each shape timed
    by ``torch.profiler`` device time (a time on a held stream by CUDA
    events beside it, the clock used when the profiler loses events in
    every window) beside its plain version, its bound, the operations and
-   bytes per second it achieved and its share of the bound, and its library
+   bytes per second it achieved and its share of the bound (SSD's bound is
+   its TF32 tensor-core work; the same work at the fp32 rate is printed
+   beside it), and its library
    yardstick (``scaled_dot_product_attention`` for flash attention,
    ``torch.bmm`` with the activation for the expert matmul; SSD and RG-LRU
    have no single library call), with the SM clock, its maximum and the
@@ -91,6 +98,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12      # H100 SXM fp64 outside the tensor cores (ditto)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (ditto)
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (ditto)
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores (ditto)
 EXTRA_SHAPE = (1024, 1, 16, 16)  # (batch, M, K, N): a scan at Sp = 16
 RECORDED_OPERANDS = 3  # operand sets kept per shape of a kernel's calls
 CHECK_SEQ = 512        # path 2: sequence of the card-vs-CPU check
@@ -110,6 +118,10 @@ SSD_TOL = (1e-4, 1e-4, 1e-5)  # y, chunk states, decay (tests/test_kernels.py)
 # may be SSD_WITNESS times the plain version's own (or eps of the largest
 # value, where the plain version is exact).  The decay stays at SSD_TOL[2].
 SSD_WITNESS = 4.0
+SSD_TILE = 64  # query and key rows of a score tile of csrc/ssd.cu (T)
+# TF32 tensor-core products the SSD kernel does for each fp32 product
+# (csrc/ssd.cu's wgmma3: lo.hi, hi.lo, hi.hi)
+SSD_TF32_PASSES = 3
 FP32_EPS = 2.0 ** -23
 # Expert matmul, bf16: both sides sum exact products in fp32 (in other
 # orders: the kernel's wgmma sums 64-deep stages, the plain version's
@@ -164,9 +176,13 @@ FLASH_GENERIC = [
     (1, 300, 300, 4, 2, 256, True, 128, None),
     (2, 96, 96, 2, 1, 256, False, 40, 30.0),
 ]
-# (B, S, H, P, N, Q): tests/test_kernels.py's cases, head width 16, a ragged Q
+# (B, S, H, P, N, Q): tests/test_kernels.py's cases, head width 16, a ragged
+# Q, 5 heads (one past the kernel's group of 4), N off a multiple of 4, and
+# a ragged chunk too long for the scans to stay in shared memory
 SSD_GENERIC = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
-               (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100)]
+               (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100),
+               (1, 512, 5, 64, 128, 256), (1, 128, 2, 32, 10, 64),
+               (1, 1000, 5, 64, 128, 500)]
 # (E, C, D, F, activation): tests/test_kernels.py's cases, a ragged D and F
 # (the wrapper pads them to multiples of 8), one row tile short of the MoE
 # path's C, C 1 with D below one stage, and E 1 with C off the 128-row tile
@@ -719,6 +735,20 @@ def _by_head(t):
     return t.abs().amax(dim=(0, 1, 3, 4))
 
 
+def _ssd_witness(got, want, exact) -> list:
+    """For y and the chunk states: (name, the largest error of ``got``
+    against the float64 values ``exact``, its limit: SSD_WITNESS times the
+    plain version ``want``'s own largest error, or eps of the largest value
+    where the plain version is exact)."""
+    rows = []
+    for name, g, w, e in zip(("y", "chunk states"), got, want, exact):
+        err_k = float((g.double() - e).abs().max())
+        err_p = float((w.double() - e).abs().max())
+        rows.append((name, err_k, SSD_WITNESS * max(
+            err_p, FP32_EPS * float(e.abs().max()))))
+    return rows
+
+
 def _ssd_check_witness(ssd, cases, what: str) -> float:
     """The kernel and its plain version against the plain version computed
     in float64: over each case's y and chunk states, the kernel's largest
@@ -735,10 +765,10 @@ def _ssd_check_witness(ssd, cases, what: str) -> float:
         exact = ssd.reference_ssd_intra_chunk(*args, dtype=torch.float64)
         cum_max = float((args[4][None, None, :, None].double()
                          * args[3].double()).sum(-1).max())
-        for name, g, w, e in zip(("y", "chunk states"), got, want, exact):
+        for (name, worst_k, limit), g, w, e in zip(
+                _ssd_witness(got, want, exact), got, want, exact):
             err_k, err_p = _by_head(g.double() - e), _by_head(w.double() - e)
-            worst_k, worst_p = float(err_k.max()), float(err_p.max())
-            limit = SSD_WITNESS * max(worst_p, FP32_EPS * float(e.abs().max()))
+            worst_p = float(err_p.max())
             failures += not worst_k <= limit
             vs_plain = float((g - w).abs().max())
             max_err = max(max_err, vs_plain)
@@ -759,6 +789,55 @@ def _ssd_check_witness(ssd, cases, what: str) -> float:
         raise AssertionError(f"ssd {what}: {failures} outputs past the "
                              f"limits")
     return max_err
+
+
+def _ssd_y_without_diagonal(x, Bm, Cm, dt, A):
+    """The plain version's y with each query tile's diagonal SSD_TILE x
+    SSD_TILE score tile left out, in float32."""
+    x32, B32, C32, dt32 = (t.float() for t in (x, Bm, Cm, dt))
+    cum = torch.cumsum(dt32 * (-A.float())[None, None, :, None], dim=-1)
+    scores = torch.einsum("bcqn,bckn->bcqk", C32, B32)
+    qi = torch.arange(x.shape[3], device=x.device)[:, None]
+    ki = torch.arange(x.shape[3], device=x.device)[None, :]
+    keep = (qi >= ki) & (qi // SSD_TILE != ki // SSD_TILE)
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~keep, float("-inf")))
+    w = scores[:, :, None] * decay * dt32[:, :, :, None, :]
+    return torch.einsum("bchqk,bchkp->bchqp", w, x32)
+
+
+def _ssd_wrong_outputs(ssd, args) -> dict:
+    """Two deliberately wrong outputs on these operands, built from the
+    plain version: head 1 computed with head 0's dt and A (a slip in the
+    indexing of a block's group of heads), and y with each query tile's
+    diagonal score tile dropped (the tile the causal walk would miss if it
+    stopped one tile short)."""
+    x, Bm, Cm, dt, A = args
+    if x.shape[2] < 2:
+        raise ValueError(f"two heads at least expected, got {tuple(x.shape)}")
+    dt_slip, A_slip = dt.clone(), A.clone()
+    dt_slip[:, :, 1], A_slip[1] = dt[:, :, 0], A[0]
+    want = ssd.reference_ssd_intra_chunk(*args)
+    return {"head 1 with head 0's dt and A": ssd.reference_ssd_intra_chunk(
+                x, Bm, Cm, dt_slip, A_slip),
+            "each query tile's diagonal score tile dropped": (
+                _ssd_y_without_diagonal(*args), want[1], want[2])}
+
+
+def _ssd_rejects_wrong_outputs(ssd, args) -> None:
+    """The witness check must reject the two wrong outputs of
+    ``_ssd_wrong_outputs`` on these operands; prints the error of each."""
+    want = ssd.reference_ssd_intra_chunk(*args)
+    exact = ssd.reference_ssd_intra_chunk(*args, dtype=torch.float64)
+    for what, out in _ssd_wrong_outputs(ssd, args).items():
+        rows = _ssd_witness(out, want, exact)
+        if all(err <= limit for _, err, limit in rows):
+            raise AssertionError(f"SSD_WITNESS passes a wrong output "
+                                 f"({what}): {rows}")
+        print(f"ssd check rejects a wrong output ({what}; x "
+              f"{tuple(args[0].shape)}): " + ", ".join(
+                  f"{name} error {err!r} against float64 (limit {limit!r})"
+                  for name, err, limit in rows))
 
 
 def _gmm_operands(gen, shape, device):
@@ -949,9 +1028,12 @@ def _rglru_key(a, b):
 
 
 @contextlib.contextmanager
-def record_routes():
+def record_routes(replay=None):
     """Record every MoE layer's routing inside the block: yields a list of
-    (logits, idx, keep), one per layer in order."""
+    ``layers.Routing``, one per layer in order.  With ``replay`` (another
+    run's routings of the same layers) each layer sends its tokens to that
+    run's experts instead, through ``layers.routing_of_picks``, whose
+    buffer places and capacity drops must then be ``==`` that run's."""
     from repro_torch.models import layers as ML
 
     routes: list = []
@@ -959,7 +1041,16 @@ def record_routes():
 
     def recorder(router, cfg, toks):
         r = route(router, cfg, toks)
-        routes.append((r.logits, r.idx, r.keep))
+        if replay is not None:
+            want = replay[len(routes)]
+            r = ML.routing_of_picks(r.logits, r.probs,
+                                    want.idx.to(r.idx.device), r.capacity)
+            if not (torch.equal(r.pos, want.pos.to(r.pos.device))
+                    and torch.equal(r.keep, want.keep.to(r.keep.device))):
+                raise AssertionError(f"MoE layer {len(routes)}: the replayed "
+                                     f"picks give other buffer places or "
+                                     f"drops")
+        routes.append(r)
         return r
 
     ML.moe_route = recorder
@@ -969,14 +1060,56 @@ def record_routes():
         ML.moe_route = route
 
 
+def _rel(out, ref) -> float:
+    """max |out - ref| over max |ref| (0 over no token)."""
+    if not len(ref):
+        return 0.0
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int) -> str:
+    """The card-vs-CPU gate of a model with MoE layers, on the tokens
+    (rows of ``rows`` sequences, each a row of ``got``): ``own`` is the
+    CPU's output with its own routing, ``replayed`` with the card's expert
+    picks.  Every pick of the card that the CPU's router would not make
+    must be a near tie there (within CHECK_TOL of the largest |logit|),
+    half the tokens at least must route alike at every layer, the tokens of
+    each sequence before its first token that routes otherwise must be
+    within CHECK_TOL of ``own`` (attention carries a differing pick to
+    every later token of its sequence), and every token within CHECK_TOL
+    of ``replayed``.  Raises on a failure, else returns the readings."""
+    from repro_torch.models import layers as ML
+
+    ra = ML.routing_agreement([(r.logits, r.idx, r.keep) for r in card_routes],
+                              [(r.logits, r.idx, r.keep) for r in cpu_routes])
+    first = ((~ra.agree).reshape(rows, -1).cumsum(1) == 0).flatten()
+    err_first = _rel(got[first], own[first])
+    err_all = _rel(got, replayed)
+    line = (f"routing: {ra.flips} of {ra.picks} expert picks differ by slot, "
+            f"{ra.diverged} of {len(own)} tokens keep other experts at some "
+            f"layer, each first at a near tie (the largest distance of a "
+            f"differing expert from the CPU's top-k cut {ra.worst_gap!r} of "
+            f"the largest |logit|, limit {CHECK_TOL}), "
+            f"{int(ra.agree.sum())} keep the same experts at every layer; "
+            f"the {int(first.sum())} tokens before their sequence's first "
+            f"that routes otherwise {err_first!r}, every token with the "
+            f"card's picks replayed on the CPU {err_all!r} of the largest "
+            f"magnitude (limit {CHECK_TOL})")
+    if not ra.flips_are_near_ties(CHECK_TOL) \
+            or 2 * int(ra.agree.sum()) < len(own):
+        raise AssertionError(f"the card's routing is not the CPU's up to "
+                             f"near ties; {line}")
+    if not (err_first < CHECK_TOL and err_all < CHECK_TOL):
+        raise AssertionError(f"card and CPU differ past the limit; {line}")
+    return line
+
+
 def _check_on_cpu(name, cfg, params, tokens, pos) -> None:
     """The first two groups at S = CHECK_SEQ on the card (kernels) against
     the same groups on the CPU (plain versions), within CHECK_TOL of the
-    largest magnitude; route-aware where they hold MoE layers: every token
-    whose kept experts differ must first differ at a near tie on the CPU
-    side (``routing_agreement``, within CHECK_TOL of the largest |logit|),
-    half the tokens at least must keep the same experts at every layer, and
-    those are compared."""
+    largest magnitude.  Where they hold MoE layers the CPU runs twice, with
+    its own routing and with the card's expert picks replayed, and
+    ``_moe_gate`` holds every token."""
     from repro_torch.models import layers as ML
     from repro_torch.models import transformer as MT
 
@@ -984,40 +1117,35 @@ def _check_on_cpu(name, cfg, params, tokens, pos) -> None:
     sub = {"layers": params["stack"]["layers"][:n]}
     x = MT.embed_tokens(params, cfg, tokens[:, :CHECK_SEQ])
     ctx = ML.Ctx(mode="prefill", positions=pos[:, :CHECK_SEQ])
+    cpu_sub = MT.tree_map(lambda t: t.cpu(), sub)
+    cpu_ctx = ML.Ctx(mode="prefill", positions=ctx.positions.cpu())
     t0 = time.perf_counter()
     with record_routes() as card_routes:
         on_card, _, _ = MT.apply_stack(sub, cfg, n, cfg.pattern, x, ctx,
                                        None)
     with record_routes() as cpu_routes:
-        on_cpu, _, _ = MT.apply_stack(
-            MT.tree_map(lambda t: t.cpu(), sub), cfg, n, cfg.pattern,
-            x.cpu(), ML.Ctx(mode="prefill", positions=ctx.positions.cpu()),
-            None)
+        on_cpu, _, _ = MT.apply_stack(cpu_sub, cfg, n, cfg.pattern, x.cpu(),
+                                      cpu_ctx, None)
     got = on_card.float().cpu().reshape(-1, cfg.d_model)
     want = on_cpu.float().reshape(-1, cfg.d_model)
-    routed = ""
     if cpu_routes:
-        ra = ML.routing_agreement(card_routes, cpu_routes)
-        routed = (f"; routing: {ra.flips} of {ra.picks} expert picks differ "
-                  f"by slot, {ra.diverged} of {len(want)} tokens keep other "
-                  f"experts at some layer, each first at a near tie (the "
-                  f"largest distance of a differing expert from the CPU's "
-                  f"top-k cut {ra.worst_gap!r} of the largest |logit|, "
-                  f"limit {CHECK_TOL}); {int(ra.agree.sum())} tokens keep "
-                  f"the same experts at every layer and are compared")
-        if not ra.flips_are_near_ties(CHECK_TOL) \
-                or 2 * int(ra.agree.sum()) < len(want):
-            raise AssertionError(f"{name}: the card's routing is not the "
-                                 f"CPU's up to near ties{routed}")
-        got, want = got[ra.agree], want[ra.agree]
-    err = float((got - want).abs().max() / want.abs().max())
-    if not err < CHECK_TOL:
-        raise AssertionError(f"{name}: first two groups on the card differ "
-                             f"from the CPU by {err!r} of the largest "
-                             f"magnitude (limit {CHECK_TOL}){routed}")
+        with record_routes(replay=card_routes):
+            replayed, _, _ = MT.apply_stack(cpu_sub, cfg, n, cfg.pattern,
+                                            x.cpu(), cpu_ctx, None)
+        try:
+            line = _moe_gate(got, want, replayed.float().reshape(
+                -1, cfg.d_model), card_routes, cpu_routes, tokens.shape[0])
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+    else:
+        err = _rel(got, want)
+        if not err < CHECK_TOL:
+            raise AssertionError(f"{name}: first two groups on the card "
+                                 f"differ from the CPU by {err!r} of the "
+                                 f"largest magnitude (limit {CHECK_TOL})")
+        line = f"{err!r} of the largest magnitude (limit {CHECK_TOL})"
     print(f"{name}: first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
-          f"(plain versions) in {cfg.compute_dtype}: {err!r} of the largest "
-          f"magnitude (limit {CHECK_TOL}){routed}, in "
+          f"(plain versions) in {cfg.compute_dtype}: {line}, in "
           f"{time.perf_counter() - t0!r} s")
 
 
@@ -1134,19 +1262,37 @@ def _flash_bound(key) -> tuple[float, str, int, int]:
             "bytes", n_ops, n_bytes)
 
 
-def _ssd_bound(key) -> tuple[float, str, int, int]:
-    """C B^T counted once per (batch, chunk), as the heads share it, and
-    every product over causal pairs only: the least work."""
+def _ssd_work(key) -> tuple[int, int]:
+    """The least work, (operations, bytes): C B^T counted once per (batch,
+    chunk), as the heads share it, and every product over causal pairs
+    only."""
     B, nc, H, Q, P, N = key
     pairs = Q * (Q + 1) // 2
     n_ops = (2 * N * pairs * B * nc + 2 * P * pairs * B * nc * H
              + 2 * Q * N * P * B * nc * H)
     n_bytes = 4 * (B * nc * H * Q * P * 2 + 2 * B * nc * Q * N
                    + 2 * B * nc * H * Q + H + B * nc * H * N * P)
-    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return n_ops, n_bytes
+
+
+def _ssd_bound(key) -> tuple[float, str, int, int]:
+    """The least work done as the kernel computes it: SSD_TF32_PASSES TF32
+    products on the tensor cores for each fp32 product."""
+    n_ops, n_bytes = _ssd_work(key)
+    op_ms = SSD_TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
             "bytes", n_ops, n_bytes)
+
+
+def _ssd_fp32_bound(key) -> tuple[float, str]:
+    """The same work at the fp32 rate outside the tensor cores: not a bound
+    of this kernel (it can beat it), the yardstick of a kernel on fp32
+    FMAs, printed beside the bound."""
+    n_ops, n_bytes = _ssd_work(key)
+    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
 
 def _gmm_bound(key) -> tuple[float, str, int, int]:
@@ -1197,6 +1343,7 @@ def _rglru_path_check(rglru, recorded, random) -> float:
 def _ssd_path_check(ssd, recorded, random) -> float:
     err = _ssd_check_witness(ssd, [args for args, _ in recorded],
                              "recorded at path 2's shapes")
+    _ssd_rejects_wrong_outputs(ssd, recorded[0][0])
     return max(err, _ssd_check(ssd, [args for args, _ in random],
                                "random at path 2's shapes"))
 
@@ -1245,6 +1392,8 @@ class Kernel(NamedTuple):
     check: Callable | None = None  # (module, recorded, random) -> max err
     bound: Callable | None = None  # key -> (ms, by, operations, bytes)
     library: Callable = lambda args, kw: None  # noqa: E731
+    # key -> (ms, by) of the same work at the fp32 rate, or None
+    fp32_bound: Callable = lambda key: None  # noqa: E731
 
 
 KERNELS = {
@@ -1268,7 +1417,7 @@ KERNELS = {
         "reference_ssd_intra_chunk",
         lambda gen, s, kw, device: (_ssd_operands(
             gen, (s[0], s[1] * s[3], s[2], s[4], s[5], s[3]), device), kw),
-        _ssd_path_check, _ssd_bound),
+        _ssd_path_check, _ssd_bound, fp32_bound=_ssd_fp32_bound),
     "moe_gmm": Kernel(
         "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "src/repro/kernels/moe_gmm.py:22",
@@ -1323,6 +1472,13 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": library_ms, "ops_per_s": rate,
                    "bytes_per_s": byte_rate, "bound_share": share}
+        fp32 = spec.fp32_bound(s)
+        if fp32 is not None:
+            rows[s].update(fp32_bound_ms=fp32[0], fp32_bound_by=fp32[1],
+                           fp32_bound_share=fp32[0] / ms)
+            print(f"{name} {s}: the same work at the fp32 rate outside the "
+                  f"tensor cores would take {fp32[0]!r} ms by {fp32[1]}: "
+                  f"{fp32[0] / ms!r} of the kernel's time")
         print(f"{name} {s}, {shapes[s]} launches on path 2: device time per "
               f"launch (torch.profiler) kernel {ms!r} ms, plain {plain_ms!r} "
               f"ms, library {library_ms!r} ms; kernel on a held stream "
@@ -1400,7 +1556,8 @@ def main() -> int:
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "ops_per_s", "bytes_per_s", "bound_share", "shape",
+             "library_ms", "ops_per_s", "bytes_per_s", "bound_share",
+             "fp32_bound_ms", "fp32_bound_by", "fp32_bound_share", "shape",
              "launches_by_path", "call_ms", "plain_call_ms", "shapes"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start!r} s")

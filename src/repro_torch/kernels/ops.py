@@ -1,5 +1,6 @@
 """The kernels' entry points, as the JAX package's ``kernels/ops.py`` has
-them: ``expert_matmul``, ``rglru_scan`` and ``ssd_intra_chunk`` as they are,
+them: ``flash_attention``, ``expert_matmul``, ``rglru_scan`` and
+``ssd_intra_chunk`` as they are,
 and ``ssd_forward``, the composed SSD forward: the intra-chunk kernel plus
 the inter-chunk recurrence, a short sequential loop over chunks in plain
 PyTorch (the JAX package leaves it to ``lax.scan``)."""
@@ -7,11 +8,13 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention
 from .moe_gmm import expert_matmul
 from .rglru import rglru_scan
 from .ssd import ssd_intra_chunk
 
-__all__ = ["expert_matmul", "rglru_scan", "ssd_intra_chunk", "ssd_forward"]
+__all__ = ["flash_attention", "expert_matmul", "rglru_scan",
+           "ssd_intra_chunk", "ssd_forward"]
 
 
 def ssd_forward(xh, dtv, A, Bm, Cm, h0=None, chunk: int = 256):

@@ -11,8 +11,10 @@ Per (batch, chunk, head), with ``cum = cumsum(-A * dt)`` over the chunk:
 CUDA tensors it launches the hand-written kernel in ``csrc/ssd.cu`` (built
 with ``nvcc`` for ``sm_90a`` at first use, see :mod:`.build`) and raises if
 the build or the launch fails; the kernel takes float32, the type the model
-path gives it.  On CPU tensors it computes :func:`reference_ssd_intra_chunk`,
-the plain PyTorch version.  Nothing here touches CUDA at import.
+path gives it, and does its products on the tensor cores in TF32, three
+products for each fp32 one, which keeps fp32 accuracy.  On CPU tensors it
+computes :func:`reference_ssd_intra_chunk`, the plain PyTorch version.
+Nothing here touches CUDA at import.
 """
 from __future__ import annotations
 
@@ -103,17 +105,24 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A):
         raise ValueError(f"the SSD kernel takes P in {HEAD_WIDTHS} and N <= "
                          f"{MAX_STATE}, got P {P}, N {N}")
     y = torch.empty_like(x)
-    hc = torch.empty((Bsz, nc, H, N, P), dtype=torch.float32, device=x.device)
     dec = torch.empty_like(dt)
     if x.numel() == 0:
-        return y, hc, dec
+        return (y, torch.empty((Bsz, nc, H, N, P), dtype=torch.float32,
+                               device=x.device), dec)
+    # the kernel loads B and C by TMA, whose rows are whole 16-byte units:
+    # a state width off a multiple of 4 is padded with zero columns, which
+    # add nothing to C B^T and give chunk-state rows that are cut off
+    N4 = -(-N // 4) * 4
+    if N4 != N:
+        Bm, Cm = (torch.nn.functional.pad(t, (0, N4 - N)) for t in (Bm, Cm))
+    hc = torch.empty((Bsz, nc, H, N4, P), dtype=torch.float32, device=x.device)
     fn = LIBRARY.entry("ssd_intra_chunk_f32")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
                  A.data_ptr(), y.data_ptr(), hc.data_ptr(), dec.data_ptr(),
-                 Bsz, nc, H, Q, P, N, stream)
+                 Bsz, nc, H, Q, P, N4, stream)
     if err != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     launch_count += 1
-    return y, hc, dec
+    return y, hc[..., :N, :], dec

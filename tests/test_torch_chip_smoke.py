@@ -1,11 +1,16 @@
-"""chip_smoke.py's rule for profiler windows, on the CPU with a stand-in
-profiler: a window that lost device events is never read, the next one is,
-and when every window lost events the calls are timed on a held stream."""
+"""chip_smoke.py's checks on the CPU: the rule for profiler windows (with a
+stand-in profiler, a window that lost device events is never read, the
+next one is, and when every window lost events the calls are timed on a
+held stream), SSD's bound, SSD's witness against wrong outputs, and the
+card-vs-CPU gate of the MoE models on a hand-made routing."""
 from __future__ import annotations
 
 import collections
+import types
 
+import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 
@@ -56,3 +61,104 @@ def test_a_name_no_window_saw_raises(monkeypatch):
     monkeypatch.setattr(cs, "_held_queue_ms", lambda fn, calls: 7.5)
     with pytest.raises(AssertionError, match="no_such_kernel"):
         cs._kernel_device_ms(lambda: None, CALLS, "no_such_kernel")
+
+
+# ---------------------------------------------------------------- SSD ---
+PATH_KEY = (2, 8, 32, 256, 64, 128)  # mamba2-370m: (B, nc, H, Q, P, N)
+
+
+def test_ssd_bound_at_the_path_shape():
+    """The least work at the path shape, bounded on the tensor cores where
+    the kernel does three TF32 products for each fp32 product; the same
+    work at the fp32 rate is the row's second figure."""
+    ms, by, n_ops, n_bytes = cs._ssd_bound(PATH_KEY)
+    assert (n_ops, n_bytes) == (4_438_097_920, 89_129_088)
+    assert cs.SSD_TF32_PASSES == 3
+    assert by == "operations"
+    assert ms == pytest.approx(3 * n_ops / 495e12 * 1e3)
+    assert ms > n_bytes / 3.35e12 * 1e3  # 26.9 us of operations, 26.6 of bytes
+    fp32 = cs.KERNELS["ssd"].fp32_bound(PATH_KEY)
+    assert fp32 == cs._ssd_fp32_bound(PATH_KEY)
+    assert fp32[1] == "operations"
+    assert fp32[0] == pytest.approx(n_ops / 67e12 * 1e3)
+    assert cs.KERNELS["flash_attention"].fp32_bound(PATH_KEY) is None
+
+
+def _ssd_args(seed, B=1, S=128, H=4, P=16, N=16, Q=64):
+    rng = np.random.default_rng(seed)
+    nc = S // Q
+    f32 = np.float32
+    return tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((B, nc, H, Q, P)).astype(f32),
+        (rng.standard_normal((B, nc, Q, N)) * 0.3).astype(f32),
+        (rng.standard_normal((B, nc, Q, N)) * 0.3).astype(f32),
+        rng.uniform(0.01, 0.2, (B, nc, H, Q)).astype(f32),
+        rng.uniform(0.5, 4.0, (H,)).astype(f32)))
+
+
+@pytest.mark.parametrize("fault", [None, "head 1 with head 0's dt and A",
+                                   "each query tile's diagonal score tile "
+                                   "dropped"], ids=["plain", "head", "tile"])
+def test_ssd_witness_rejects_wrong_outputs(fault):
+    """The witness limit passes the plain version and rejects both wrong
+    outputs chip_smoke.py builds, at H 4 and Q 64 (two chunks)."""
+    from repro_torch.kernels import ssd
+
+    args = _ssd_args(7)
+    want = ssd.reference_ssd_intra_chunk(*args)
+    exact = ssd.reference_ssd_intra_chunk(*args, dtype=torch.float64)
+    wrong = cs._ssd_wrong_outputs(ssd, args)
+    assert set(wrong) == {"head 1 with head 0's dt and A",
+                          "each query tile's diagonal score tile dropped"}
+    got = want if fault is None else wrong[fault]
+    rows = cs._ssd_witness(got, want, exact)
+    assert [name for name, _, _ in rows] == ["y", "chunk states"]
+    within = all(err <= limit for _, err, limit in rows)
+    assert within == (fault is None)
+
+
+# ---------------------------------------------------- MoE routing gate ---
+def _routes(logits, idx):
+    """One MoE layer's routing of 8 tokens (2 sequences of 4) to 1 of 4
+    experts, no drops."""
+    logits = torch.tensor(logits, dtype=torch.float32)[None]  # (1, 8, 4)
+    idx = torch.tensor(idx)[None, :, None]
+    return [types.SimpleNamespace(logits=logits, idx=idx,
+                                  keep=torch.ones_like(idx, dtype=torch.bool))]
+
+
+CPU_LOGITS = [[1.0, 0.0, -1.0, -1.0]] * 8
+
+
+@pytest.mark.parametrize("case", ["near-tie", "past-flip-off", "not-near-tie",
+                                  "before-flip-off"])
+def test_moe_gate_on_a_hand_made_routing(case):
+    """Token 1 of the first sequence takes expert 1 on the card where the
+    CPU's router takes expert 0.  At a near tie, with the later tokens of
+    that sequence far from the CPU's own run but equal to the replay, the
+    gate passes; a token past the flip off the replay, a flip that is no
+    near tie, or a token before the flip off the CPU's run raise."""
+    cpu_logits = [row[:] for row in CPU_LOGITS]
+    cpu_logits[1] = [1.0, 0.999 if case != "not-near-tie" else 0.0, -1.0,
+                     -1.0]
+    cpu = _routes(cpu_logits, [0] * 8)
+    card = _routes(cpu_logits, [0, 1, 0, 0, 0, 0, 0, 0])
+    gen = torch.Generator().manual_seed(0)
+    own = torch.randn((8, 4), generator=gen)
+    got = own.clone()
+    got[1:4] += 0.5  # the flip's sequence from the flip on: another path
+    replayed = got.clone()
+    if case == "past-flip-off":
+        replayed[2] += 0.1
+    if case == "before-flip-off":
+        got[0] += 0.1
+        replayed[0] += 0.1
+    if case == "near-tie":
+        line = cs._moe_gate(got, own, replayed, card, cpu, rows=2)
+        assert "1 of 8 tokens keep other experts" in line
+        assert "the 5 tokens before their sequence's first" in line
+    else:
+        match = ("near ties" if case == "not-near-tie"
+                 else "differ past the limit")
+        with pytest.raises(AssertionError, match=match):
+            cs._moe_gate(got, own, replayed, card, cpu, rows=2)

@@ -11,13 +11,14 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 """
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
 from repro_torch.configs import ARCHS
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import minplus as mp
 from repro_torch.kernels import moe_gmm, ops, rglru
 from repro_torch.kernels import ssd
@@ -25,6 +26,9 @@ from repro_torch.kernels.minplus import minplus_matmul, minplus_reference
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as MT
 from repro_torch.msl import ChainSimulator, plan_pipeline
+
+# the module (the package's ``flash_attention`` is the wrapper)
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 INF = np.inf
 pytestmark = pytest.mark.cuda
@@ -218,10 +222,21 @@ def test_flash_attention_repeats_bit_for_bit(cuda, B, Sq, Sk, Hq, Hkv, hd,
 
 # SSD intra-chunk: the shapes of tests/test_kernels.py, the reduced mamba2's
 # head width 16, and the model path's (mamba2-370m at B 2, S 2048), float32;
-# 1e-4 (1e-5 for the decay), the tolerances of tests/test_kernels.py
+# then head counts across the kernel's group of 4 heads (1, 5, 33), a ragged
+# chunk at H 5, narrow states at P 16 and 32, a state off a multiple of 4
+# (the wrapper pads it for TMA), a long chunk whose scans still fit in
+# shared memory (one head at P 16), and chunks whose scans do not (the
+# kernel keeps them in global memory), ragged too; 1e-4 (1e-5 for the
+# decay), the tolerances of tests/test_kernels.py
 SSD_CASES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
              (2, 64, 3, 16, 16, 16), (1, 100, 2, 16, 8, 100),
-             (2, 2048, 32, 64, 128, 256)]
+             (2, 2048, 32, 64, 128, 256),
+             (1, 256, 1, 64, 128, 256), (1, 512, 5, 64, 128, 256),
+             (1, 256, 33, 64, 128, 256), (2, 200, 5, 64, 128, 100),
+             (1, 256, 3, 16, 8, 256), (2, 256, 6, 32, 64, 128),
+             (1, 128, 2, 32, 10, 64), (1, 1984, 1, 16, 16, 1984),
+             (1, 1000, 5, 64, 128, 500), (1, 3000, 4, 16, 16, 3000),
+             (2, 5000, 3, 32, 64, 2500), (1, 8192, 2, 64, 128, 8192)]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES)
@@ -244,6 +259,23 @@ def test_ssd_matches_plain(cuda, B, S, H, P, N, Q):
     for g, w, tol in zip(got, want, (1e-4, 1e-4, 1e-5)):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert torch.allclose(g, w, atol=tol, rtol=tol)
+
+
+def test_ssd_repeats_bit_for_bit(cuda):
+    """The kernel uses no atomics and no reduction across blocks, so two
+    launches at the path shape give the same bits; a difference would be a
+    race between its producer and consumer warpgroups."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, nc, H, Q, P, N = 2, 8, 32, 256, 64, 128
+    x = torch.randn((B, nc, H, Q, P), generator=gen, device=cuda)
+    Bm = torch.randn((B, nc, Q, N), generator=gen, device=cuda) * 0.3
+    Cm = torch.randn((B, nc, Q, N), generator=gen, device=cuda) * 0.3
+    dt = torch.rand((B, nc, H, Q), generator=gen, device=cuda) * 0.19 + 0.01
+    A = torch.rand((H,), generator=gen, device=cuda) * 3.5 + 0.5
+    first = ssd.ssd_intra_chunk(x, Bm, Cm, dt, A)
+    second = ssd.ssd_intra_chunk(x, Bm, Cm, dt, A)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_ssd_rejects_what_it_does_not_take(cuda):

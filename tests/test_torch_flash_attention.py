@@ -11,6 +11,8 @@ round the output once each after sums taken in other orders).
 """
 from __future__ import annotations
 
+import importlib
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -18,7 +20,9 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
-from repro_torch.kernels import flash_attention as fa
+
+# the module (the package's ``flash_attention`` is the wrapper)
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 CASES = [
