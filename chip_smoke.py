@@ -5,9 +5,11 @@
 
 Path 1 is the batched planner: ``ProblemInstance`` ->
 ``repro_torch.core.solve_batch`` -> ``dfts_torch`` / ``bcd_torch`` on
-``cuda`` -> ``Plan`` + ``LatencyBreakdown``, through the min-plus kernel.
+``cuda`` -> ``Plan`` + ``LatencyBreakdown``, through the fused min-plus
+scan kernel (one launch per scan; ``dfts_torch`` runs every instance's
+tours in lockstep waves, one scan per (K, S) group of a wave).
 Path 2 is plan execution: ``repro_torch.msl.plan_pipeline`` (``bcd_torch``
-on ``cuda``, the min-plus kernel again) -> ``ChainSimulator.run_plan``,
+on ``cuda``, the scan kernel again) -> ``ChainSimulator.run_plan``,
 which runs four models at full width and full depth with random weights
 from a seed, one after the other (MODELS):
 
@@ -28,19 +30,22 @@ Phases, in order; any failure exits non-zero:
    TF32 is switched off for float32 products and convolutions;
 2. build: every kernel is built from the sources in the checkout, one
    ``nvcc`` per source, all started together (sm_90a, ``build/kernels/``);
-3. kernel vs plain, generic: min-plus held with ``==`` against its plain
-   version (ties, +inf holes, off-tile shapes); flash attention in bf16 at
-   FLASH_TOL, SSD in float32 at SSD_TOL, the expert matmul in bf16 at
-   GMM_TOL and the RG-LRU scan at RGLRU_TOL, at ``tests/test_kernels.py``'s
-   shapes and a few more;
+3. kernel vs plain, generic: the min-plus product (``minplus_matmul``, no
+   longer launched on a path) held with ``==`` against its plain version
+   (ties, +inf holes, off-tile shapes, EXTRA_SHAPE); flash attention in bf16 at FLASH_TOL, SSD in float32 at
+   SSD_TOL, the expert matmul in bf16 at GMM_TOL and the RG-LRU scan at
+   RGLRU_TOL, at ``tests/test_kernels.py``'s shapes and a few more;
 4. path 1: the 96-instance population of the solver benchmark (NSFNET,
    ResNet-101 at its full 37 layer groups) through ``dfts_torch`` (distinct,
    then cycled to 1024) and ``bcd_torch``, every outcome ``==`` the port's
-   NumPy oracles, with the min-plus launch count over exactly this run and
-   every launch's shape and first operands recorded; then min-plus against
-   its plain version on the recorded operands, each shape timed;
+   NumPy oracles, with the scans and scan launches of each call over
+   exactly this run (each scan one launch) and every scan's shape and first
+   operands recorded; the warm 1024-instance pass's instances/s against
+   ``dfts_np``, its scans (at most MAX_WARM_SCANS), its wall, device busy
+   time and idle share under the profiler, and its host split (encode,
+   capped-tour build, scan with its copies, decode, and the rest);
 5. path 2, one model after the other: the counts set to 0, the plan and the
-   planned chain run on the card, the counts read (min-plus and each of the
+   planned chain run on the card, the counts read (the scan and each of the
    model's kernels must have launched), every kernel call's shape and first
    operands recorded; the chain's hidden state ``==`` the port's monolithic
    ``apply_stack`` on the card (the same blocks in the same order); the
@@ -53,8 +58,12 @@ Phases, in order; any failure exits non-zero:
    card's expert picks (whose buffer places and drops must be ``==`` the
    card's); each stage's measured compute printed beside the planner's
    prediction; the model freed before the next;
-6. kernel vs plain at path 2's shapes, on the recorded operands and random
-   ones: flash attention at FLASH_TOL, which must also reject two wrong
+6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
+   paths' shapes, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
+   and 2 gave it (recorded, random with +inf holes and an all-+inf tour,
+   tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
+   path shape timed as below; flash attention at FLASH_TOL, which must also
+   reject two wrong
    outputs (l off by 5 %, each row's diagonal key tile dropped); SSD's y and
    chunk states, and the RG-LRU scan, on the recorded operands against a
    float64 witness, at SSD_WITNESS and RGLRU_WITNESS times the plain
@@ -99,7 +108,15 @@ FP64_OPS_PER_S = 34e12      # H100 SXM fp64 outside the tensor cores (ditto)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (ditto)
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (ditto)
 TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores (ditto)
-EXTRA_SHAPE = (1024, 1, 16, 16)  # (batch, M, K, N): a scan at Sp = 16
+EXTRA_SHAPE = (1024, 1, 16, 16)  # (batch, M, K, N): a scan step at Sp = 16
+# (N, K, S) of the fused scan off the paths: K 1 and 2, S 1 and S off a
+# warp's tours (5, 7, 33), a full warp, a warp's operands past its stage in
+# shared memory (K 8 at S 32), and past a warp (the block variant: 64, 100,
+# 1500 at 1,024 threads a tour)
+SCAN_GENERIC = [(1, 1, 4), (3, 1, 33), (7, 2, 1), (5, 2, 7), (33, 3, 5),
+                (100, 3, 16), (9, 4, 32), (3, 8, 32), (2, 3, 100),
+                (1024, 5, 64), (2, 2, 1500)]
+MAX_WARM_SCANS = 20  # scans of the warm 1024-instance dfts_torch pass
 RECORDED_OPERANDS = 3  # operand sets kept per shape of a kernel's calls
 CHECK_SEQ = 512        # path 2: sequence of the card-vs-CPU check
 # Flash attention, bf16: the kernel rounds p to bf16 before P.V (as the
@@ -232,6 +249,11 @@ PROFILE_WINDOWS = 3
 # four times more on each of HOLD_TRIES tries when the host is slower
 HOLD_CYCLES = 20_000_000
 HOLD_TRIES = 3
+# launches a held-queue timing may queue behind its hold: a stream's queue
+# holds about a thousand, and past it the host waits for the card, so the
+# hold ends before the last call is enqueued (on an H100, 20 calls of the
+# RG-LRU plain version, 1,200 launches, outlasted every hold)
+HELD_LAUNCHES = 512
 
 
 def _pad() -> None:
@@ -334,23 +356,51 @@ def _random_pairs(gen, shape, device) -> list:
     return out
 
 
-def check_minplus_generic(mp, device) -> dict:
-    """Phase 3 for the min-plus kernel: the tie rule of torch's own argmin
+def check_minplus_matmul(mp, device) -> dict:
+    """Phase 3 for the min-plus product: the tie rule of torch's own argmin
     pinned on the card, then ``==`` against the plain version at shapes off
-    any tile of 256 threads."""
+    any tile of 256 threads and at EXTRA_SHAPE.  Since the fused scan no
+    path launches it; its kernels-line entry says so, with the paths'
+    launches and its times at EXTRA_SHAPE (:func:`time_minplus_matmul`)
+    filled in later."""
     _pin_argmin(device)
     gen = torch.Generator().manual_seed(0)
     sizes = (1, 3, 16, 17, 33)
+    extra = ((EXTRA_SHAPE[0],),) + EXTRA_SHAPE[1:]
     pairs = [p for batch in [(), (3,), (2, 2)] for m in sizes for k in sizes
              for n in sizes for p in _random_pairs(gen, (batch, m, k, n),
                                                    device)]
+    pairs += _random_pairs(gen, extra, device)
     n, mismatches, max_err = _compare(mp, pairs)
     if mismatches:
         raise AssertionError(f"minplus kernel disagrees with its plain "
                              f"version in {mismatches} of {n} generic cases")
-    print(f"minplus generic: {n} cases == plain version, max_abs_err "
-          f"{max_err!r}")
-    return {"cases": n, "max_abs_err": max_err}
+    print(f"minplus_matmul generic: {n} cases == plain version (EXTRA_SHAPE "
+          f"{EXTRA_SHAPE} among them), max_abs_err {max_err!r}")
+    return {"name": "minplus", "route": "cuda",
+            "source": KERNELS["minplus"].source,
+            "replaces": KERNELS["minplus"].replaces,
+            "max_abs_err": max_err, "mismatches": mismatches,
+            "shape": [list(extra[0]), *extra[1:]], "library_ms": None,
+            "note": "minplus_matmul: no path launches it since the fused "
+                    "scan (minplus_scan); timed at EXTRA_SHAPE"}
+
+
+def time_minplus_matmul(mp, device, row: dict) -> None:
+    """The min-plus product timed at EXTRA_SHAPE, into its ``row``."""
+    extra = ((EXTRA_SHAPE[0],),) + EXTRA_SHAPE[1:]
+    a, b = _random_pairs(torch.Generator().manual_seed(4), extra, device)[0]
+    ms = _kernel_device_ms(lambda: mp.minplus_matmul(a, b), 200,
+                           "minplus_kernel")
+    plain = _kernel_device_ms(lambda: mp.minplus_reference(a, b), 200, None)
+    held = _held_queue_ms(lambda: mp.minplus_matmul(a, b), 200)
+    bound, by, n_bytes = _bound_ms(extra)
+    print(f"minplus_matmul {extra} float64 (off the paths): device time per "
+          f"launch (torch.profiler) kernel {ms!r} ms, plain {plain!r} ms; "
+          f"kernel on a held stream (CUDA events) {held!r} ms; bound "
+          f"{bound!r} ms by {by} ({n_bytes} B at 3.35 TB/s)")
+    row.update(ms=ms, plain_ms=plain, held_ms=held, bound_ms=bound,
+               bound_by=by)
 
 
 def _held_queue_ms(fn, calls) -> float:
@@ -393,11 +443,14 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     run, all three windows of the min-plus kernel), the calls are timed by
     :func:`_held_queue_ms` instead, which counts every kernel of the calls
     and adds the card's gaps between launches (on an H100 about 1 us a
-    launch); the line printed says so.  A ``must_see`` that
-    matches none of the kernels the windows saw raises, naming those of the
-    last window."""
+    launch); the line printed says so.  It times as many of the calls as
+    keep the launches queued behind its hold within HELD_LAUNCHES, the
+    launches of a call counted from the fullest window.  A ``must_see``
+    that matches none of the kernels the windows saw raises, naming those
+    of the last window."""
     what = must_see or "the plain version"
     matched = any_events = False
+    most = 0  # the most events of ``what`` a window saw
     for _ in range(PROFILE_WINDOWS):
         _, by_name, count = _device_events(
             lambda: [fn() for _ in range(calls)])
@@ -407,6 +460,7 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
         any_events = any_events or bool(by_name)
         us = sum(by_name[name] for name in seen)
         events = sum(count[name] for name in seen)
+        most = max(most, events)
         if events and events % calls == 0 and us > 0.0:
             return us / calls / 1e3
         print(f"profiler: {events} device events of {what} over {calls} "
@@ -414,10 +468,13 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     if any_events and not matched:
         raise AssertionError(f"no profiler window saw a device event of "
                              f"{what}; the last saw {sorted(by_name)}")
-    ms = _held_queue_ms(fn, calls)
+    per_call = max(1, -(-most // calls))
+    held_calls = max(1, min(calls, HELD_LAUNCHES // per_call))
+    ms = _held_queue_ms(fn, held_calls)
     print(f"profiler: device events of {what} lost in each of "
           f"{PROFILE_WINDOWS} windows: timed by CUDA events on a held "
-          f"stream instead, {ms!r} ms per call")
+          f"stream instead, {held_calls} calls of {per_call} launches, "
+          f"{ms!r} ms per call")
     return ms
 
 
@@ -434,58 +491,108 @@ def _bound_ms(shape) -> tuple[float, str, int]:
             "operations", n_bytes)
 
 
-def check_minplus_path(mp, device, shapes, operands, generic) -> dict:
-    """Phase 5 for the min-plus kernel: ``==`` against the plain version at
-    every shape the main path launched (on the recorded operands and on
-    random and tie-forcing ones), plus EXTRA_SHAPE; then each path shape
-    timed.  The returned numbers are those of the shape with the most
-    launches."""
+def _scan_bound(key) -> tuple[float, str, int, int]:
+    """The fused scan at (N, K, S): comp, D and tail read once, total,
+    tail_src (int64) and srcs (int32) written once; an add and a compare
+    per candidate of each step (S per output), an add of comp per output,
+    and the tail's add and the last minimum's compare per candidate."""
+    N, K, S = key
+    n_bytes = (8 * N * (K * S + (K - 1) * S * S + S) + 16 * N
+               + 4 * (K - 1) * N * S)
+    n_ops = 2 * N * (K - 1) * S * S + N * (K - 1) * S + 2 * N * S
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    op_ms = n_ops / FP64_OPS_PER_S * 1e3
+    return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else
+            "operations", n_ops, n_bytes)
+
+
+def _scan_cases(gen, key, device) -> list:
+    """Operands of the fused scan at ``(N, K, S)``: random costs and
+    tie-forcing small integers, each with +inf holes and, where N > 1, a
+    first tour whose every candidate is +inf (total +inf, tail_src 0)."""
+    N, K, S = key
+    out = []
+    for ties in (False, True):
+        comp, D, tail = (_costs(gen, shape, device, ties=ties)
+                         for shape in ((N, K, S), (N, K - 1, S, S), (N, S)))
+        if N > 1:
+            comp[0] = float("inf")
+        out.append((comp, D, tail))
+    return out
+
+
+def _compare_scan(mp, cases) -> tuple[int, int, float]:
+    """(cases, mismatches, max_abs_err) of the scan kernel against its
+    plain version on each ``(comp, D, tail)``: all three outputs compared
+    by ==, with their shapes and types."""
+    mismatches, max_err = 0, 0.0
+    for ops in cases:
+        got = mp.minplus_scan(*ops)
+        want = mp.minplus_scan_reference(*ops)
+        torch.cuda.synchronize()
+        mismatches += not all(
+            g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+            for g, w in zip(got, want))
+        fin = torch.isfinite(want[0])
+        if fin.any():
+            max_err = max(max_err, float((got[0][fin] - want[0][fin]).abs()
+                                         .max()))
+    return len(cases), mismatches, max_err
+
+
+def check_scan_path(mp, device, recorded, launches_by_path: dict) -> dict:
+    """Phase 6 for the fused scan: ``==`` against the plain version at
+    every shape paths 1 and 2 gave it (on the recorded operands and on
+    random and tie-forcing ones) and at SCAN_GENERIC; then each path shape
+    timed.  Returns the kernels-line entry: the numbers of the shape with
+    the most launches, and every shape's under ``shapes``."""
+    shapes, operands = recorded
     gen = torch.Generator().manual_seed(1)
-    all_shapes = sorted(shapes, key=lambda s: (-shapes[s], s))
-    pairs = [args for s in all_shapes for args, _ in operands[s]]
-    for s in all_shapes + [((EXTRA_SHAPE[0],),) + EXTRA_SHAPE[1:]]:
-        pairs += _random_pairs(gen, s, device)
-    n, mismatches, max_err = _compare(mp, pairs)
+    order = sorted(shapes, key=lambda s: (-shapes[s], s))
+    cases = [args for s in order for args, _ in operands[s]]
+    for s in order + SCAN_GENERIC:
+        cases += _scan_cases(gen, s, device)
+    n, mismatches, max_err = _compare_scan(mp, cases)
     if mismatches:
-        raise AssertionError(f"minplus kernel disagrees with its plain "
-                             f"version in {mismatches} of {n} cases at the "
-                             f"path's shapes")
-    print(f"minplus at the path's shapes: {n} cases == plain version "
-          f"(recorded operands, random, ties), max_abs_err {max_err!r}")
+        raise AssertionError(f"minplus scan kernel disagrees with its plain "
+                             f"version in {mismatches} of {n} cases")
+    print(f"minplus_scan at the paths' shapes and SCAN_GENERIC: {n} cases == "
+          f"plain version (recorded operands, random, ties; values, indices, "
+          f"shapes and types), max_abs_err {max_err!r}")
 
     rows = {}
-    for s in all_shapes:
-        a, b = _random_pairs(gen, s, device)[0]
-        ms = _kernel_device_ms(lambda: mp.minplus_matmul(a, b), 200,
-                               "minplus_kernel")
-        plain = _kernel_device_ms(lambda: mp.minplus_reference(a, b), 200,
-                                  None)
-        held = _held_queue_ms(lambda: mp.minplus_matmul(a, b), 200)
-        bound, by, n_bytes = _bound_ms(s)
-        rows[s] = {"ms": ms, "plain_ms": plain, "held_ms": held,
-                   "bound_ms": bound, "bound_by": by, "a": a, "b": b}
-        print(f"minplus {s} float64, {shapes[s]} launches on the path: "
-              f"device time per launch (torch.profiler) kernel {ms!r} ms, "
-              f"plain {plain!r} ms; kernel on a held stream (CUDA events) "
-              f"{held!r} ms; bound {bound!r} ms by {by} "
-              f"({n_bytes} B at 3.35 TB/s)")
-    top = all_shapes[0]
-    row = rows[top]
-    a, b = row.pop("a"), row.pop("b")
-    call_ms = _time_ms(lambda: mp.minplus_matmul(a, b))
-    plain_call_ms = _time_ms(lambda: mp.minplus_reference(a, b))
-    print(f"minplus at {top}, per call seen by the caller (CUDA events): "
-          f"kernel {call_ms!r} ms, plain {plain_call_ms!r} ms")
-    return {"name": "minplus", "route": "cuda",
-            "source": KERNELS["minplus"].source,
-            "replaces": KERNELS["minplus"].replaces,
-            "max_abs_err": max(max_err, generic["max_abs_err"]),
-            "mismatches": mismatches, "shape": [list(top[0]), *top[1:]],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "held_ms": row["held_ms"],
+    for s in order:
+        ops = _scan_cases(gen, s, device)[0]
+        ms = _kernel_device_ms(lambda: mp.minplus_scan(*ops), 200,
+                               "minplus_scan")
+        plain = _kernel_device_ms(lambda: mp.minplus_scan_reference(*ops),
+                                  200, None)
+        held = _held_queue_ms(lambda: mp.minplus_scan(*ops), 200)
+        bound, by, n_ops, n_bytes = _scan_bound(s)
+        rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
+                   "plain_ms": plain, "held_ms": held, "bound_ms": bound,
+                   "bound_by": by, "library_ms": None,
+                   "bound_share": bound / ms}
+        print(f"minplus_scan (N, K, S) {s} float64, {shapes[s]} launches on "
+              f"the paths: device time per launch (torch.profiler) kernel "
+              f"{ms!r} ms, plain {plain!r} ms; kernel on a held stream (CUDA "
+              f"events) {held!r} ms; bound {bound!r} ms by {by} ({n_ops} "
+              f"operations, {n_bytes} B): {bound / ms!r} of the bound")
+    top = order[0]
+    ops = _scan_cases(gen, top, device)[0]
+    call_ms = _time_ms(lambda: mp.minplus_scan(*ops))
+    plain_call_ms = _time_ms(lambda: mp.minplus_scan_reference(*ops))
+    print(f"minplus_scan at {top}, per call seen by the caller (CUDA "
+          f"events): kernel {call_ms!r} ms, plain {plain_call_ms!r} ms")
+    return {"name": "minplus_scan", "route": "cuda",
+            "source": KERNELS["minplus_scan"].source,
+            "replaces": KERNELS["minplus_scan"].replaces,
+            "launches": sum(launches_by_path.values()),
+            "max_abs_err": max_err, "mismatches": mismatches,
+            **{k: v for k, v in rows[top].items() if k != "launches"},
+            "launches_by_path": launches_by_path,
             "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None}
+            "shapes": [rows[s] for s in order]}
 
 
 def build_population(C) -> list:
@@ -521,10 +628,60 @@ def _plain(out) -> tuple:
              lb.bubble_s))
 
 
+# the host split of a warm dfts_torch pass: label -> function of
+# repro_torch.core.torch_solvers timed inside the pass
+HOST_SPLIT = {"encode": "_encode_seq", "capped-tour build": "_tour_operands",
+              "scan (copies, launch, synchronisation)": "_run_dfts_scan",
+              "decode": "_decode_eval_seq"}
+
+
+@contextlib.contextmanager
+def timed_calls(module, names: dict):
+    """Inside the block, the seconds spent in each function ``names``
+    (label -> name) of ``module``, summed per label in the yielded dict."""
+    spent = dict.fromkeys(names, 0.0)
+    originals = {name: getattr(module, name) for name in names.values()}
+
+    def timed(label, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[label] += time.perf_counter() - t0
+        return call
+
+    for label, name in names.items():
+        setattr(module, name, timed(label, originals[name]))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def recorded_passes(C, TS, mp, passes, device) -> dict:
+    """Run each ``(label, problems, solver)`` of ``passes`` through
+    ``solve_batch`` on ``device`` with every ``minplus_scan`` call recorded.
+    Returns the outcomes, seconds, scans (recorded calls) and scan-kernel
+    launches of each pass, and the recorded shapes and operands."""
+    out = {}
+    with record_calls(TS, "minplus_scan", _scan_key) as (shapes, operands):
+        for label, problems, solver in passes:
+            scans, launches = sum(shapes.values()), mp.scan_launch_count
+            t0 = time.perf_counter()
+            got = C.solve_batch(problems, solver, dedup=False, device=device)
+            out[label] = {"outcomes": got,
+                          "seconds": time.perf_counter() - t0,
+                          "scans": sum(shapes.values()) - scans,
+                          "launches": mp.scan_launch_count - launches}
+    return {"passes": out, "recorded": (shapes, operands)}
+
+
 def run_main_path(C, TS, mp, device: str = "cuda") -> dict:
     """Phase 4: the planner on ``device``, held against the NumPy oracles
-    on the CPU.  Returns the launch count and the recorded minplus shapes
-    and operands."""
+    on the CPU.  Returns the scan launches of the run, the min-plus product
+    launches (none expected), and the recorded scan shapes and operands."""
     problems = build_population(C)
     if len(set(problems)) != 96:
         raise AssertionError("the population must hold 96 distinct instances")
@@ -533,32 +690,25 @@ def run_main_path(C, TS, mp, device: str = "cuda") -> dict:
         if p.profile.L != 37 or len(p.net.nodes) != 14:
             raise AssertionError("ResNet-101 at full width on NSFNET expected")
 
-    with record_calls(TS, "minplus_matmul", _minplus_key) as (shapes,
-                                                             operands):
-        mp.launch_count = 0
-        t0 = time.perf_counter()
-        dfts_distinct = C.solve_batch(problems, "dfts_torch", dedup=False,
-                                      device=device)
-        launches_dfts = mp.launch_count
-        t1 = time.perf_counter()
-        dfts_cycled = C.solve_batch(cycled, "dfts_torch", dedup=False,
-                                    device=device)
-        t2 = time.perf_counter()
-        bcd_out = C.solve_batch(problems, "bcd_torch", dedup=False,
-                                device=device)
-        t3 = time.perf_counter()
-        launches = mp.launch_count
+    mp.scan_launch_count = mp.launch_count = 0
+    run = recorded_passes(C, TS, mp, [
+        ("dfts_torch 96 distinct", problems, "dfts_torch"),
+        ("dfts_torch 1024 cycled", cycled, "dfts_torch"),
+        ("bcd_torch 96 distinct", problems, "bcd_torch")], device)
+    launches, matmul_launches = mp.scan_launch_count, mp.launch_count
+    shapes = run["recorded"][0]
     if launches == 0:
-        raise AssertionError("the main path launched no minplus kernel")
-    if sum(shapes.values()) != launches:
-        raise AssertionError(f"{sum(shapes.values())} recorded minplus calls "
-                             f"against {launches} launches")
-    print("minplus launches on the main path by (batch, M, K, N): " +
+        raise AssertionError("the main path launched no minplus scan kernel")
+    for label, r in run["passes"].items():
+        print(f"main path: {label} in {r['seconds']!r} s: {r['scans']} scans, "
+              f"{r['launches']} minplus scan launches")
+        if r["scans"] != r["launches"]:
+            raise AssertionError(f"{label}: {r['scans']} recorded scans "
+                                 f"against {r['launches']} launches")
+    print("minplus scans on the main path by (N, K, S): " +
           ", ".join(f"{s}: {c}" for s, c in shapes.most_common()))
-    print(f"main path: dfts_torch 96 distinct {t1 - t0!r} s "
-          f"({launches_dfts} minplus launches), 1024 cycled {t2 - t1!r} s, "
-          f"bcd_torch 96 distinct {t3 - t2!r} s; minplus launches in all "
-          f"{launches}")
+    print(f"main path: minplus scan launches in all {launches}; "
+          f"minplus_matmul launches {matmul_launches}")
 
     cache = C.EvalCache()
     want_dfts = [C.solve(p, "dfts_np", cache=cache) for p in problems]
@@ -566,14 +716,16 @@ def run_main_path(C, TS, mp, device: str = "cuda") -> dict:
     want_bcd = [C.solve(p, "bcd", cache=C.EvalCache()) for p in problems]
     print(f"oracles on the CPU: bcd 96 distinct {time.perf_counter() - t4!r}"
           f" s")
+    outs = {label: r["outcomes"] for label, r in run["passes"].items()}
     mismatches = 0
-    for got, want in [(dfts_distinct, want_dfts),
-                      (dfts_cycled, want_dfts * 11),
-                      (bcd_out, want_bcd)]:
+    for got, want in [(outs["dfts_torch 96 distinct"], want_dfts),
+                      (outs["dfts_torch 1024 cycled"], want_dfts * 11),
+                      (outs["bcd_torch 96 distinct"], want_bcd)]:
         for g, w in zip(got, want):
             mismatches += _plain(g) != _plain(w)
+    dfts_distinct = outs["dfts_torch 96 distinct"]
     n_feasible = sum(o.feasible for o in dfts_distinct)
-    for o in dfts_distinct + bcd_out:
+    for o in dfts_distinct + outs["bcd_torch 96 distinct"]:
         if o.feasible and not (0.0 < o.objective < float("inf")):
             raise AssertionError(f"non-finite latency {o.objective!r}")
     if mismatches:
@@ -583,20 +735,39 @@ def run_main_path(C, TS, mp, device: str = "cuda") -> dict:
           f"dfts_np / bcd ({n_feasible} of 96 feasible)")
 
     # warm throughput: the recurring 1024-instance batch, best of 3 passes
-    warm_torch = min(_wall(lambda: C.solve_batch(
-        cycled, "dfts_torch", dedup=False, device=device)) for _ in range(3))
+    def warm_pass():
+        return C.solve_batch(cycled, "dfts_torch", dedup=False, device=device)
+
+    warm_torch = min(_wall(warm_pass) for _ in range(3))
     warm_np = min(_wall(lambda: [C.solve(p, "dfts_np", cache=cache)
                                  for p in cycled]) for _ in range(3))
     print(f"warm instances/s at batch 1024: dfts_torch ({device}) "
           f"{1024 / warm_torch!r}, dfts_np (cpu) {1024 / warm_np!r}")
+    # the host split first: a profiled pass comes after every host timing
+    with timed_calls(TS, HOST_SPLIT) as spent:
+        wall = _wall(warm_pass)
+    rest = wall - sum(spent.values())
+    print(f"host split of a warm dfts_torch pass at batch 1024 ({device}), "
+          f"wall {wall!r} s: " + ", ".join(
+              f"{label} {s!r} s" for label, s in spent.items()) +
+          f", the rest (tour enumeration, waves, control flow) {rest!r} s")
+    before = mp.scan_launch_count
     if device == "cuda":
-        wall, dev, by_name = _device_us(lambda: C.solve_batch(
-            cycled, "dfts_torch", dedup=False, device=device))
+        wall, dev, by_name = _device_us(warm_pass)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"warm dfts_torch pass at batch 1024 under the profiler: wall "
-              f"{wall!r} us, device busy {dev!r} us (share {dev / wall!r}); "
-              f"top device time: {top}")
-    return {"launches": launches, "shapes": shapes, "operands": operands}
+              f"{wall!r} us, device busy {dev!r} us (share {dev / wall!r}, "
+              f"idle {1.0 - dev / wall!r}); top device time: {top}")
+    else:
+        warm_pass()
+    warm_scans = mp.scan_launch_count - before
+    print(f"warm dfts_torch pass at batch 1024: {warm_scans} minplus scan "
+          f"launches (at most {MAX_WARM_SCANS})")
+    if warm_scans > MAX_WARM_SCANS:
+        raise AssertionError(f"the warm pass made {warm_scans} scans, more "
+                             f"than {MAX_WARM_SCANS}")
+    return {"launches": launches, "matmul_launches": matmul_launches,
+            "recorded": run["recorded"]}
 
 
 def _wall(fn) -> float:
@@ -1019,6 +1190,10 @@ def _minplus_key(a, b):
     return (tuple(a.shape[:-2]), a.shape[-2], a.shape[-1], b.shape[-1])
 
 
+def _scan_key(comp, D, tail, *, out=None):
+    return tuple(comp.shape)  # (N, K, S)
+
+
 def _gmm_key(x, w, activation="none"):
     return (*x.shape, w.shape[2], activation)  # (E, C, D, F, activation)
 
@@ -1182,8 +1357,7 @@ def run_model_path(name: str, mods: dict, device) -> dict:
         recorded = {k: stack.enter_context(record_calls(
             importlib.import_module(ks.site[0]), ks.site[1], ks.key))
             for k, ks in KERNELS.items()}
-        for m in mods.values():
-            m.launch_count = 0
+        _zero_counts(mods)
         t1 = time.perf_counter()
         pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="IF",
                            device=device)
@@ -1193,8 +1367,8 @@ def run_model_path(name: str, mods: dict, device) -> dict:
         out = sim.run_plan(pp.plan, tokens)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        launches = {k: m.launch_count for k, m in mods.items()}
-    for k in ("minplus",) + spec.kernels:
+        launches = _counts(mods)
+    for k in ("minplus_scan",) + spec.kernels:
         if launches[k] == 0:
             raise AssertionError(f"{name}: path 2 launched no {k} kernel")
     for k, (shapes, _) in recorded.items():
@@ -1394,13 +1568,36 @@ class Kernel(NamedTuple):
     library: Callable = lambda args, kw: None  # noqa: E731
     # key -> (ms, by) of the same work at the fp32 rate, or None
     fp32_bound: Callable = lambda key: None  # noqa: E731
+    module: str = ""  # module of repro_torch.kernels, if not the kernel's name
+    counter: str = "launch_count"  # the module's count of this kernel
+
+
+def _module(name: str) -> str:
+    return KERNELS[name].module or name
+
+
+def _zero_counts(mods: dict) -> None:
+    for name, spec in KERNELS.items():
+        setattr(mods[_module(name)], spec.counter, 0)
+
+
+def _counts(mods: dict) -> dict:
+    """Each kernel's launches since its count was last set to 0."""
+    return {name: getattr(mods[_module(name)], spec.counter)
+            for name, spec in KERNELS.items()}
 
 
 KERNELS = {
+    "minplus_scan": Kernel(
+        "src/repro_torch/kernels/csrc/minplus.cu",
+        "src/repro/kernels/minplus.py:35",
+        ("repro_torch.core.torch_solvers", "minplus_scan"), _scan_key,
+        module="minplus", counter="scan_launch_count"),
     "minplus": Kernel(
         "src/repro_torch/kernels/csrc/minplus.cu",
         "src/repro/kernels/minplus.py:35",
-        ("repro_torch.core.torch_solvers", "minplus_matmul"), _minplus_key),
+        ("repro_torch.kernels.minplus", "minplus_matmul"), _minplus_key,
+        module="minplus"),
     "flash_attention": Kernel(
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:29",
@@ -1523,27 +1720,31 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}; TF32 off for float32 products")
 
-    mods = {k: importlib.import_module(f"repro_torch.kernels.{k}")
-            for k in KERNELS}
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in dict.fromkeys(map(_module, KERNELS))}
     mp = mods["minplus"]
     build_kernels(mods)
-    generic = check_minplus_generic(mp, device)
+    matmul = check_minplus_matmul(mp, device)
     generic_new = check_generic(mods, device)
 
     path = run_main_path(C, TS, mp)
-    minplus = check_minplus_path(mp, device, path["shapes"],
-                                 path["operands"], generic)
-    minplus["launches"] = path["launches"]
-    minplus["launches_by_path"] = {"planner": path["launches"]}
-
     by_model = {}
     for name in MODELS:
         by_model[name] = run_model_path(name, mods, device)
-        minplus["launches_by_path"][name] = \
-            by_model[name]["launches"]["minplus"]
-    kernels = [minplus]
+    matmul["launches_by_path"] = {"planner": path["matmul_launches"], **{
+        name: by_model[name]["launches"]["minplus"] for name in MODELS}}
+    matmul["launches"] = sum(matmul["launches_by_path"].values())
     print(f"clocks before the kernel timings (sm, max sm, temperature): "
           f"{_clocks_line()}")
+    time_minplus_matmul(mp, device, matmul)
+    kernels = [check_scan_path(
+        mp, device, _merge([path["recorded"]] + [
+            by_model[name]["recorded"]["minplus_scan"] for name in MODELS]),
+        {"planner": path["launches"], **{
+            name: by_model[name]["launches"]["minplus_scan"]
+            for name in MODELS}}), matmul]
+    print(f"clocks after the minplus_scan timings (sm, max sm, "
+          f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru"):
         models = [m for m, spec in MODELS.items() if kernel in spec.kernels]
         kernels.append(check_model_path(
@@ -1558,7 +1759,8 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "ops_per_s", "bytes_per_s", "bound_share",
              "fp32_bound_ms", "fp32_bound_by", "fp32_bound_share", "shape",
-             "launches_by_path", "call_ms", "plain_call_ms", "shapes"]
+             "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
+             "note", "shapes"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start!r} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}

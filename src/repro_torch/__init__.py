@@ -5,8 +5,8 @@ NVIDIA H100, one slice at a time:
 
 1. the batched planner: ``core`` (the problem types, the solver registry,
    the NumPy oracles and the ``dfts_torch`` / ``bcd_torch`` solvers) and
-   ``kernels.minplus`` (the hand-written CUDA min-plus kernel of the DFTS
-   scan);
+   ``kernels.minplus`` (the hand-written CUDA min-plus kernels: the fused
+   DFTS scan, one launch a scan, and the product);
 2. plan execution: ``configs`` (the model zoo's configs), ``models`` (the
    attention and SSD families; ``convert`` carries JAX weights over) and
    ``msl`` (``plan_pipeline`` over a model's pattern groups and the

@@ -13,9 +13,10 @@ The solving API is the engine triple of the JAX package's ``repro.core``:
   * `@register_solver(name, schedules=..., optimal=...)`.
 
 Registered solvers:
-  * `dfts_torch` -- even split + one DFTS tour, batched; the tour's min-plus
-                    DP runs on ``device`` (default ``"cuda"``) through the
-                    CUDA minplus kernel.  Bit-identical to `dfts_np`.
+  * `dfts_torch` -- even split + one DFTS tour, batched; the tours of all
+                    instances run in lockstep waves, each wave's min-plus
+                    DP on ``device`` (default ``"cuda"``) through the CUDA
+                    fused scan kernel.  Bit-identical to `dfts_np`.
   * `bcd_torch`  -- the paper's BCD heuristic (Alg. 1) with both blocks on
                     ``device``.  Bit-identical to `bcd`.
   * `dfts_np`, `bcd`, `comp-ms`, `comm-ms` -- the NumPy oracles and the

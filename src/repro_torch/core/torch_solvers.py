@@ -6,9 +6,12 @@ device (the card by default, the CPU when the caller passes
 ``device="cpu"``):
 
 * the DFTS tour relaxation is a min-plus composition of per-stage frontier
-  matrices, one tropical product per stage through
-  ``repro_torch.kernels.minplus.minplus_matmul`` (the CUDA kernel on the
-  card, its plain version on the CPU), batched over N problem instances;
+  matrices, the whole scan of N tours (every stage, the tail, the minimum
+  and its first argmin) in one launch of
+  ``repro_torch.kernels.minplus.minplus_scan`` (the CUDA kernel on the
+  card, its plain version on the CPU); the tour loops are generators, and
+  `_run_tours` runs the tours of many instances in lockstep waves, one scan
+  per (K, S) group of a wave;
 * the K-sequence segmentation DPs (seq and bottleneck-capped pipe variants)
   are loops over segment count of torch ``min``/``argmin``/``where`` on dense
   (e2, e[, tau]) transition tensors; the round-trip training variants
@@ -34,11 +37,12 @@ import functools
 import time
 from dataclasses import replace
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..kernels.minplus import minplus_matmul
+from ..kernels.minplus import minplus_scan
 
 from .costmodel import (BW, FW, PIPE, SEQ, TR, ModelProfile, dirs_for_mode,
                         even_split)
@@ -90,12 +94,6 @@ def _inst_key(net: PhysicalNetwork, profile: ModelProfile,
     return (net.content_key(), profile.content_key(), request, cands)
 
 
-@functools.lru_cache(maxsize=1024)
-def _even_split_t(L: int, K: int) -> tuple:
-    """``even_split`` as a hashable tuple-of-tuples (hot in the batch path)."""
-    return tuple(even_split(L, K))
-
-
 # ------------------------------------------------------------- device scans
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device a solve (or a model) runs on: what the caller names,
@@ -120,27 +118,20 @@ def _stack(rows: list[torch.Tensor], empty_shape: tuple,
     return torch.empty(empty_shape, dtype=torch.int64, device=device)
 
 
-def dfts_scan(comp: torch.Tensor, D: torch.Tensor, tail: torch.Tensor):
-    """Batched DFTS tour relaxation.
+def dfts_scan(comp: torch.Tensor, D: torch.Tensor, tail: torch.Tensor, *,
+              out: tuple | None = None):
+    """Batched DFTS tour relaxation: one launch of the fused min-plus scan
+    kernel (``repro_torch.kernels.minplus.minplus_scan``; its plain version
+    on CPU tensors).
 
     comp (N, K, S): per-stage candidate compute (+inf infeasible/padded),
     already cap-filtered and 1/M-scaled by the caller for capped tours.
     D (N, K-1, S, S): frontier matrix of stage k-1 sources x stage k
     targets.  tail (N, S): last-stage candidate -> destination frontier.
-    Returns (total (N,), tail_src (N,), srcs (K-1, N, S)).  Each stage step
-    is one tropical product ``best[:, None, :] ∘ D_k``.
+    Returns (total (N,), tail_src (N,), srcs (K-1, N, S)), written into
+    ``out`` when it is given.
     """
-    N, K, S = comp.shape
-    Dk = D.transpose(0, 1).contiguous()  # (K-1, N, S, S): one slab per step
-    best = comp[:, 0, :]
-    srcs = []
-    for k in range(K - 1):
-        val, idx = minplus_matmul(best[:, None, :].contiguous(), Dk[k])
-        best = val[:, 0, :] + comp[:, k + 1, :]
-        srcs.append(idx[:, 0, :])
-    tot = best + tail
-    return (tot.amin(dim=1), tot.argmin(dim=1),
-            _stack(srcs, (0, N, S), comp.device))
+    return minplus_scan(comp, D, tail, out=out)
 
 
 def kseq_scan(scost: torch.Tensor, valid: torch.Tensor):
@@ -589,60 +580,82 @@ def _decode_eval_seq(net: PhysicalNetwork, profile: ModelProfile,
 
 
 # ----------------------------------------------------------------- DFTS torch
-def _run_dfts_scan(comp, D, tail, device: torch.device):
-    total, tail_src, srcs = dfts_scan(_to(comp, device), _to(D, device),
-                                      _to(tail, device))
-    return (total.cpu().numpy(), tail_src.cpu().numpy(), srcs.cpu().numpy())
+def _run_dfts_scan(comp: np.ndarray, D: np.ndarray, tail: np.ndarray,
+                   device: torch.device):
+    """One ``dfts_scan`` of host operands on ``device``: the three operands
+    go in by one copy of a packed host buffer and the three outputs come
+    back by one copy of a packed device buffer (the one synchronisation).
+    Returns (total (N,), tail_src (N,), srcs (K-1, N, S)) as numpy arrays."""
+    N, K, S = comp.shape
+    sizes = (comp.size, D.size, tail.size)
+    host = np.concatenate([comp.ravel(), D.ravel(), tail.ravel()])
+    ops = torch.from_numpy(host).to(device).split(sizes)
+    n_src = (K - 1) * N * S
+    raw = torch.empty(16 * N + 4 * n_src, dtype=torch.uint8, device=device)
+    out = (raw[:8 * N].view(torch.float64),
+           raw[8 * N:16 * N].view(torch.int64),
+           raw[16 * N:].view(torch.int32 if K > 1 else torch.int64).view(
+               K - 1, N, S))
+    dfts_scan(ops[0].view(N, K, S), ops[1].view(N, K - 1, S, S),
+              ops[2].view(N, S), out=out)
+    back = raw.cpu().numpy()
+    srcs = (back[16 * N:].view(np.int32).reshape(K - 1, N, S) if K > 1
+            else np.empty((0, N, S), dtype=np.int64))
+    return back[:8 * N].view(np.float64), back[8 * N:16 * N].view(np.int64), \
+        srcs
 
 
-def _dfts_torch_seq(net, profile, request, K, cands, segments,
-                    device: torch.device) -> tuple[Plan, LatencyBreakdown] | None:
-    enc = _encode_seq(net, profile, request, K, cands, segments)
-    total, tail_src, srcs = _run_dfts_scan(
-        enc.comp[None], enc.D[None], enc.tail[None], device)
-    if not np.isfinite(total[0]):
-        return None
-    return _decode_eval_seq(net, profile, request, enc, tail_src[0],
-                            srcs[:, 0])
+class _Tour(NamedTuple):
+    """One DFTS tour an instance needs: its encode, and the caps and 1/M
+    scale of a capped tour (`dfts._capped_tour`; with ``cap_bw``,
+    `dfts._capped_tour_tr`).  ``cap`` None with ``scale`` 1.0 is the
+    uncapped tour of the encode itself, the convention of `_decode_seq`."""
+    enc: _EncodedSeq
+    cap: float | None = None
+    scale: float = 1.0
+    cap_bw: float | None = None
 
 
-def _capped_tour_torch(net, profile, request, enc: _EncodedSeq,
-                       cap: float | None, inv_M: float, device: torch.device
-                       ) -> tuple[Plan, LatencyBreakdown] | None:
-    """The bottleneck-capped tour of `_dfts_pipe`, on the dense encode."""
+def _tour_operands(net: PhysicalNetwork, request: ServiceChainRequest,
+                   tour: _Tour) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(comp (K, Sp), D (K-1, Sp, Sp), tail (Sp,)) of one tour: the encode's
+    own arrays, or the capped tour's: candidates pruned to comp <= cap (per
+    direction: comp_fw <= cap AND comp_bw <= cap_bw) and 1/M-scaled, links
+    pruned inside the frontier matrices; the tail ships zero bytes, so no
+    cap prunes a tail link."""
+    enc, cap, scale, cap_bw = tour
+    if cap is None and scale == 1.0:
+        return enc.comp, enc.D, enc.tail
     K = len(enc.segments)
-    cap_cmp = INF if cap is None else cap
-    ceff = np.where(enc.comp <= cap_cmp, enc.comp * inv_M, INF)
+    if cap_bw is None:
+        ceff = np.where(enc.comp <= (INF if cap is None else cap),
+                        enc.comp * scale, INF)
+    else:
+        ceff = np.where((enc.comp_fw <= cap) & (enc.comp_bw <= cap_bw),
+                        enc.comp * scale, INF)
     idx = net.node_index()
     Sp = enc.Sp
     D = np.full((K - 1, Sp, Sp), INF)
     for k in range(1, K):
         fw, bw = enc.cut_sizes[k]
         Dfull = net.frontier_matrix(tuple(enc.cands[k - 1]), fw, bw, cap,
-                                    inv_M)
+                                    scale, cap_bw)
         cols = [idx[n] for n in enc.cands[k]]
         D[k - 1, :len(enc.cands[k - 1]), :len(enc.cands[k])] = Dfull[:, cols]
     tail = np.full(Sp, INF)
     tail_mat = net.frontier_matrix(tuple(enc.cands[K - 1]), 0.0, None, cap,
-                                   inv_M)
+                                   scale)
     tail[:len(enc.cands[K - 1])] = tail_mat[:, idx[request.destination]]
-    total, tail_src, srcs = _run_dfts_scan(ceff[None], D[None], tail[None],
-                                           device)
-    if not np.isfinite(total[0]):
-        return None
-    return _decode_eval_seq(net, profile, request, enc, tail_src[0],
-                            srcs[:, 0], cap, inv_M)
+    return ceff, D, tail
 
 
-def _dfts_torch_pipe(net, profile, request, K, cands, segments,
-                     device: torch.device) -> Plan | None:
-    """`_dfts_pipe` with every capped tour on the device scan; identical
-    candidate-tau enumeration, incumbent bounds, and break conditions."""
-    enc = _encode_seq(net, profile, request, K, cands, segments)
+def _pipe_tours(net, profile, request, enc: _EncodedSeq):
+    """`_dfts_pipe` as a generator of capped tours: yields each `_Tour` it
+    needs and is sent its (plan, breakdown) or None; returns the best pair.
+    Identical candidate-tau enumeration, incumbent bounds, and break
+    conditions."""
+    K = len(enc.segments)
     comp = enc.comp
-    for k in range(K):
-        if not np.isfinite(comp[k, :len(enc.cands[k])]).any():
-            return None
     M = request.microbatches()
     inv_M = 1.0 / M
     c_bub = (M - 1) / M
@@ -655,8 +668,7 @@ def _dfts_torch_pipe(net, profile, request, K, cands, segments,
             taus.add(net.link_trans_s(u, v, fw, bw))
     cand_taus = sorted(t for t in taus if t >= lb)
 
-    pair0 = _capped_tour_torch(net, profile, request, enc, None, inv_M,
-                               device)
+    pair0 = yield _Tour(enc, None, inv_M)
     if pair0 is None:
         return None
     plan0, best_lb = pair0
@@ -668,8 +680,7 @@ def _dfts_torch_pipe(net, profile, request, K, cands, segments,
     for tau in cand_taus:
         if tau >= tau0 or fill_min + c_bub * tau >= best_lat:
             break
-        pair_t = _capped_tour_torch(net, profile, request, enc, tau, inv_M,
-                                    device)
+        pair_t = yield _Tour(enc, tau, inv_M)
         if pair_t is None:
             continue
         lat = pair_t[1].total_s
@@ -678,50 +689,12 @@ def _dfts_torch_pipe(net, profile, request, K, cands, segments,
     return best_pair
 
 
-def _capped_tour_torch_tr(net, profile, request, enc: _EncodedSeq,
-                          cap_fw: float, cap_bw: float, inv_M: float,
-                          device: torch.device
-                          ) -> tuple[Plan, LatencyBreakdown] | None:
-    """The per-direction-capped round-trip tour of `dfts._capped_tour_tr`,
-    on the dense encode: candidates pruned to comp_fw <= cap_fw AND
-    comp_bw <= cap_bw, links pruned per direction inside the frontier
-    matrices."""
+def _pipe_tr_tours(net, profile, request, enc: _EncodedSeq):
+    """`dfts._dfts_pipe_tr` as a generator of capped tours (as
+    `_pipe_tours`): identical (F, B) pair enumeration, incumbent bound, and
+    skip/break conditions, so plans and latencies are bit-identical to the
+    scalar oracle (docs/training.md)."""
     K = len(enc.segments)
-    ceff = np.where((enc.comp_fw <= cap_fw) & (enc.comp_bw <= cap_bw),
-                    enc.comp * inv_M, INF)
-    idx = net.node_index()
-    Sp = enc.Sp
-    D = np.full((K - 1, Sp, Sp), INF)
-    for k in range(1, K):
-        fw, bw = enc.cut_sizes[k]
-        Dfull = net.frontier_matrix(tuple(enc.cands[k - 1]), fw, bw, cap_fw,
-                                    inv_M, cap_bw)
-        cols = [idx[n] for n in enc.cands[k]]
-        D[k - 1, :len(enc.cands[k - 1]), :len(enc.cands[k])] = Dfull[:, cols]
-    # psi_K = 0 tail: zero bytes ship, so the caps never prune a tail link
-    tail = np.full(Sp, INF)
-    tail_mat = net.frontier_matrix(tuple(enc.cands[K - 1]), 0.0, None, cap_fw,
-                                   inv_M)
-    tail[:len(enc.cands[K - 1])] = tail_mat[:, idx[request.destination]]
-    total, tail_src, srcs = _run_dfts_scan(ceff[None], D[None], tail[None],
-                                           device)
-    if not np.isfinite(total[0]):
-        return None
-    return _decode_eval_seq(net, profile, request, enc, tail_src[0],
-                            srcs[:, 0], cap_fw, inv_M, cap_bw)
-
-
-def _dfts_torch_pipe_tr(net, profile, request, K, cands, segments,
-                        device: torch.device
-                        ) -> tuple[Plan, LatencyBreakdown] | None:
-    """`dfts._dfts_pipe_tr` with every capped tour on the device scan:
-    identical (F, B) pair enumeration, incumbent bound, and skip/break
-    conditions, so plans and latencies are bit-identical to the scalar
-    oracle (docs/training.md)."""
-    enc = _encode_seq(net, profile, request, K, cands, segments)
-    for k in range(K):
-        if not np.isfinite(enc.comp[k, :len(enc.cands[k])]).any():
-            return None
     M = request.microbatches()
     inv_M = 1.0 / M
     c_bub = (M - 1) / M
@@ -742,8 +715,7 @@ def _dfts_torch_pipe_tr(net, profile, request, K, cands, segments,
     cand_fw = sorted(t for t in fw_vals if t >= lb_fw)
     cand_bw = sorted(t for t in bw_vals if t >= lb_bw)
 
-    pair0 = _capped_tour_torch(net, profile, request, enc, None, inv_M,
-                               device)
+    pair0 = yield _Tour(enc, None, inv_M)
     if pair0 is None:
         return None
     plan0, lb0 = pair0
@@ -758,8 +730,7 @@ def _dfts_torch_pipe_tr(net, profile, request, K, cands, segments,
             break
         if F >= tau_fw0 and B >= tau_bw0:
             continue
-        pair_t = _capped_tour_torch_tr(net, profile, request, enc, F, B, inv_M,
-                                       device)
+        pair_t = yield _Tour(enc, F, inv_M, B)
         if pair_t is None:
             continue
         lat = pair_t[1].total_s
@@ -768,20 +739,86 @@ def _dfts_torch_pipe_tr(net, profile, request, K, cands, segments,
     return best_pair
 
 
+def _dfts_tours(net, profile, request, segments, cands):
+    """Torch counterpart of :func:`repro_torch.core.dfts.dfts` (same
+    dispatch) as a generator: yields each `_Tour` it needs, is sent the
+    tour's (plan, breakdown) or None, and returns the instance's (plan,
+    breakdown) or None.  Run it with `_run_tours`."""
+    K = len(segments)
+    enc = _encode_seq(net, profile, request, K, cands, segments)
+    if request.schedule == PIPE and request.microbatches() > 1:
+        for k in range(K):
+            if not np.isfinite(enc.comp[k, :len(enc.cands[k])]).any():
+                return None
+        if request.mode == TR:
+            return (yield from _pipe_tr_tours(net, profile, request, enc))
+        return (yield from _pipe_tours(net, profile, request, enc))
+    return (yield _Tour(enc))
+
+
+def _run_tours(jobs: list, device: torch.device) -> list:
+    """Run tour generators in lockstep waves; returns each one's result.
+
+    ``jobs`` holds (net, profile, request, generator).  Wave w collects the
+    tour every live generator yields next (within one instance each tour's
+    break and skip tests depend only on the tours before it, so every
+    instance runs exactly its own tours, in its own order), groups the
+    wave's tours by (K, Sp), pads each group's N to a power of two with
+    all-+inf rows (which can never change a result), runs one scan per
+    group, then decodes each tour and sends it its result in job order.  A
+    generator that returns leaves the waves."""
+    results: list = [None] * len(jobs)
+    pending: dict[int, _Tour] = {}
+
+    def advance(i: int, gen_step):
+        try:
+            pending[i] = gen_step()
+        except StopIteration as stop:
+            results[i] = stop.value
+
+    for i, (_, _, _, gen) in enumerate(jobs):
+        advance(i, gen.__next__)
+    while pending:
+        groups: dict[tuple, list[int]] = {}
+        for i, tour in pending.items():
+            groups.setdefault((len(tour.enc.segments), tour.enc.Sp),
+                              []).append(i)
+        scanned: dict[int, tuple] = {}
+        for (K, Sp), members in groups.items():
+            n = len(members)
+            Np = _pow2(n)
+            comp = np.full((Np, K, Sp), INF)
+            D = np.full((Np, K - 1, Sp, Sp), INF)
+            tail = np.full((Np, Sp), INF)
+            for r, i in enumerate(members):
+                net, _, request, _ = jobs[i]
+                comp[r], D[r], tail[r] = _tour_operands(net, request,
+                                                        pending[i])
+            total, tail_src, srcs = _run_dfts_scan(comp, D, tail, device)
+            # (K-1, N, S) -> contiguous (N, K-1, S): per-row views, one copy
+            srcs_rows = np.ascontiguousarray(np.moveaxis(srcs, 1, 0))
+            for r, i in enumerate(members):
+                scanned[i] = (total[r], tail_src[r], srcs_rows[r])
+        tours, pending = pending, {}
+        for i in sorted(tours):
+            net, profile, request, gen = jobs[i]
+            tour = tours[i]
+            total, tail_src, srcs = scanned[i]
+            pair = (_decode_eval_seq(net, profile, request, tour.enc,
+                                     tail_src, srcs, tour.cap, tour.scale,
+                                     tour.cap_bw)
+                    if np.isfinite(total) else None)
+            advance(i, lambda: gen.send(pair))
+    return results
+
+
 def _dfts_torch_plan(net, profile, request, segments, cands,
                      device: torch.device
                      ) -> tuple[Plan, LatencyBreakdown] | None:
-    """Torch counterpart of :func:`repro_torch.core.dfts.dfts` (same dispatch),
-    returning the plan together with its (memoized) latency breakdown."""
-    K = len(segments)
-    if request.schedule == PIPE and request.microbatches() > 1:
-        if request.mode == TR:
-            return _dfts_torch_pipe_tr(net, profile, request, K, cands,
-                                       segments, device)
-        return _dfts_torch_pipe(net, profile, request, K, cands, segments,
-                                device)
-    return _dfts_torch_seq(net, profile, request, K, cands, segments,
-                           device)
+    """One instance's DFTS on ``device``: its tours one wave each."""
+    return _run_tours([(net, profile, request,
+                        _dfts_tours(net, profile, request, segments,
+                                    cands))], device)[0]
 
 
 # --------------------------------------------------------- segmentation torch
@@ -1024,19 +1061,28 @@ def _kseq_torch(net, profile, request, plan: Plan, device: torch.device):
 
 
 # ----------------------------------------------------------------- solvers
-def _split_place(net, profile, request, K, candidates, dfts_fn):
-    """Shared even-split -> DFTS -> min-memory-fallback control flow of the
-    ``dfts_np``/``dfts_torch`` one-shot solvers (identical by construction).
-    ``dfts_fn`` returns a Plan (np) or a (Plan, breakdown) pair (torch); this
-    only checks feasibility (None) and passes the result through."""
-    segments = even_split(profile.L, K)
-    res = dfts_fn(segments)
-    if res is None:
-        from .baselines import min_memory_split  # local import avoids a cycle
+def _fallback_split(profile, request, K, segments):
+    """The min-memory split that the one-shot solvers try when the even
+    split ``segments`` has no placement, or None when there is none to try
+    (shared by ``dfts_np`` and ``dfts_torch``, identical by construction)."""
+    from .baselines import min_memory_split  # local import avoids a cycle
 
-        alt = min_memory_split(profile, request, K)
-        if alt is not None and alt != segments:
-            res = dfts_fn(alt)
+    alt = min_memory_split(profile, request, K)
+    return alt if alt is not None and alt != segments else None
+
+
+def _split_place(profile, request, K, place):
+    """``dfts_torch``'s even-split -> DFTS -> min-memory-fallback control
+    flow as a tour generator: ``place(segments)`` is a generator of the
+    tours that placement needs (`_dfts_tours`) returning a (Plan,
+    breakdown) pair or None; this only checks feasibility (None) and passes
+    the result through."""
+    segments = even_split(profile.L, K)
+    res = yield from place(segments)
+    if res is None:
+        alt = _fallback_split(profile, request, K, segments)
+        if alt is not None:
+            res = yield from place(alt)
     return res
 
 
@@ -1053,10 +1099,12 @@ def dfts_np_solve(
     t0 = time.perf_counter()
     cache = cache if cache is not None else EvalCache()
     ev = PlanEvaluator(net, profile, request, cache=cache)
-    plan = _split_place(
-        net, profile, request, K, candidates,
-        lambda segs: dfts(net, profile, request, segs, candidates,
-                          cache=cache))
+    segments = even_split(profile.L, K)
+    plan = dfts(net, profile, request, segments, candidates, cache=cache)
+    if plan is None:
+        alt = _fallback_split(profile, request, K, segments)
+        if alt is not None:
+            plan = dfts(net, profile, request, alt, candidates, cache=cache)
     if plan is None:
         return SolveResult(None, None, time.perf_counter() - t0, 0,
                            solver="dfts_np")
@@ -1077,10 +1125,9 @@ def dfts_torch_solve(
     bit-identical to ``dfts_np``."""
     t0 = time.perf_counter()
     device = resolve_device(device)
-    pair = _split_place(
-        net, profile, request, K, candidates,
-        lambda segs: _dfts_torch_plan(net, profile, request, segs, candidates,
-                                      device=device))
+    pair = _run_tours([(net, profile, request,
+                        _dfts_torch_gen(net, profile, request, K,
+                                        candidates))], device)[0]
     if pair is None:
         return SolveResult(None, None, time.perf_counter() - t0, 0,
                            solver="dfts_torch")
@@ -1088,88 +1135,37 @@ def dfts_torch_solve(
                        solver="dfts_torch")
 
 
+def _dfts_torch_gen(net, profile, request, K, candidates):
+    """``dfts_torch``'s whole control flow for one instance, as a tour
+    generator for `_run_tours`."""
+    return _split_place(
+        profile, request, K,
+        lambda segs: _dfts_tours(net, profile, request, segs, candidates))
+
+
 def _dfts_torch_batch(problems: list[ProblemInstance], *,
                       cache: EvalCache | None = None,
                       device: str | torch.device = "cuda"
                       ) -> list[SolveResult]:
-    """Batched ``dfts_torch``: pad all sequential instances into shared
-    (N, K, S) tensors per (K, S-bucket) group and run one scan per group and
-    split round; pipelined instances solve per-instance (their bottleneck-cap
-    scan is inherently sequential)."""
+    """Batched ``dfts_torch``: every instance's tours run in lockstep waves
+    (`_run_tours`), one scan per (K, S-bucket) group of a wave: the first
+    wave holds every instance's first tour (a sequential instance's only
+    one, a pipelined instance's uncapped one); later waves the pipelined
+    instances' capped tours and the min-memory fallbacks.  Each
+    ``SolveResult.wall_time_s`` is the instance's share of the batch's
+    time (pipelined instances' too)."""
     t0 = time.perf_counter()
     device = resolve_device(device)
     problems = list(problems)
-    results: list[SolveResult | None] = [None] * len(problems)
-    plans: dict[int, tuple[Plan, LatencyBreakdown] | None] = {}
-    pending: list[tuple[int, list]] = []
-    for i, p in enumerate(problems):
-        if p.request.schedule == PIPE and p.request.microbatches() > 1:
-            results[i] = dfts_torch_solve(*p.solver_args(), cache=cache,
-                                          device=device)
-        else:
-            pending.append((i, _even_split_t(p.profile.L, p.K)))
-
-    for round_no in (1, 2):
-        if not pending:
-            break
-        groups: dict[tuple, list[tuple[int, _EncodedSeq]]] = {}
-        # recurring batches repeat the same ProblemInstance objects; resolve
-        # each distinct (object, segments) through the encode memo once
-        enc_by_id: dict[tuple, _EncodedSeq] = {}
-        for i, segs in pending:
-            p = problems[i]
-            ekey = (id(p), segs)
-            enc = enc_by_id.get(ekey)
-            if enc is None:
-                enc = enc_by_id[ekey] = _encode_seq(
-                    p.net, p.profile, p.request, p.K, p.candidates, segs)
-            groups.setdefault((p.K, enc.Sp), []).append((i, enc))
-        failed: list[int] = []
-        for (K, Sp), items in groups.items():
-            n = len(items)
-            Np = _pow2(n)
-            comp = np.full((Np, K, Sp), INF)
-            D = np.full((Np, K - 1, Sp, Sp), INF)
-            tail = np.full((Np, Sp), INF)
-            comp[:n] = [enc.comp for _, enc in items]
-            D[:n] = [enc.D for _, enc in items]
-            tail[:n] = [enc.tail for _, enc in items]
-            total, tail_src, srcs = _run_dfts_scan(comp, D, tail, device)
-            finite = np.isfinite(total)
-            # (K-1, N, S) -> contiguous (N, K-1, S): per-row views, one copy
-            srcs_rows = np.ascontiguousarray(np.moveaxis(srcs, 1, 0))
-            for j, (i, enc) in enumerate(items):
-                if finite[j]:
-                    p = problems[i]
-                    plans[i] = _decode_eval_seq(p.net, p.profile, p.request,
-                                                enc, tail_src[j],
-                                                srcs_rows[j])
-                else:
-                    plans[i] = None
-                    failed.append(i)
-        pending = []
-        if round_no == 1:
-            from .baselines import min_memory_split  # local: avoids a cycle
-
-            for i in failed:
-                p = problems[i]
-                alt = min_memory_split(p.profile, p.request, p.K)
-                if alt is not None:
-                    alt = tuple(alt)
-                    if alt != _even_split_t(p.profile.L, p.K):
-                        pending.append((i, alt))
-
+    pairs = _run_tours([(p.net, p.profile, p.request,
+                         _dfts_torch_gen(p.net, p.profile, p.request, p.K,
+                                         p.candidates))
+                        for p in problems], device)
     share = (time.perf_counter() - t0) / max(1, len(problems))
-    for i in range(len(problems)):
-        if results[i] is not None:
-            continue
-        pair = plans.get(i)
-        if pair is None:
-            results[i] = SolveResult(None, None, share, 0, solver="dfts_torch")
-        else:
-            results[i] = SolveResult(pair[0], pair[1], share, 1,
-                                     solver="dfts_torch")
-    return results  # aligned with `problems`
+    return [SolveResult(None, None, share, 0, solver="dfts_torch")
+            if pair is None else
+            SolveResult(pair[0], pair[1], share, 1, solver="dfts_torch")
+            for pair in pairs]  # aligned with `problems`
 
 
 def _bcd_torch_batch(problems: list[ProblemInstance], *,
@@ -1192,9 +1188,10 @@ def _dfts_np_registered(net, profile, request, K, candidates,
 
 register_solver("dfts_torch", schedules=(SEQ, PIPE), batch=_dfts_torch_batch,
                 description="batched one-shot solver on the card: even split "
-                            "(min-mem fallback) + DFTS tour as a batched "
-                            "min-plus DP through the CUDA minplus kernel; "
-                            "bit-identical to dfts_np")(dfts_torch_solve)
+                            "(min-mem fallback) + DFTS tours in lockstep "
+                            "waves, each a batched min-plus DP in one launch "
+                            "of the CUDA scan kernel; bit-identical to "
+                            "dfts_np")(dfts_torch_solve)
 
 
 def bcd_torch_solve(

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``minplus`` (the tropical product of the planner's DFTS scan),
+version: ``minplus`` (the tropical product, and the planner's fused DFTS
+scan ``minplus.minplus_scan``),
 ``flash_attention`` (GQA attention of the attention family), ``ssd``
 (Mamba-2's intra-chunk terms), ``moe_gmm`` (the per-expert matmul of the
 MoE FFN) and ``rglru`` (the RG-LRU linear recurrence); ``ops`` exports their

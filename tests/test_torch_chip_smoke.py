@@ -1,8 +1,10 @@
 """chip_smoke.py's checks on the CPU: the rule for profiler windows (with a
 stand-in profiler, a window that lost device events is never read, the
 next one is, and when every window lost events the calls are timed on a
-held stream), SSD's bound, SSD's witness against wrong outputs, and the
-card-vs-CPU gate of the MoE models on a hand-made routing."""
+held stream), SSD's bound, SSD's witness against wrong outputs, the
+card-vs-CPU gate of the MoE models on a hand-made routing, the fused
+min-plus scan's bound, and path 1's recording and host split rehearsed on
+the CPU."""
 from __future__ import annotations
 
 import collections
@@ -13,6 +15,9 @@ import pytest
 import torch
 
 import chip_smoke as cs
+import repro_torch.core as T
+from repro_torch.core import torch_solvers as TS
+from repro_torch.kernels import minplus as mp
 
 CALLS = 10
 KERNEL = "minplus_kernel"
@@ -53,6 +58,26 @@ def test_a_lossy_window_is_never_read(monkeypatch, capsys, windows,
         assert "held stream" in capsys.readouterr().out
     else:
         assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("per_call, want_calls", [
+    (1, CALLS), (60, cs.HELD_LAUNCHES // 60), (cs.HELD_LAUNCHES, 1),
+    (2 * cs.HELD_LAUNCHES, 1)])
+def test_the_held_stream_fallback_keeps_its_queue_short(monkeypatch, capsys,
+                                                         per_call,
+                                                         want_calls):
+    """Every window lost one event of a plain version of ``per_call``
+    launches a call: the held-stream timing takes as many calls as keep
+    HELD_LAUNCHES launches or fewer behind its hold, and at least one."""
+    monkeypatch.setattr(cs, "_device_events", lambda fn: _window(
+        0.0, 0, other=per_call * CALLS - 1))
+    taken = []
+    monkeypatch.setattr(cs, "_held_queue_ms",
+                        lambda fn, calls: taken.append(calls) or 7.5)
+    assert cs._kernel_device_ms(lambda: None, CALLS, None) == 7.5
+    assert taken == [want_calls]
+    assert f"{want_calls} calls of {per_call} launches" in \
+        capsys.readouterr().out
 
 
 def test_a_name_no_window_saw_raises(monkeypatch):
@@ -162,3 +187,70 @@ def test_moe_gate_on_a_hand_made_routing(case):
                  else "differ past the limit")
         with pytest.raises(AssertionError, match=match):
             cs._moe_gate(got, own, replayed, card, cpu, rows=2)
+
+
+# ------------------------------------------------------ min-plus scan ---
+@pytest.mark.parametrize("key, n_ops, n_bytes", [
+    ((1, 5, 4), 152, 784), ((1, 3, 8), 288, 1_360),
+    ((512, 5, 4), 77_824, 401_408), ((512, 3, 8), 147_456, 696_320),
+    ((1, 1, 4), 8, 80)], ids=str)
+def test_scan_bound_at_the_path_shapes(key, n_ops, n_bytes):
+    """Path 1's scans (bcd_torch's batch-1 tours and the warm pass's
+    groups of 512) and a scan of no step: bound by their bytes, well under
+    a microsecond, so the kernel stays at the launch floor."""
+    ms, by, ops, nbytes = cs._scan_bound(key)
+    assert (ops, nbytes) == (n_ops, n_bytes)
+    assert by == "bytes"
+    assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3)
+    assert ms > n_ops / 34e12 * 1e3
+    assert ms < 1e-3
+
+
+@pytest.fixture
+def plain_scans(monkeypatch):
+    """Counts the scans made, apart from chip_smoke's recording: each call
+    of the plain version, which the wrapper takes on CPU tensors."""
+    made = {"n": 0}
+    ref = mp.minplus_scan_reference
+
+    def counting(*args, **kw):
+        made["n"] += 1
+        return ref(*args, **kw)
+
+    monkeypatch.setattr(mp, "minplus_scan_reference", counting)
+    return made
+
+
+def test_recorded_passes_sees_every_scan(plain_scans):
+    """run_main_path's recording, rehearsed on the CPU over sequential and
+    pipelined instances through dfts_torch and bcd_torch: the recorded
+    minplus_scan calls are the scans made, per pass and in all, and the CPU
+    launches no kernel."""
+    problems = cs.build_population(T)[56:72]
+    before, scan = mp.scan_launch_count, TS.minplus_scan
+    run = cs.recorded_passes(T, TS, mp, [
+        ("dfts", problems, "dfts_torch"), ("dfts again", problems,
+                                           "dfts_torch"),
+        ("bcd", problems[6:10], "bcd_torch")], "cpu")
+    shapes, operands = run["recorded"]
+    passes = run["passes"]
+    assert sum(shapes.values()) == plain_scans["n"] == sum(
+        r["scans"] for r in passes.values())
+    assert passes["dfts"]["scans"] == passes["dfts again"]["scans"] < 16
+    assert passes["bcd"]["scans"] > 0
+    assert mp.scan_launch_count == before
+    assert all(r["launches"] == 0 for r in passes.values())
+    for key, recorded in operands.items():
+        assert 0 < len(recorded) <= cs.RECORDED_OPERANDS
+        assert all(tuple(args[0].shape) == key for args, _ in recorded)
+    assert TS.minplus_scan is scan  # the recorder is taken out again
+
+
+def test_host_split_times_each_part_and_restores_the_functions():
+    problems = cs.build_population(T)[56:72]
+    originals = {name: getattr(TS, name) for name in cs.HOST_SPLIT.values()}
+    with cs.timed_calls(TS, cs.HOST_SPLIT) as spent:
+        T.solve_batch(problems, "dfts_torch", dedup=False, device="cpu")
+    assert set(spent) == set(cs.HOST_SPLIT)
+    assert all(s > 0.0 for s in spent.values())
+    assert all(getattr(TS, name) is fn for name, fn in originals.items())

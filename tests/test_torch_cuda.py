@@ -1,8 +1,8 @@
-"""The port on the card: the CUDA min-plus, flash-attention, SSD,
-expert-matmul and RG-LRU kernels against their plain versions,
-``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy oracles, and a
-planned chain of a reduced model through the kernels against the same chain
-on the CPU.
+"""The port on the card: the CUDA min-plus (product and fused DFTS scan),
+flash-attention, SSD, expert-matmul and RG-LRU kernels against their plain
+versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy
+oracles, and a planned chain of a reduced model through the kernels against
+the same chain on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.core import torch_solvers as TS
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import minplus as mp
 from repro_torch.kernels import moe_gmm, ops, rglru
@@ -93,6 +94,101 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         minplus_matmul(a, b.cpu())
 
 
+# the fused scan: (N, K, S) with no step and one, S off a warp's tours, a
+# full warp, the paths' shapes, a warp's operands past its stage in shared
+# memory (K 8 at S 32: the block variant at S <= 32), past a warp (the block
+# variant, 1,024 threads a tour at S 1500) and past 48 KB of shared memory a
+# block (S 3500)
+SCAN_SHAPES = [(1, 1, 4), (3, 1, 33), (1, 2, 4), (7, 2, 1), (5, 2, 7),
+               (33, 3, 5), (1, 3, 8), (1, 5, 4), (1, 8, 8), (512, 3, 8),
+               (512, 5, 4), (100, 3, 16), (9, 4, 32), (3, 8, 32), (65, 9, 32),
+               (2, 3, 100), (1024, 5, 64), (2, 2, 1500), (1, 2, 3500)]
+
+
+def _scan_operands(shape, ties, cuda, seed=0):
+    """(comp, D, tail) on the card, with an all-+inf first tour where
+    N > 1."""
+    N, K, S = shape
+    rng = np.random.default_rng(seed + N + K + S)
+    comp, D, tail = (torch.from_numpy(_costs(rng, s, ties)).to(cuda)
+                     for s in ((N, K, S), (N, K - 1, S, S), (N, S)))
+    if N > 1:
+        comp[0] = INF
+    return comp, D, tail
+
+
+def _same(got, want) -> bool:
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_scan_kernel_matches_plain(cuda, ties, shape):
+    ops = _scan_operands(shape, ties, cuda)
+    before = mp.scan_launch_count
+    got = mp.minplus_scan(*ops)
+    torch.cuda.synchronize()
+    assert mp.scan_launch_count == before + 1
+    want = mp.minplus_scan_reference(*ops)
+    assert _same(got, want)
+    if shape[0] > 1:
+        assert got[0][0] == INF and got[1][0] == 0
+
+
+@pytest.mark.parametrize("shape", [(512, 5, 4), (64, 3, 100)], ids=str)
+def test_scan_kernel_repeats_bit_for_bit(cuda, shape):
+    ops = _scan_operands(shape, True, cuda, seed=1)
+    first = mp.minplus_scan(*ops)
+    second = mp.minplus_scan(*ops)
+    torch.cuda.synchronize()
+    assert _same(first, second)
+    assert _same(first, mp.minplus_scan_reference(*ops))
+
+
+def test_scan_kernel_rejects_what_it_does_not_take(cuda):
+    comp, D, tail = _scan_operands((4, 3, 8), False, cuda)
+    with pytest.raises(TypeError, match="float64"):
+        mp.minplus_scan(comp.float(), D.float(), tail.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.minplus_scan(comp.transpose(0, 1).contiguous().transpose(0, 1),
+                        D, tail)
+    with pytest.raises(ValueError, match="devices"):
+        mp.minplus_scan(comp, D.cpu(), tail)
+    with pytest.raises(ValueError, match="out must be"):
+        mp.minplus_scan(comp, D, tail, out=tuple(
+            o.cpu() for o in mp.minplus_scan(comp, D, tail)))
+
+
+def test_dfts_torch_on_cuda_lockstep_matches_numpy_oracle(cuda):
+    """A mixed batch, sequential and pipelined (IF and TR, with 1, 2 or 6
+    tours each, and the min-memory fallback at b 1024), in lockstep waves on
+    the card: == dfts_np, each scan one launch."""
+    problems = [_problem(mode, K, b, seed, schedule, M, per_stage)
+                for mode, K, b, seed, schedule, M, per_stage in [
+                    ("IF", 3, 8, 1, "seq", 1, 6), ("TR", 5, 128, 2, "seq", 1, 4),
+                    ("TR", 3, 8, 1, "pipe", 4, 6), ("TR", 5, 8, 3, "pipe", 4, 4),
+                    ("TR", 5, 128, 5, "pipe", 4, 4), ("IF", 3, 32, 0, "pipe", 4, 6),
+                    ("IF", 5, 1024, 0, "seq", 1, 4),
+                    ("TR", 5, 1024, 0, "pipe", 4, 4)]]
+    scans = {"n": 0}
+    scan = TS.minplus_scan
+
+    def counting(*args, **kw):
+        scans["n"] += 1
+        return scan(*args, **kw)
+
+    before = mp.scan_launch_count
+    TS.minplus_scan = counting
+    try:
+        got = T.solve_batch(problems, "dfts_torch", dedup=False, min_batch=1)
+    finally:
+        TS.minplus_scan = scan
+    assert mp.scan_launch_count - before == scans["n"] > 0
+    for p, g in zip(problems, got):
+        assert _plain(g) == _plain(T.solve(p, "dfts_np"))
+
+
 def _problem(mode, K, b, seed, schedule="seq", M=1, per_stage=2):
     cands = T.candidate_sets(K, seed, T.NSFNET_NODES, T.SOURCE, T.DEST,
                              per_stage=per_stage)
@@ -117,10 +213,10 @@ def test_solvers_on_cuda_match_numpy_oracles(cuda):
     problems = [_problem("IF", 3, 2, 0), _problem("TR", 5, 128, 1, per_stage=4),
                 _problem("IF", 3, 32, 0, "pipe", 4),
                 _problem("TR", 3, 128, 0, "pipe", 4, per_stage=6)]
-    before = mp.launch_count
+    before = mp.scan_launch_count
     dfts = T.solve_batch(problems, "dfts_torch", dedup=False, min_batch=1)
     bcd = T.solve_batch(problems, "bcd_torch", dedup=False, min_batch=1)
-    assert mp.launch_count > before
+    assert mp.scan_launch_count > before
     for p, got_d, got_b in zip(problems, dfts, bcd):
         assert _plain(got_d) == _plain(T.solve(p, "dfts_np"))
         assert _plain(got_b) == _plain(T.solve(p, "bcd"))
