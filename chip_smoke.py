@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths once on an NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's three paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -23,6 +23,13 @@ from a seed, one after the other (MODELS):
 * recurrentgemma-9b, B 1 x S 4096 (so that the 2048-token window of its
   local attention cuts keys), its ``rglru`` blocks through the RG-LRU kernel
   and its ``local_attn`` blocks through flash attention at head width 256.
+
+Path 3 is serving, inside the turns of qwen2-1.5b, mamba2-370m and
+recurrentgemma-9b on the same weights (SERVE; MoE decode is not ported):
+``repro_torch.serving.prefill`` of left-padded prompts through the flash,
+SSD and RG-LRU kernels, then greedy ``decode_step``s in plain PyTorch over
+the KV rings and the SSD and RG-LRU states, then ``ServingEngine.generate``
+on the same prompts.
 
 Phases, in order; any failure exits non-zero:
 
@@ -57,9 +64,20 @@ Phases, in order; any failure exits non-zero:
    the CPU's own run, and every token to a second CPU run that replays the
    card's expert picks (whose buffer places and drops must be ``==`` the
    card's); each stage's measured compute printed beside the planner's
-   prediction; the model freed before the next;
+   prediction; then path 3 where the model serves (``run_serve_path``):
+   the counts set to 0, prefill and decode, the counts read (the model's
+   kernels must have launched in the prefill), the prefill's logits
+   within CHECK_TOL of a cache-free forward on the card; teacher-forced,
+   every decode step's within CHECK_TOL of a cache-free forward over
+   prompt + generated at SERVE_CHECK_DEPTH pattern repetitions (each
+   greedy token that forward's argmax or a near tie) and, at full depth,
+   within FLOOR_FACTOR of the floor between that forward through the
+   kernels and through the plain versions; ``generate``'s tokens ``==``
+   the loop's, every logit finite; its
+   prefill ms, decode ms a step (p50, p90), tokens/s, cache bytes and peak
+   memory printed beside the card; the model freed before the next;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
-   paths' shapes, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
+   shapes of paths 1-3, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
    and 2 gave it (recorded, random with +inf holes and an all-+inf tour,
    tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
    path shape timed as below; flash attention at FLASH_TOL, which must also
@@ -177,6 +195,39 @@ MODELS = {
                                    {"param_dtype": "bfloat16"}),
     "recurrentgemma-9b": PathModel(("flash_attention", "rglru"), 1, 4096),
 }
+
+
+class ServeTraffic(NamedTuple):
+    """Path 3's traffic for one model: ``batch`` prompts of lengths drawn
+    from [shortest, longest], the first of the longest, each decoding
+    ``max_new`` greedy tokens into caches of ``cache_len``."""
+    batch: int
+    shortest: int
+    longest: int
+    max_new: int
+    cache_len: int
+
+
+# path 3, inside its model's turn of path 2 (MoE decode is ROADMAP A17):
+# qwen2 fills a KV cache of 0.5 GB; mamba2's prompts are 7 SSD chunks and
+# its teacher-forced forward 8; recurrentgemma's 2048-slot local ring wraps
+# at every decode step
+SERVE = {
+    "qwen2-1.5b": ServeTraffic(8, 256, 2048, 128, 2176),
+    "mamba2-370m": ServeTraffic(8, 256, 1792, 256, 2048),
+    "recurrentgemma-9b": ServeTraffic(1, 4096, 4096, 64, 4160),
+}
+# path 3's teacher-forced check at CHECK_TOL runs on the first
+# SERVE_CHECK_DEPTH pattern repetitions (path 2's card-vs-CPU check takes as
+# many).  At full depth the models amplify bf16 rounding past CHECK_TOL: the
+# same cache-free forward through the kernels and through their plain
+# versions lay 0.0235 (qwen2-1.5b), 0.309 (mamba2-370m) and 0.0086
+# (recurrentgemma-9b) of a row's largest |logit| apart on an H100
+# (scripts/serve_divergence.py, PERF.md), so there the served logits are
+# held to FLOOR_FACTOR times that floor, measured in the same run: a bound
+# on gross faults only.
+SERVE_CHECK_DEPTH = 2
+FLOOR_FACTOR = 2.0
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): tests/test_kernels.py's
 # cases, rows that see no key, and randomised GQA shapes
 FLASH_GENERIC = [
@@ -1413,9 +1464,246 @@ def run_model_path(name: str, mods: dict, device) -> dict:
           f"(max |h| {float(h.float().abs().max())!r}); peak device memory "
           f"{torch.cuda.max_memory_allocated()} B")
     _check_on_cpu(name, cfg, params, tokens, pos)
-    del params, sim, out, warm, h, mono
+    del sim, out, warm, h, mono
     torch.cuda.empty_cache()
-    return {"launches": launches, "recorded": recorded}
+    serve = None
+    if name in SERVE:
+        serve = run_serve_path(name, cfg, params, SERVE[name], spec.kernels,
+                               mods, device)
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recorded": recorded, "serve": serve}
+
+
+def serve_prompts(traffic: ServeTraffic, vocab: int) -> list:
+    """Path 3's prompts, from ``numpy.random.default_rng(2)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(traffic.shortest, traffic.longest + 1,
+                           traffic.batch)
+    lengths[0] = traffic.longest
+    return [rng.integers(1, vocab, n) for n in lengths]
+
+
+def _row_err(got, want) -> torch.Tensor:
+    """Per row of the last axis: max |got - want| over max |want|."""
+    return (got - want).abs().amax(-1) / want.abs().amax(-1)
+
+
+def _logits_at(params, cfg, tokens, first: int, n: int):
+    """The cache-free forward's logits at positions first .. first+n-1,
+    (B, n, V) float32, as ``logits_last`` takes them at the last one."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    with torch.inference_mode():
+        hidden, _, _ = MT.forward(params, cfg, tokens,
+                                  ML.Ctx(mode="prefill", positions=pos))
+        W = MT.head_matrix(params, cfg).to(ML.cdt(cfg))
+        logits = (hidden[:, first:first + n] @ W).float()
+        if cfg.final_softcap:
+            logits = ML.softcap(logits, cfg.final_softcap)
+    return logits
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the model calls each kernel's plain version at the
+    site path 2 records (flash attention with fp32 p, SSD and RG-LRU in
+    their plain summation orders)."""
+    saved = []
+    for name, spec in KERNELS.items():
+        if spec.plain:
+            site = importlib.import_module(spec.site[0])
+            kernel = importlib.import_module(
+                f"repro_torch.kernels.{_module(name)}")
+            saved.append((site, spec.site[1], getattr(site, spec.site[1])))
+            setattr(site, spec.site[1], getattr(kernel, spec.plain))
+    try:
+        yield
+    finally:
+        for site, name, fn in saved:
+            setattr(site, name, fn)
+
+
+def serve_loop(params, cfg, toks, traffic: ServeTraffic, device) -> dict:
+    """``prefill`` of the padded prompts, then ``max_new - 1`` greedy
+    ``decode_step``s: the served logits (B, max_new, V), the generated
+    tokens (B, max_new), the last cache and the host times (the host reads
+    each step's tokens once)."""
+    from repro_torch import serving as SV
+
+    B, S = toks.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = SV.prefill(params, cfg, toks, traffic.cache_len)
+    cur = torch.argmax(logits[:, -1], dim=-1)
+    tokens = [cur.tolist()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    served, steps_ms = [logits[:, -1]], []
+    for t in range(1, traffic.max_new):
+        t1 = time.perf_counter()
+        pos = torch.full((B, 1), S + t - 1, device=device)
+        logits, cache = SV.decode_step(params, cfg, cache, cur[:, None], pos)
+        cur = torch.argmax(logits[:, -1], dim=-1)
+        tokens.append(cur.tolist())
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        served.append(logits[:, -1])
+    return {"served": torch.stack(served, dim=1),
+            "generated": torch.tensor(tokens, device=device).T,
+            "cache": cache, "prefill_ms": prefill_ms, "steps_ms": steps_ms}
+
+
+def teacher_forced(params, cfg, toks, run: dict) -> dict:
+    """One cache-free forward over prompt + generated tokens: the served
+    logits' row errors against its logits at positions S-1 .. S+n-2
+    (``err``, (B, n)), and the largest gap, over the greedy tokens that are
+    not its argmax, between its top logit and its logit of the token, over
+    the row's largest |logit| (``worst_gap``, 0 where there is none)."""
+    served, generated = run["served"], run["generated"]
+    S, n = toks.shape[1], generated.shape[1]
+    want = _logits_at(params, cfg, torch.cat([toks, generated], dim=1),
+                      S - 1, n)
+    if not torch.isfinite(want).all():
+        raise AssertionError("the teacher-forced forward's logits are not "
+                             "finite")
+    gap = (want.amax(-1) - torch.gather(want, -1, generated[..., None])[
+        ..., 0]) / want.abs().amax(-1)
+    other = generated != want.argmax(-1)
+    return {"want": want, "err": _row_err(served, want),
+            "off": int(other.sum()),
+            "worst_gap": float(gap[other].max()) if other.any() else 0.0}
+
+
+def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
+                   kernels: tuple, mods: dict, device) -> dict:
+    """Path 3 for one model, on the weights path 2 ran: the counts set to
+    0, ``serve_loop``, the counts read; then the gates (any failure
+    raises), each row held to its own largest |logit|:
+
+    1. the prefill launched each of ``kernels``;
+    2. the prefill's logits within CHECK_TOL of a cache-free forward over
+       the prompts;
+    3. teacher-forced (one cache-free forward over prompt + generated),
+       at SERVE_CHECK_DEPTH pattern repetitions of the same weights (full
+       width, the caches and their rings as at full depth): the served
+       logits within CHECK_TOL, each greedy token the forward's argmax or
+       within CHECK_TOL of it (a near tie, counted); at full depth, where
+       bf16 rounding is amplified past CHECK_TOL, within FLOOR_FACTOR of
+       the floor (the same forward through the kernels against through the
+       plain versions, in this run) and never tighter than CHECK_TOL;
+    4. ``ServingEngine.generate`` returns the loop's tokens;
+    5. every logit is finite.
+
+    Returns the counts, the recorded kernel calls and the numbers."""
+    from repro_torch import serving as SV
+    from repro_torch.models import transformer as MT
+
+    t_path = time.perf_counter()
+    B, n_new = traffic.batch, traffic.max_new
+    prompts = serve_prompts(traffic, cfg.vocab_size)
+    toks = torch.from_numpy(SV.left_pad(prompts, B)).to(device)
+    S = toks.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        recorded = {k: stack.enter_context(record_calls(
+            importlib.import_module(ks.site[0]), ks.site[1], ks.key))
+            for k, ks in KERNELS.items()}
+        _zero_counts(mods)
+        run = serve_loop(params, cfg, toks, traffic, device)
+        launches = _counts(mods)
+    for k in kernels:
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: path 3's prefill launched no {k} "
+                                 f"kernel")
+    for k, (shapes, _) in recorded.items():
+        if sum(shapes.values()) != launches[k]:
+            raise AssertionError(f"{name}: {sum(shapes.values())} recorded "
+                                 f"{k} calls on path 3 against {launches[k]} "
+                                 f"launches")
+    if not torch.isfinite(run["served"]).all():
+        raise AssertionError(f"{name}: path 3 served logits that are not "
+                             f"finite")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in MT.tree_leaves(run["cache"]))
+    peak = torch.cuda.max_memory_allocated()
+
+    t2 = time.perf_counter()
+    fresh = _logits_at(params, cfg, toks, S - 1, 1)[:, 0]
+    err_prefill = float(_row_err(run["served"][:, 0], fresh).max())
+    if not err_prefill < CHECK_TOL:
+        raise AssertionError(f"{name}: the prefill's logits differ from the "
+                             f"cache-free forward's by {err_prefill!r} of "
+                             f"the largest (limit {CHECK_TOL})")
+    full = teacher_forced(params, cfg, toks, run)
+    seq = torch.cat([toks, run["generated"]], dim=1)
+    with plain_kernels():
+        plain = _logits_at(params, cfg, seq, S - 1, n_new)
+    floor = float(_row_err(full["want"], plain).max())
+    limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
+    err_full = float(full["err"].max())
+    print(f"{name}: path 3 at full depth, teacher-forced over {S} + {n_new} "
+          f"tokens: served logits vs the cache-free forward {err_full!r} of "
+          f"each row's largest (prefill {float(full['err'][:, 0].max())!r}); "
+          f"the floor, that forward through the kernels vs the plain "
+          f"versions, {floor!r} (limit {FLOOR_FACTOR} x floor, at least "
+          f"{CHECK_TOL}: {limit!r}); {full['off']} of {B * n_new} greedy "
+          f"tokens off the forward's argmax (largest gap "
+          f"{full['worst_gap']!r}); the prefill vs a forward over the "
+          f"prompts alone {err_prefill!r}")
+    if not err_full <= limit:
+        raise AssertionError(f"{name}: path 3's cached decode differs from "
+                             f"the teacher-forced forward past {limit!r}")
+    del full, plain
+
+    n_cut = min(cfg.n_layers, SERVE_CHECK_DEPTH * len(cfg.pattern))
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
+    cut_params = dict(params, stack={"layers": params["stack"]["layers"][
+        :n_cut]})
+    cut = teacher_forced(cut_params, cut_cfg, toks, serve_loop(
+        cut_params, cut_cfg, toks, traffic, device))
+    err_cut = float(cut["err"].max())
+    print(f"{name}: path 3 at {n_cut} layers, teacher-forced: served logits "
+          f"vs the cache-free forward {err_cut!r} of each row's largest "
+          f"(limit {CHECK_TOL}); {cut['off']} of {B * n_new} greedy tokens "
+          f"off the forward's argmax, each a near tie (largest gap "
+          f"{cut['worst_gap']!r}, limit {CHECK_TOL}); checks in "
+          f"{time.perf_counter() - t2!r} s")
+    if not (err_cut < CHECK_TOL and cut["worst_gap"] <= CHECK_TOL):
+        raise AssertionError(f"{name}: path 3's cached decode at {n_cut} "
+                             f"layers differs from the teacher-forced "
+                             f"forward past {CHECK_TOL}")
+    del cut
+
+    engine = SV.ServingEngine(cfg, params, B, traffic.cache_len, eos_id=-1,
+                              device=device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    outs = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t3
+    if outs != run["generated"].tolist():
+        raise AssertionError(f"{name}: ServingEngine.generate's tokens "
+                             f"differ from the prefill / decode_step loop's")
+    n_tok = sum(len(row) for row in outs)
+    deciles = statistics.quantiles(run["steps_ms"], n=10, method="inclusive")
+    p50, p90 = deciles[4], deciles[8]
+    print(f"{name}: path 3 on {_card_line()}: B {B}, prompts "
+          f"{[len(p) for p in prompts]} padded to {S}, {n_new} new tokens, "
+          f"cache_len {traffic.cache_len}; prefill {run['prefill_ms']!r} ms; "
+          f"decode step (one token for each of the {B} rows) p50 {p50!r} "
+          f"ms, p90 {p90!r} ms over {len(run['steps_ms'])} steps; "
+          f"ServingEngine.generate {n_tok} tokens in {gen_s!r} s = "
+          f"{n_tok / gen_s!r} tokens/s, the same tokens as the loop; cache "
+          f"{cache_bytes} B; peak device memory {peak} B; launches "
+          f"{launches}; path 3 in {time.perf_counter() - t_path!r} s")
+    return {"launches": launches, "recorded": recorded,
+            "prefill_ms": run["prefill_ms"], "decode_ms_p50": p50,
+            "decode_ms_p90": p90, "tokens_per_s": n_tok / gen_s,
+            "cache_bytes": cache_bytes, "peak_bytes": peak}
 
 
 def _flash_bound(key) -> tuple[float, str, int, int]:
@@ -1634,8 +1922,8 @@ KERNELS = {
 
 def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                      generic_err: float, device) -> dict:
-    """Phase 6 for a kernel of path 2: the kernel against its plain version
-    at every shape path 2 launched (recorded operands and random ones),
+    """Phase 6 for a kernel of paths 2 and 3: the kernel against its plain
+    version at every shape they launched (recorded operands and random ones),
     then each shape timed.  Returns the kernels-line entry: the numbers of
     the shape with the most launches, and every shape's under ``shapes``."""
     spec = KERNELS[name]
@@ -1676,8 +1964,9 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
             print(f"{name} {s}: the same work at the fp32 rate outside the "
                   f"tensor cores would take {fp32[0]!r} ms by {fp32[1]}: "
                   f"{fp32[0] / ms!r} of the kernel's time")
-        print(f"{name} {s}, {shapes[s]} launches on path 2: device time per "
-              f"launch (torch.profiler) kernel {ms!r} ms, plain {plain_ms!r} "
+        print(f"{name} {s}, {shapes[s]} launches on paths 2-3: device time "
+              f"per launch (torch.profiler) kernel {ms!r} ms, plain "
+              f"{plain_ms!r} "
               f"ms, library {library_ms!r} ms; kernel on a held stream "
               f"(CUDA events) {held_ms!r} ms; bound {bound!r} ms by {by} "
               f"({n_ops} operations, {n_bytes} B); achieved "
@@ -1747,10 +2036,13 @@ def main() -> int:
           f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru"):
         models = [m for m, spec in MODELS.items() if kernel in spec.kernels]
+        runs = [(m, by_model[m]) for m in models] + [
+            (f"serve/{m}", by_model[m]["serve"]) for m in models
+            if by_model[m]["serve"] is not None]
         kernels.append(check_model_path(
             kernel, mods[kernel],
-            _merge([by_model[m]["recorded"][kernel] for m in models]),
-            {m: by_model[m]["launches"][kernel] for m in models},
+            _merge([run["recorded"][kernel] for _, run in runs]),
+            {path: run["launches"][kernel] for path, run in runs},
             generic_new[kernel], device))
         print(f"clocks after the {kernel} timings (sm, max sm, "
               f"temperature): {_clocks_line()}")

@@ -11,7 +11,10 @@ NVIDIA H100, one slice at a time:
    attention and SSD families; ``convert`` carries JAX weights over) and
    ``msl`` (``plan_pipeline`` over a model's pattern groups and the
    ``ChainSimulator`` that runs a plan stage by stage), through the
-   hand-written CUDA kernels ``kernels.flash_attention`` and ``kernels.ssd``.
+   hand-written CUDA kernels ``kernels.flash_attention``, ``kernels.ssd``,
+   ``kernels.moe_gmm`` and ``kernels.rglru``;
+3. serving: ``serving`` (``prefill`` and ``decode_step`` over the
+   per-family caches, and the host loop ``ServingEngine``).
 
 Importing the package touches no CUDA: a kernel is built and loaded at its
 first launch, and the solvers and models run on the card only when called.

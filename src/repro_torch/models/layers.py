@@ -1,20 +1,25 @@
 """PyTorch building blocks of the model families the port runs: attention
 (GQA with rope, QKV bias, qk-norm, softcap, sliding window) with an MLP, the
-capacity-routed MoE FFN, the Griffin RG-LRU block and the Mamba-2 SSD block.
+capacity-routed MoE FFN, the Griffin RG-LRU block and the Mamba-2 SSD block,
+with the per-family caches of serving.
 
 Conventions, those of the JAX package's ``models/layers.py``:
   * parameters are plain dicts of tensors, stored in ``cfg.param_dtype`` and
     cast to ``cfg.compute_dtype`` at use (the MoE router and the RG-LRU's
     ``lam`` stay float32);
   * activations x: (B, S, D); positions: (B, S) int;
-  * every block returns ``(y, new_cache)``; the port runs without a cache
-    (training and prefill from nothing), so ``new_cache`` is None.
+  * every block returns ``(y, new_cache)``, ``new_cache`` None where the
+    block was called without a cache (training, or a forward from nothing).
 
 Attention runs through the flash-attention kernel, the MoE FFN's expert
 products through the expert-matmul kernel, the RG-LRU recurrence through
 the RG-LRU kernel and the SSD scan through the SSD kernel
-(``repro_torch.kernels``); each takes its plain version on the CPU.  Caches,
-decode and cross-attention are not ported yet and raise
+(``repro_torch.kernels``); each takes its plain version on the CPU.  A
+prefill goes through the same kernels; a decode step is plain PyTorch, as
+the JAX package's is plain ``jnp``.  The caches: a KV ring buffer of
+``attn`` and ``local_attn``, written in place; the RG-LRU's and SSD's
+float32 state with the conv's trailing inputs, replaced at every call.  MoE
+with a cache and cross-attention are not ported and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -35,7 +40,8 @@ from ..kernels.rglru import rglru_scan
 Params = dict
 
 # ROADMAP items of what is not ported yet, named by the errors that say so.
-CACHE_ITEM = "ROADMAP A, next 5: the serving engine (caches and decode)"
+MOE_CACHE_ITEM = ("ROADMAP A17: MoE decode (the capacity is taken over a "
+                  "call's own tokens)")
 CROSS_ITEM = ("ROADMAP A, later 9: the encoder-decoder and vision families "
               "(cross-attention)")
 
@@ -44,9 +50,14 @@ CROSS_ITEM = ("ROADMAP A, later 9: the encoder-decoder and vision families "
 class Ctx:
     """Per-call context threaded through blocks."""
 
-    mode: str  # "train" | "prefill" ("decode" is not ported yet)
+    mode: str  # "train" | "prefill" | "decode"
     positions: torch.Tensor  # (B, S) absolute positions
+    cache_len: int = 0  # allocated cache length (decode)
     causal: bool = True
+
+    @property
+    def decoding(self) -> bool:
+        return self.mode == "decode"
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -146,25 +157,91 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv, q_positions, kv_positions,
     return q, k, v
 
 
+def _decode_attention(cfg: ModelConfig, q, k, v, q_positions, kv_positions,
+                      window=None):
+    """One new token against the whole cache, ``layers.py:238-258`` of the
+    JAX package: q (B, 1, Hq, hd), k and v (B, L, Hkv, hd).  Grouped (Hkv,
+    G): the KV heads are read once, not repeated G times.  Scores in
+    float32, masked by the stored positions (``pos`` -1 is an unwritten
+    slot), so the slots' order does not matter once the ring wraps."""
+    B, _, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qi = q.float().reshape(B, 1, Hkv, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qi, k.float()) / math.sqrt(hd)
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    q_pos = q_positions[:, :1]
+    mask = (kv_positions >= 0) & (kv_positions <= q_pos)
+    if window is not None:
+        mask = mask & (q_pos - kv_positions < window)
+    s = torch.where(mask[:, None, None, None, :], s, -1e30)
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v).reshape(B, 1, Hq, hd)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, length: int, *,
+                  device) -> dict:
+    """An empty KV ring buffer of ``length`` slots: k and v (B, L, Hkv, hd)
+    in the compute type, ``pos`` (B, L) int64, -1 where no token is
+    written."""
+    hd, Hkv = cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
+    dtype = cdt(cfg)
+    return {
+        "k": torch.zeros((batch, length, Hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, length, Hkv, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int64,
+                          device=device),
+    }
+
+
+def _cache_write(cache, k_new, v_new, positions) -> dict:
+    """Writes the new K/V in place at the ring slots ``position % length``
+    and returns the cache.  A call writes at most ``length`` tokens of
+    consecutive positions, so no slot is written twice."""
+    length = cache["k"].shape[1]
+    if positions.shape[1] > length:
+        raise ValueError(f"{positions.shape[1]} tokens written into a ring "
+                         f"of {length} slots")
+    slots = positions % length  # (B, S)
+    bidx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
+    cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][bidx, slots] = positions.to(cache["pos"].dtype)
+    return cache
+
+
 def attention_block(p, cfg: ModelConfig, x, ctx: Ctx, cache, window=None,
                     cross=False):
-    """Self-attention sublayer without a cache (no residual or norm: the
-    caller wraps it).  The kernel masks by index (query i sees key j <= i),
-    which is the JAX package's mask by position for positions 0..S-1, the
-    positions of a call without a cache."""
+    """Self-attention sublayer (no residual or norm: the caller wraps it),
+    ``layers.py:314-330`` of the JAX package.
+
+    Without a cache, and in a prefill, the flash kernel attends over the
+    call's own K/V.  It masks by index (query i sees key j <= i), which is
+    the JAX package's mask by position for the consecutive positions of
+    such a call.  A prefill then writes the last ``min(L, S)`` tokens into
+    the ring of L slots; a decode step writes its token and attends over
+    the whole cache (:func:`_decode_attention`)."""
     if cross:
         raise NotImplementedError(f"cross-attention is not ported yet: "
                                   f"{CROSS_ITEM}")
-    if cache is not None:
-        raise NotImplementedError(f"attention with a KV cache is not ported "
-                                  f"yet: {CACHE_ITEM}")
     q, k, v = _project_qkv(p, cfg, x, x, ctx.positions, ctx.positions)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=ctx.causal, window=window,
-                          softcap=cfg.attn_softcap)
+    if cache is not None and ctx.decoding:
+        cache = _cache_write(cache, k, v, ctx.positions)
+        out = _decode_attention(cfg, q, cache["k"], cache["v"],
+                                ctx.positions, cache["pos"], window)
+    else:
+        causal = True if cache is not None else ctx.causal
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window,
+                              softcap=cfg.attn_softcap)
+        if cache is not None:
+            tail = min(cache["k"].shape[1], k.shape[1])
+            cache = _cache_write(cache, k[:, -tail:], v[:, -tail:],
+                                 ctx.positions[:, -tail:])
     B, S = x.shape[:2]
     out = out.reshape(B, S, -1) @ p["wo"].to(cdt(cfg))
-    return out, None
+    return out, cache
 
 
 # ====================================================================== MLP ====
@@ -388,13 +465,14 @@ def _causal_depthwise_conv(x, w, state=None):
     """x: (B, S, W) causal depthwise conv, kernel (cw, W).
 
     state: (B, cw-1, W) trailing inputs from the previous call (decode).
-    Returns (y, new_state)."""
+    Returns (y, new_state), the state a copy: a slice of the padded input
+    would keep all of it alive in the cache."""
     cw = w.shape[0]
     hist = state if state is not None else torch.zeros(
         (x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype, device=x.device)
     xp = torch.cat([hist, x], dim=1)
     y = sum(xp[:, i : i + x.shape[1]] * w[i][None, None, :] for i in range(cw))
-    return y, xp[:, -(cw - 1):]
+    return y, xp[:, -(cw - 1):].clone()
 
 
 # =================================================================== RG-LRU ====
@@ -415,24 +493,44 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def rglru_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
     """Griffin recurrent block, ``layers.py:491-518`` of the JAX package:
-    (conv -> RG-LRU) * gelu gate -> out projection, with the recurrence
-    through the RG-LRU kernel.  The gates' sigmoids are taken in the compute
-    type and only then cast to float32, as there."""
-    if cache is not None:
-        raise NotImplementedError(f"the RG-LRU block with a state cache is "
-                                  f"not ported yet: {CACHE_ITEM}")
+    (conv -> RG-LRU) * gelu gate -> out projection.  The gates' sigmoids
+    are taken in the compute type and only then cast to float32, as there.
+
+    Without a cache, and in a prefill, the recurrence runs through the
+    RG-LRU kernel; a prefill from a state folds ``a_0 h`` into the first
+    input and keeps the last ``h``.  A decode step is ``h = a h + bx``."""
     dt = cdt(cfg)
     u = x @ p["w_x"].to(dt)  # (B, S, W)
     gate_branch = gelu_tanh(x @ p["w_gate_branch"].to(dt))
-    u, _ = _causal_depthwise_conv(u, p["conv_w"].to(dt))
+    u, new_conv = _causal_depthwise_conv(u, p["conv_w"].to(dt),
+                                         cache.get("conv") if cache else None)
     i_gate = torch.sigmoid(u @ p["w_input_gate"].to(dt)).float()
     r_gate = torch.sigmoid(u @ p["w_rec_gate"].to(dt)).float()
     log_a = -8.0 * r_gate * F.softplus(p["lam"].float())  # gated decay
     a = torch.exp(log_a)
     bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i_gate * u.float())
-    y32 = rglru_scan(a.contiguous(), bx.contiguous())
-    return (y32.to(dt) * gate_branch) @ p["w_out"].to(dt), None
+    if cache is not None and ctx.decoding:
+        y32 = a * cache["h"] + bx  # (B, 1, W)
+        new_cache = {"h": y32, "conv": new_conv}
+    else:
+        if cache is not None and "h" in cache:  # prefill from a state
+            bx[:, 0] += a[:, 0] * cache["h"][:, 0]
+        y32 = rglru_scan(a.contiguous(), bx.contiguous())
+        new_cache = ({"h": y32[:, -1:].clone(), "conv": new_conv}
+                     if cache is not None else None)
+    return (y32.to(dt) * gate_branch) @ p["w_out"].to(dt), new_cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
+    """h (B, 1, W) float32 and the conv's trailing inputs (B, cw-1, W) in
+    the compute type, all 0."""
+    W = cfg.rnn_width or cfg.d_model
+    return {
+        "h": torch.zeros((batch, 1, W), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, W), dtype=cdt(cfg),
+                            device=device),
+    }
 
 
 # ================================================================ Mamba-2 SSD ==
@@ -457,9 +555,10 @@ def init_ssd(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def ssd_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
-    if cache is not None:
-        raise NotImplementedError(f"the SSD block with a state cache is not "
-                                  f"ported yet: {CACHE_ITEM}")
+    """Mamba-2 SSD block, ``layers.py:605-642`` of the JAX package.  Without
+    a cache, and in a prefill (from the cache's state), the scan runs
+    through :func:`ssd_forward` and the SSD kernel; a decode step is
+    ``h = h exp(-dt A) + dt B x``, ``y = C h``."""
     dt_ = cdt(cfg)
     B, S, D = x.shape
     Di = cfg.ssm_expand * D
@@ -469,15 +568,42 @@ def ssd_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
     zxbcdt = x @ p["w_in"].to(dt_)
     z, xs, Bm, Cm, dtv = zxbcdt.split([Di, Di, N, N, H], dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    conv_out, _ = _causal_depthwise_conv(conv_in, p["conv_w"].to(dt_))
+    conv_out, new_conv = _causal_depthwise_conv(
+        conv_in, p["conv_w"].to(dt_), cache.get("conv") if cache else None)
     conv_out = F.silu(conv_out)
     xs, Bm, Cm = conv_out.split([Di, N, N], dim=-1)
     xh = xs.reshape(B, S, H, P).float()
     dtv = F.softplus(dtv.float() + p["dt_bias"])  # (B, S, H)
     A = torch.exp(p["A_log"])  # (H,) positive rates
-    y, _ = ssd_forward(xh, dtv, A, Bm.float(), Cm.float(), None,
-                       cfg.ssm_chunk)
+    if cache is not None and ctx.decoding:
+        dt0 = dtv[:, 0]  # (B, H)
+        dA = torch.exp(-dt0 * A[None, :])
+        dBx = (dt0[:, :, None, None] * Bm.float()[:, 0, None, None, :]) \
+            * xh[:, 0, :, :, None]  # (B, H, P, N)
+        h = cache["h"] * dA[:, :, None, None] + dBx
+        y = (Cm.float()[:, 0, None, None, :] * h).sum(-1)[:, None]
+        new_cache = {"h": h, "conv": new_conv}
+    else:
+        h0 = cache["h"] if (cache is not None and "h" in cache) else None
+        y, h_last = ssd_forward(xh, dtv, A, Bm.float(), Cm.float(), h0,
+                                cfg.ssm_chunk)
+        new_cache = ({"h": h_last, "conv": new_conv} if cache is not None
+                     else None)
     y = y + p["D_skip"][None, None, :, None] * xh
     y = y.reshape(B, S, Di).to(dt_)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(dt_), None
+    return y @ p["w_out"].to(dt_), new_cache
+
+
+def init_ssd_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
+    """h (B, H, P, N) float32 and the conv's trailing inputs (B, cw-1,
+    Di + 2N) in the compute type, all 0."""
+    Di = cfg.ssm_expand * cfg.d_model
+    H = Di // cfg.ssm_head_dim
+    conv_dim = Di + 2 * cfg.ssm_state
+    return {
+        "h": torch.zeros((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                            dtype=cdt(cfg), device=device),
+    }

@@ -1,13 +1,14 @@
 """Model assembly: embedding + the block pattern repeated over the layers +
 head, for the block kinds the port runs so far (``attn``, ``local_attn``,
-``moe``, ``moe_dense``, ``rglru``, ``ssd``).
+``moe``, ``moe_dense``, ``rglru``, ``ssd``), with the caches of serving.
 
 Parameters are plain dicts of tensors.  Where the JAX package stacks each
 pattern slot's parameters over repetitions for one ``lax.scan``, the port
 keeps one dict per layer in layer order (``params["stack"]["layers"]``) and
-walks them in a Python loop.  ``models/convert.py`` carries JAX parameters
-over.  Initialisation draws from an explicit ``torch.Generator`` on the
-device the parameters live on.
+walks them in a Python loop; its caches are laid out the same way, one per
+layer (``init_cache(...)["layers"]``).  ``models/convert.py`` carries JAX
+parameters and caches over.  Initialisation draws from an explicit
+``torch.Generator`` on the device the parameters live on.
 """
 from __future__ import annotations
 
@@ -60,14 +61,21 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
+def _check_cache_kind(kind: str) -> None:
+    if kind in ("moe", "moe_dense"):
+        raise NotImplementedError(f"block kind {kind!r} with a cache is not "
+                                  f"ported yet: {L.MOE_CACHE_ITEM}")
+
+
 def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
     """Pre-norm block; returns (x, new_cache, aux_loss), the aux loss being
     the MoE load-balance loss of a ``moe`` / ``moe_dense`` block and 0
-    otherwise."""
+    otherwise.  A decode step needs the block's cache."""
     _check_kind(kind)
-    if ctx.mode == "decode":
-        raise NotImplementedError(f"decode is not ported yet: "
-                                  f"{L.CACHE_ITEM}")
+    if cache is not None or ctx.decoding:
+        _check_cache_kind(kind)
+    if ctx.decoding and cache is None:
+        raise ValueError(f"a decode step of a {kind!r} block needs its cache")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("attn", "local_attn", "moe", "moe_dense"):
         window = cfg.window if kind == "local_attn" else None
@@ -107,21 +115,51 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
                        for kind in layer_kinds(n_layers, pattern)]}
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
+                     *, device) -> dict:
+    """An empty cache of one block for ``length`` tokens: a KV ring of
+    ``length`` slots (``min(length, window)`` for ``local_attn``), or the
+    RG-LRU's or SSD's state."""
+    _check_kind(kind)
+    _check_cache_kind(kind)
+    if kind == "attn":
+        return L.init_kv_cache(cfg, batch, length, device=device)
+    if kind == "local_attn":
+        return L.init_kv_cache(cfg, batch, min(length, cfg.window or length),
+                               device=device)
+    if kind == "rglru":
+        return L.init_rglru_cache(cfg, batch, device=device)
+    return L.init_ssd_cache(cfg, batch, device=device)
+
+
+def init_stack_cache(cfg: ModelConfig, n_layers: int, pattern, batch: int,
+                     length: int, *, device) -> dict:
+    """One empty cache per layer, in layer order."""
+    return {"layers": [init_block_cache(cfg, kind, batch, length,
+                                        device=device)
+                       for kind in layer_kinds(n_layers, pattern)]}
+
+
 def apply_stack(p, cfg: ModelConfig, n_layers: int, pattern, x, ctx: Ctx,
                 cache):
-    """Every layer in order.  Returns (x, new_cache, aux_sum)."""
-    if cache is not None:
-        raise NotImplementedError(f"the stack with caches is not ported yet: "
-                                  f"{L.CACHE_ITEM}")
+    """Every layer in order, each with its cache where ``cache`` (one per
+    layer, as :func:`init_stack_cache` lays them out) is given.  Returns
+    (x, new_cache, aux_sum), ``new_cache`` None without a cache."""
     kinds = layer_kinds(n_layers, pattern)
     if len(p["layers"]) != len(kinds):
         raise ValueError(f"{len(p['layers'])} layers of parameters for "
                          f"{len(kinds)} layers")
+    caches = [None] * len(kinds) if cache is None else cache["layers"]
+    if len(caches) != len(kinds):
+        raise ValueError(f"{len(caches)} layers of caches for {len(kinds)} "
+                         f"layers")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, kind in zip(p["layers"], kinds):
-        x, _, aux = apply_block(lp, cfg, kind, x, ctx, None)
+    new_caches = []
+    for lp, kind, c in zip(p["layers"], kinds, caches):
+        x, c, aux = apply_block(lp, cfg, kind, x, ctx, c)
         aux_total = aux_total + aux
-    return x, None, aux_total
+        new_caches.append(c)
+    return x, (None if cache is None else {"layers": new_caches}), aux_total
 
 
 # ---------------------------------------------------------------- full model --
@@ -183,7 +221,8 @@ def head_matrix(params, cfg: ModelConfig):
 
 def forward(params, cfg: ModelConfig, tokens, ctx: Ctx, cache=None,
             memory=None):
-    """tokens (B, S) -> (hidden (B, S, D), new_cache, aux)."""
+    """tokens (B, S) -> (hidden (B, S, D), new_cache, aux); ``cache`` is
+    the stack's (:func:`init_cache`), and the new one is returned."""
     if memory is not None:
         raise NotImplementedError(f"modality memory is not ported yet: "
                                   f"{L.CROSS_ITEM}")
@@ -192,6 +231,14 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx, cache=None,
                                     cfg.pattern, x, ctx, cache)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, new_cache, aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               device: str | torch.device = "cuda") -> dict:
+    """The empty caches of every layer for ``length`` tokens, on ``device``
+    (``"cuda"`` unless the caller asks for the CPU)."""
+    return init_stack_cache(cfg, cfg.n_layers, cfg.pattern, batch, length,
+                            device=resolve_device(device))
 
 
 def logits_last(params, cfg: ModelConfig, hidden):

@@ -3,11 +3,13 @@ stand-in profiler, a window that lost device events is never read, the
 next one is, and when every window lost events the calls are timed on a
 held stream), SSD's bound, SSD's witness against wrong outputs, the
 card-vs-CPU gate of the MoE models on a hand-made routing, the fused
-min-plus scan's bound, and path 1's recording and host split rehearsed on
-the CPU."""
+min-plus scan's bound, path 1's recording and host split rehearsed on the
+CPU, and path 3 (serving) rehearsed on the CPU at reduced size, with two
+wrong decodes its teacher-forced gate must reject."""
 from __future__ import annotations
 
 import collections
+import importlib
 import types
 
 import numpy as np
@@ -16,8 +18,11 @@ import torch
 
 import chip_smoke as cs
 import repro_torch.core as T
+from repro_torch.configs import ARCHS
 from repro_torch.core import torch_solvers as TS
 from repro_torch.kernels import minplus as mp
+from repro_torch.models import layers as ML
+from repro_torch.models import transformer as MT
 
 CALLS = 10
 KERNEL = "minplus_kernel"
@@ -254,3 +259,99 @@ def test_host_split_times_each_part_and_restores_the_functions():
     assert set(spent) == set(cs.HOST_SPLIT)
     assert all(s > 0.0 for s in spent.values())
     assert all(getattr(TS, name) is fn for name, fn in originals.items())
+
+
+# ------------------------------------------------------------- path 3 ---
+# reduced traffic: qwen2 and mamba2 pad to 32 (two SSD chunks of 16) and
+# decode 16 (the forward over 48 is three); recurrentgemma's 40-token
+# prompt overfills its 32-slot ring, which every decode step wraps
+SERVE_REHEARSAL = {
+    "qwen2-1.5b": cs.ServeTraffic(2, 20, 32, 16, 48),
+    "mamba2-370m": cs.ServeTraffic(2, 20, 32, 16, 48),
+    "recurrentgemma-9b": cs.ServeTraffic(1, 40, 40, 8, 48),
+}
+
+
+@pytest.fixture
+def cpu_launches(monkeypatch):
+    """The kernels' modules, with each wrapper at the site chip_smoke.py
+    records counting its CPU calls as launches (the counts restored after
+    the test), and torch.cuda's synchronise and memory statistics made
+    no-ops."""
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in dict.fromkeys(map(cs._module, cs.KERNELS))}
+    for name, spec in cs.KERNELS.items():
+        mod = mods[cs._module(name)]
+        monkeypatch.setattr(mod, spec.counter, getattr(mod, spec.counter))
+        site = importlib.import_module(spec.site[0])
+
+        def counting(*args, _fn=getattr(site, spec.site[1]), _mod=mod,
+                     _count=spec.counter, **kw):
+            setattr(_mod, _count, getattr(_mod, _count) + 1)
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(site, spec.site[1], counting)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **kw: 0)
+    monkeypatch.setattr(cs, "_card_line", lambda: "the CPU (rehearsal)")
+    return mods
+
+
+def _serve(name, mods):
+    cfg = ARCHS[name].reduced()
+    params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return cs.run_serve_path(name, cfg, params, SERVE_REHEARSAL[name],
+                             cs.MODELS[name].kernels, mods, "cpu")
+
+
+@pytest.mark.parametrize("name", list(SERVE_REHEARSAL))
+def test_serve_path_rehearsed_on_the_cpu(name, cpu_launches, capsys):
+    """run_serve_path at reduced size in bf16, the plain versions standing
+    in for the kernels: every gate passes, the prefill's kernel calls are
+    counted and recorded, one call a layer of each kind, and the serving
+    numbers are printed."""
+    cfg = ARCHS[name].reduced()
+    run = _serve(name, cpu_launches)
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    per_layer = {"flash_attention": ("attn", "local_attn"), "ssd": ("ssd",),
+                 "rglru": ("rglru",)}
+    for k in cs.KERNELS:
+        want = sum(kind in per_layer.get(k, ()) for kind in kinds)
+        assert run["launches"][k] == want
+        assert sum(run["recorded"][k][0].values()) == want
+    out = capsys.readouterr().out
+    assert "the same tokens as the loop" in out
+    assert "tokens/s" in out and "p90" in out
+    assert run["cache_bytes"] > 0 and run["tokens_per_s"] > 0
+    assert run["decode_ms_p50"] <= run["decode_ms_p90"]
+
+
+@pytest.mark.parametrize("fault", ["attention", "ssd"])
+def test_serve_path_rejects_a_wrong_decode(fault, cpu_launches,
+                                           monkeypatch):
+    """The teacher-forced gate fails a decode whose attention masks out
+    the new token's own key, and one whose SSD prefill hands the decode
+    steps a zero state."""
+    if fault == "attention":
+        attend = ML._decode_attention
+
+        def wrong(cfg, q, k, v, q_positions, kv_positions, window=None):
+            return attend(cfg, q, k, v, q_positions - 1, kv_positions,
+                          window)
+
+        monkeypatch.setattr(ML, "_decode_attention", wrong)
+        name = "qwen2-1.5b"
+    else:
+        forward = ML.ssd_forward
+
+        def wrong(*args):
+            y, h = forward(*args)
+            return y, torch.zeros_like(h)
+
+        monkeypatch.setattr(ML, "ssd_forward", wrong)
+        name = "mamba2-370m"
+    with pytest.raises(AssertionError, match="teacher-forced"):
+        _serve(name, cpu_launches)

@@ -1,8 +1,9 @@
 """The port on the card: the CUDA min-plus (product and fused DFTS scan),
 flash-attention, SSD, expert-matmul and RG-LRU kernels against their plain
 versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy
-oracles, and a planned chain of a reduced model through the kernels against
-the same chain on the CPU.
+oracles, a planned chain of a reduced model through the kernels against
+the same chain on the CPU, and the serving engine's prefill and decode
+steps on the card against the same on the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -27,6 +28,7 @@ from repro_torch.kernels.minplus import minplus_matmul, minplus_reference
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as MT
 from repro_torch.msl import ChainSimulator, plan_pipeline
+from repro_torch import serving as SV
 
 # the module (the package's ``flash_attention`` is the wrapper)
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -612,3 +614,52 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
         assert ra.flips_are_near_ties(5e-2)
         assert 2 * int(ra.agree.sum()) >= len(ref)
     assert rel(out, ref) < 5e-2
+
+
+# the kernels each reduced model's prefill runs (its decode steps none)
+SERVE_KERNELS = {"qwen2-1.5b": (fa,), "mamba2-370m": (ssd,),
+                 "recurrentgemma-9b": (fa, rglru)}
+SERVE_TOL = 2e-2  # chip_smoke.py's CHECK_TOL, card vs CPU in bf16
+
+
+@pytest.mark.parametrize("arch", list(SERVE_KERNELS))
+def test_prefill_and_decode_on_cuda_match_the_cpu(cuda, arch):
+    """A reduced model (head widths 32, which the kernels take) serves two
+    prompts of 12 and 32 tokens into caches of 48 slots, then 4 decode
+    steps fed the same tokens, on the card (the prefill through the
+    kernels, one launch a layer of each kind) and on the CPU (plain
+    versions), in bf16: each row's logits within SERVE_TOL of its largest
+    |logit|, every float cache leaf within SERVE_TOL of its largest
+    magnitude and ``pos`` ``==``.  recurrentgemma's 32-slot ring wraps."""
+    cfg = ARCHS[arch].reduced(head_dim=32, ssm_head_dim=32)
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(SV.left_pad(
+        [rng.integers(1, cfg.vocab_size, n) for n in (12, 32)], 2))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2, 1)))
+
+    def serve(p, device):
+        logits, cache = SV.prefill(p, cfg, toks.to(device), 48)
+        out = [logits]
+        for i, f in enumerate(fed):
+            pos = torch.full((2, 1), toks.shape[1] + i, device=device)
+            logits, cache = SV.decode_step(p, cfg, cache, f.to(device), pos)
+            out.append(logits)
+        return torch.cat(out, dim=1).float().cpu(), cache
+
+    mods = SERVE_KERNELS[arch]
+    before = [m.launch_count for m in mods]
+    got, got_cache = serve(params, cuda)
+    for m, n in zip(mods, before):
+        assert m.launch_count == n + _launches_per_layer(cfg, m)
+    want, want_cache = serve(MT.tree_map(lambda t: t.cpu(), params), "cpu")
+    assert torch.isfinite(got).all()
+    row = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert float(row.max()) < SERVE_TOL
+    for g, w in zip(MT.tree_leaves(got_cache), MT.tree_leaves(want_cache)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        if w.dtype == torch.int64:
+            assert torch.equal(g.cpu(), w)
+        else:
+            err = (g.float().cpu() - w.float()).abs().max()
+            assert float(err / w.float().abs().max()) < SERVE_TOL

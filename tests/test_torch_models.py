@@ -297,16 +297,55 @@ def test_unported_kinds_name_their_roadmap_item(arch, kind):
         T.init_block(torch.Generator(), cfg, kind)
 
 
+def _cached_block_steps(arch, kind, jcache, tcache):
+    """One block of ``kind`` (float32) in both packages: a prefill of
+    (B, S) from the given caches, then a decode step at position S from
+    the caches it returned.  Returns the relative errors of the outputs
+    and of every float cache leaf; ``pos`` leaves must be ``==``."""
+    jcfg, cfg = _configs(arch, "float32")
+    jp, tp = _params(jcfg, cfg)
+    p_j = jax.tree.map(lambda a: a[0], jp["stack"]["groups"][0])
+    p_t = tp["stack"]["layers"][0]
+    x = _hidden(cfg)
+    x1 = np.random.default_rng(4).standard_normal((B, 1, cfg.d_model))
+    jctx, tctx = _contexts()
+    pos1 = np.full((B, 1), S)
+    steps = [(x, jctx, tctx), (x1.astype(np.float32), JL.Ctx(
+        mode="decode", positions=jnp.asarray(pos1, jnp.int32)), L.Ctx(
+        mode="decode", positions=torch.from_numpy(pos1)))]
+    errs = []
+    for xs, jc, tc in steps:
+        want, jcache, _ = JT.apply_block(p_j, jcfg, kind, jnp.asarray(xs),
+                                         jc, jcache)
+        got, tcache, _ = T.apply_block(p_t, cfg, kind, torch.from_numpy(xs),
+                                       tc, tcache)
+        errs.append(_rel_err(got, want))
+        assert set(tcache) == set(jcache)
+        for name, t in tcache.items():
+            if name == "pos":
+                np.testing.assert_array_equal(t.numpy(),
+                                              np.asarray(jcache[name]))
+            else:
+                errs.append(_rel_err(t, jcache[name]))
+    return errs
+
+
 @pytest.mark.parametrize("arch,kind", [("qwen3-moe-30b-a3b", "moe"),
                                        ("arctic-480b", "moe_dense"),
                                        ("recurrentgemma-9b", "rglru")])
 def test_new_kinds_with_a_cache_name_their_roadmap_item(arch, kind):
-    """The MoE and RG-LRU blocks run without a cache only, as the others."""
+    """The MoE blocks with a cache raise naming ROADMAP A17 (MoE decode);
+    the RG-LRU block takes one: from an empty dict, as the JAX package's
+    does (a prefill from h = 0 that returns its state), then a decode step,
+    both within 1e-5 of the JAX package's in float32."""
+    if kind == "rglru":
+        assert max(_cached_block_steps(arch, kind, {}, {})) < 1e-5
+        return
     cfg = ARCHS[arch].reduced()
     p = T.init_block(torch.Generator().manual_seed(0), cfg, kind)
     _, tctx = _contexts()
     x = torch.zeros((B, S, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         T.apply_block(p, cfg, kind, x, tctx, {})
 
 
@@ -329,16 +368,17 @@ def test_params_from_jax_keeps_the_float32_router_and_lam_of_a_bf16_model(
 
 
 def test_cache_and_decode_are_not_ported_yet():
-    cfg = ARCHS["qwen2-1.5b"].reduced()
-    tp = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    _, tctx = _contexts()
-    x = torch.zeros((B, S, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.apply_block(tp["stack"]["layers"][0], cfg, "attn", x, tctx, {})
-    decode = L.Ctx(mode="decode", positions=tctx.positions[:, :1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.apply_block(tp["stack"]["layers"][0], cfg, "attn", x[:, :1], decode,
-                      None)
+    """Named for the time they raised; now the attention block's KV cache
+    and decode: a prefill into an empty ring of 2S slots (the JAX package's
+    ``init_kv_cache``), then a decode step that attends over it, within
+    1e-5 of the JAX package's in float32, ``pos`` ``==``."""
+    jcfg, cfg = _configs("qwen2-1.5b", "float32")
+    jcache = JL.init_kv_cache(jcfg, B, 2 * S)
+    tcache = T.init_block_cache(cfg, "attn", B, 2 * S, device="cpu")
+    assert tcache["pos"].dtype == torch.int64
+    assert (tcache["pos"] == -1).all()
+    assert max(_cached_block_steps("qwen2-1.5b", "attn", jcache,
+                                   tcache)) < 1e-5
 
 
 def test_init_params_without_a_card_raises(monkeypatch):
