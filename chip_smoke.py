@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's four paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -31,6 +31,15 @@ SSD and RG-LRU kernels, then greedy ``decode_step``s in plain PyTorch over
 the KV rings and the SSD and RG-LRU states, then ``ServingEngine.generate``
 on the same prompts.
 
+Path 4 is training, inside the turns of qwen2-1.5b and mamba2-370m after
+path 3, on the same weights (float32, bf16 compute; TRAIN):
+``plan_pipeline(mode="TR")`` and ``ChainSimulator.round_trip`` (each stage
+forward under autograd, then the backward wave in reverse chain order)
+at B 2 x S 2048 and full depth, then four steps of
+``repro_torch.train.make_train_step`` with AdamW on ``SyntheticLM``
+batches, through the forward kernels and the backward kernels of flash
+attention and SSD (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_bwd.cu``).
+
 Phases, in order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
@@ -41,7 +50,10 @@ Phases, in order; any failure exits non-zero:
    longer launched on a path) held with ``==`` against its plain version
    (ties, +inf holes, off-tile shapes, EXTRA_SHAPE); flash attention in bf16 at FLASH_TOL, SSD in float32 at
    SSD_TOL, the expert matmul in bf16 at GMM_TOL and the RG-LRU scan at
-   RGLRU_TOL, at ``tests/test_kernels.py``'s shapes and a few more;
+   RGLRU_TOL, at ``tests/test_kernels.py``'s shapes and a few more; the
+   backward kernels against autograd through the plain versions, flash at
+   FLASH_BWD_TOL on FLASH_GENERIC and SSD at SSD_BWD_TOL on SSD_GENERIC,
+   each twice with the same bits;
 4. path 1: the 96-instance population of the solver benchmark (NSFNET,
    ResNet-101 at its full 37 layer groups) through ``dfts_torch`` (distinct,
    then cycled to 1024) and ``bcd_torch``, every outcome ``==`` the port's
@@ -75,7 +87,21 @@ Phases, in order; any failure exits non-zero:
    kernels and through the plain versions; ``generate``'s tokens ``==``
    the loop's, every logit finite; its
    prefill ms, decode ms a step (p50, p90), tokens/s, cache bytes and peak
-   memory printed beside the card; the model freed before the next;
+   memory printed beside the card; then path 4 where the model trains
+   (``run_train_path``): the round trip with the counts set to 0 just
+   before and read just after (one forward and one backward launch a
+   layer), its traces FW then BW, every charge ``==``
+   ``segment_comp_dir_s`` and the evaluator's transfer in its direction,
+   ``executed_round_trip_s`` within 1e-9 of ``evaluate_round_trip``,
+   ``grad_in`` finite, each stage's measured FW and BW compute printed
+   beside its charge; four train steps counted likewise (two forward
+   launches a layer under remat and one backward a step), every loss and
+   grad norm finite, the loss on ``batch_at(0)`` lower at step 3 than at
+   step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
+   printed; the first TRAIN_CHECK_DEPTH repetitions at S CHECK_SEQ, card
+   (kernels) against CPU (plain versions): the round trip's ``grad_in``
+   and every parameter's gradient within CHECK_TOL; the model freed
+   before the next;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
    shapes of paths 1-3, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
    and 2 gave it (recorded, random with +inf holes and an all-+inf tour,
@@ -99,7 +125,13 @@ Phases, in order; any failure exits non-zero:
    yardstick (``scaled_dot_product_attention`` for flash attention,
    ``torch.bmm`` with the activation for the expert matmul; SSD and RG-LRU
    have no single library call), with the SM clock, its maximum and the
-   temperature sampled before and after the timings;
+   temperature sampled before and after the timings; the backward kernels
+   likewise at path 4's shapes (recorded operands and random, flash's
+   rejecting dK and dV without the sum over the G query heads and a dQ
+   that ignores the causal mask, SSD's held to its float64 witness at
+   SSD_BWD_WITNESS and rejecting ddt without its reverse-cumsum term and
+   dA with its sign flipped), flash's yardstick the backward of
+   ``scaled_dot_product_attention``;
 7. one JSON line of per-kernel numbers, the card line, then the result line.
 """
 from __future__ import annotations
@@ -109,6 +141,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -176,6 +209,19 @@ RGLRU_TOL = 1e-5
 RGLRU_WITNESS = 4.0
 CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 #                   magnitude (PERF.md gives the readings it was set from)
+# The backward kernels against autograd through their plain versions.
+# Flash attention, bf16: the kernel sums in fp32 and rounds each gradient
+# once to bf16, where the plain version keeps them fp32: each of dQ, dK and
+# dV within FLASH_BWD_TOL of its largest magnitude.  SSD, float32 (plain SIMT sums in
+# other orders): each of dx, dB, dC, ddt and dA within SSD_BWD_TOL of its
+# largest magnitude on random operands; on the path's recorded operands,
+# as the forward's, each held to its float64 value instead, the kernel's
+# largest error at most SSD_BWD_WITNESS times the plain version's own (or
+# eps of the largest value): there the plain version's own error of ddt
+# exceeded SSD_BWD_TOL of its largest value (PERF.md).
+FLASH_BWD_TOL = 2.0 ** -6
+SSD_BWD_TOL = 1e-4
+SSD_BWD_WITNESS = 4.0
 
 
 class PathModel(NamedTuple):
@@ -228,6 +274,28 @@ SERVE = {
 # on gross faults only.
 SERVE_CHECK_DEPTH = 2
 FLOOR_FACTOR = 2.0
+
+
+class TrainTraffic(NamedTuple):
+    """Path 4's work for one model: the round trip and ``steps`` train
+    steps on batches of ``batch`` x ``seq`` tokens, through the forward
+    and backward kernels named."""
+    batch: int
+    seq: int
+    steps: int
+    kernels: tuple[str, str]  # (forward, backward)
+
+
+# path 4, inside its model's turn after path 3 (the train step updates the
+# weights in place); the learning rate is the reference's default
+TRAIN = {
+    "qwen2-1.5b": TrainTraffic(2, 2048, 4, ("flash_attention",
+                                            "flash_attention_bwd")),
+    "mamba2-370m": TrainTraffic(2, 2048, 4, ("ssd", "ssd_bwd")),
+}
+TRAIN_LR = 3e-4
+TRAIN_CHECK_DEPTH = SERVE_CHECK_DEPTH  # repetitions of the card-vs-CPU
+#                                        gradients, as paths 2 and 3 check
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): tests/test_kernels.py's
 # cases, rows that see no key, and randomised GQA shapes
 FLASH_GENERIC = [
@@ -829,14 +897,18 @@ def _wall(fn) -> float:
 
 # ------------------------------------------------------------------ builds --
 def build_kernels(mods: dict) -> None:
-    """Phase 2: every kernel built at once, one ``nvcc`` per source; the
-    first failure raises."""
+    """Phase 2: every kernel built at once, one ``nvcc`` per source (a
+    module's forward ``LIBRARY`` and, where it has one, its
+    ``BWD_LIBRARY``); the first failure raises."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.build(), mods.values()))
-    for name, m in mods.items():
-        info = m.LIBRARY.build_info
-        print(f"build: {name} in {info['seconds']!r} s ({info['path']})")
+    libs = [lib for m in mods.values()
+            for lib in (m.LIBRARY, getattr(m, "BWD_LIBRARY", None)) if lib]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs))
+    for lib in libs:
+        info = lib.build_info
+        print(f"build: {lib.source.name} in {info['seconds']!r} s "
+              f"({info['path']})")
         if info["log"]:
             print(info["log"].strip())
     print(f"build: all kernels in {time.perf_counter() - t0!r} s of wall "
@@ -1183,9 +1255,212 @@ def _rglru_check_witness(rglru, cases, what: str) -> float:
     return max_err
 
 
+# ------------------------------------------------------ backward kernels --
+def _flash_bwd_operands(fa, gen, shape, kw, device):
+    """(q, k, v, lse, dout) at a FLASH_GENERIC shape: q, k, v and the
+    cotangent random bf16, lse from the forward kernel."""
+    q, k, v = _flash_operands(gen, shape, device)
+    dout = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+    _, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    return q, k, v, lse, dout
+
+
+def _flash_bwd_check(fa, cases, what: str) -> float:
+    """The backward kernel against autograd through the plain version on
+    each ``(args, kw)``: dQ, dK and dV each within FLASH_BWD_TOL of its
+    largest magnitude, and a second launch the same bits.  Raises on a
+    failure, else returns the max_abs_err."""
+    failures, worst, max_err = 0, [0.0] * 3, 0.0
+    for args, kw in cases:
+        got = fa.flash_attention_bwd(*args, **kw)
+        again = fa.flash_attention_bwd(*args, **kw)
+        want = fa.reference_attention_bwd(*args, **kw)
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            rel = _rel(g, w)
+            failures += not (rel <= FLASH_BWD_TOL and torch.equal(g, a)
+                             and bool(torch.isfinite(g).all()))
+            worst[i] = max(worst[i], rel)
+            max_err = max(max_err, float((g.float() - w).abs().max()))
+    line = (f"flash_attention_bwd {what}: {len(cases)} bf16 cases, max error "
+            f"of dQ, dK, dV {worst!r} of their largest magnitude (limit "
+            f"{FLASH_BWD_TOL}), two launches the same bits, max_abs_err "
+            f"{max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} gradients past the limit "
+                             f"or not repeated")
+    print(line)
+    return max_err
+
+
+def _flash_bwd_wrong_outputs(fa, args, kw) -> dict:
+    """Two deliberately wrong gradients, from the plain version: dK and dV
+    of the first query head of each group alone (the sum over the G heads
+    of a kv head left out), and dQ of the attention without its causal
+    mask."""
+    q, k, v, lse, dout = args
+    B, Sq, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    if G < 2 or not kw.get("causal", True):
+        raise ValueError(f"causal GQA operands expected, got {tuple(q.shape)}"
+                         f", {tuple(k.shape)}, {kw}")
+    want = fa.reference_attention_bwd(*args, **kw)
+    first = dout.clone().reshape(B, Sq, Hq // G, G, hd)
+    first[:, :, :, 1:] = 0
+    alone = fa.reference_attention_bwd(q, k, v, lse,
+                                       first.reshape(dout.shape), **kw)
+    no_mask = fa.reference_attention_bwd(*args, **dict(kw, causal=False))
+    return {"dK and dV without the sum over the G query heads":
+                (want[0], alone[1], alone[2]),
+            "dQ that ignores the causal mask": (no_mask[0], want[1],
+                                                want[2])}
+
+
+def _flash_bwd_rejects_wrong_outputs(fa, args, kw) -> None:
+    """FLASH_BWD_TOL must reject both wrong gradients of
+    ``_flash_bwd_wrong_outputs`` on these operands."""
+    want = fa.reference_attention_bwd(*args, **kw)
+    for what, grads in _flash_bwd_wrong_outputs(fa, args, kw).items():
+        errors = [_rel(g, w) for g, w in zip(grads, want)]
+        if all(e <= FLASH_BWD_TOL for e in errors):
+            raise AssertionError(f"FLASH_BWD_TOL passes a wrong gradient "
+                                 f"({what}): {errors}")
+        print(f"flash_attention_bwd check rejects a wrong output ({what}; q "
+              f"{tuple(args[0].shape)}): errors of dQ, dK, dV {errors!r} of "
+              f"their largest magnitude (limit {FLASH_BWD_TOL})")
+
+
+def _ssd_bwd_operands(gen, shape, device):
+    """(x, B, C, dt, A, gy, ghc, gdec) at an SSD_GENERIC shape: the forward's
+    operands and random cotangents of its three outputs."""
+    x, Bm, Cm, dt, A = _ssd_operands(gen, shape, device)
+    Bsz, nc, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    return (x, Bm, Cm, dt, A,
+            *(torch.randn(s, generator=gen).to(device) for s in (
+                (Bsz, nc, H, Q, P), (Bsz, nc, H, N, P), (Bsz, nc, H, Q))))
+
+
+SSD_GRADS = ("dx", "dB", "dC", "ddt", "dA")
+
+
+def _ssd_bwd_check(ssd, cases, what: str, witness: bool = False) -> float:
+    """The backward kernel against autograd through the plain version on
+    each case, a second launch the same bits: every gradient within
+    SSD_BWD_TOL of its largest magnitude, or, with ``witness`` (the path's
+    recorded operands, as the forward's are held), within SSD_BWD_WITNESS
+    times the plain version's own error of its float64 value (or eps of
+    the largest value, where the plain version is exact), the difference
+    from the plain version printed.  On the path's operands the float32
+    plain version is the less exact of the two in places (ddt and dA sum
+    many terms that cancel), so it cannot be the yardstick there.  Raises
+    on a failure, else returns the max_abs_err."""
+    failures, worst, max_err = 0, [0.0] * 5, 0.0
+    for n, args in enumerate(cases):
+        got = ssd.ssd_intra_chunk_bwd(*args)
+        again = ssd.ssd_intra_chunk_bwd(*args)
+        want = ssd.reference_ssd_intra_chunk_bwd(*args)
+        exact = (ssd.reference_ssd_intra_chunk_bwd(*args,
+                                                   dtype=torch.float64)
+                 if witness else None)
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            rel = _rel(g, w)
+            failures += not ((witness or rel <= SSD_BWD_TOL)
+                             and torch.equal(g, a)
+                             and bool(torch.isfinite(g).all()))
+            worst[i] = max(worst[i], rel)
+            max_err = max(max_err, float((g - w).abs().max()))
+        if witness:
+            rows = _ssd_bwd_witness(got, want, exact)
+            failures += sum(not err <= limit for _, err, limit, _ in rows)
+            print(f"ssd_bwd {what}, case {n} (x {tuple(args[0].shape)}), "
+                  f"against float64: " + "; ".join(
+                      f"{name} kernel {err!r} (limit {limit!r}), plain "
+                      f"{err_p!r}" for name, err, limit, err_p in rows))
+    limit = "held to float64 instead" if witness else f"limit {SSD_BWD_TOL}"
+    line = (f"ssd_bwd {what}: {len(cases)} float32 cases, max error of "
+            f"{', '.join(SSD_GRADS)} against the plain version {worst!r} of "
+            f"their largest magnitude ({limit}), two launches the same "
+            f"bits, max_abs_err {max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} gradients past a limit or "
+                             f"not repeated")
+    print(line)
+    return max_err
+
+
+def _ssd_bwd_witness(got, want, exact) -> list:
+    """For each gradient: (name, the largest error of ``got`` against the
+    float64 values ``exact``, its limit: SSD_BWD_WITNESS times the plain
+    version ``want``'s own largest error, or eps of the largest value where
+    the plain version is exact, and the plain version's error)."""
+    rows = []
+    for name, g, w, e in zip(SSD_GRADS, got, want, exact):
+        err_k = float((g.double() - e).abs().max())
+        err_p = float((w.double() - e).abs().max())
+        rows.append((name, err_k, SSD_BWD_WITNESS * max(
+            err_p, FP32_EPS * float(e.abs().max())), err_p))
+    return rows
+
+
+def _ssd_ddt_without_cumsum(ssd, args):
+    """The plain version's ddt with the term through cum = cumsum(-A dt)
+    left out (cum built from a detached dt), in float32."""
+    x, Bm, Cm, dt, A, gy, ghc, gdec = args
+    with torch.enable_grad():
+        dt_ = dt.detach().float().requires_grad_()
+        x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+        cum = torch.cumsum(dt.detach().float() * (-A.float())[
+            None, None, :, None], dim=-1)
+        Q = x.shape[3]
+        causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                       device=x.device))
+        decay = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+            ~causal, float("-inf")))
+        w = torch.einsum("bcqn,bckn->bcqk", C32, B32)[:, :, None] * decay \
+            * dt_[:, :, :, None, :]
+        y = torch.einsum("bchqk,bchkp->bchqp", w, x32)
+        end = torch.exp(cum[..., -1:] - cum) * dt_
+        hc = torch.einsum("bchq,bcqn,bchqp->bchnp", end, B32, x32)
+        (ddt,) = torch.autograd.grad((y, hc), dt_, (gy.float(), ghc.float()))
+    return ddt
+
+
+def _ssd_bwd_wrong_outputs(ssd, args) -> dict:
+    """Two deliberately wrong gradients, from the plain version: ddt
+    without its reverse-cumsum term, and dA with its sign flipped."""
+    want = list(ssd.reference_ssd_intra_chunk_bwd(*args))
+    no_cum, flipped = list(want), list(want)
+    no_cum[3] = _ssd_ddt_without_cumsum(ssd, args)
+    flipped[4] = -want[4]
+    return {"ddt without the reverse-cumsum term": no_cum,
+            "dA with its sign flipped": flipped}
+
+
+def _ssd_bwd_rejects_wrong_outputs(ssd, args) -> None:
+    """Both gates must reject both wrong gradients of
+    ``_ssd_bwd_wrong_outputs`` on these operands: SSD_BWD_TOL against the
+    plain version, and the float64 witness at SSD_BWD_WITNESS."""
+    want = ssd.reference_ssd_intra_chunk_bwd(*args)
+    exact = ssd.reference_ssd_intra_chunk_bwd(*args, dtype=torch.float64)
+    for what, grads in _ssd_bwd_wrong_outputs(ssd, args).items():
+        errors = [_rel(g, w) for g, w in zip(grads, want)]
+        rows = _ssd_bwd_witness(grads, want, exact)
+        if all(e <= SSD_BWD_TOL for e in errors) or all(
+                err <= limit for _, err, limit, _ in rows):
+            raise AssertionError(f"an SSD backward gate passes a wrong "
+                                 f"gradient ({what}): {errors}, {rows}")
+        print(f"ssd_bwd check rejects a wrong output ({what}; x "
+              f"{tuple(args[0].shape)}): errors of {', '.join(SSD_GRADS)} "
+              f"{errors!r} of their largest magnitude (limit "
+              f"{SSD_BWD_TOL}); against float64 " + ", ".join(
+                  f"{name} {err!r} (limit {limit!r})"
+                  for name, err, limit, _ in rows))
+
+
 def check_generic(mods, device) -> dict:
-    """Phase 3 for the kernels of path 2: each against its plain version on
-    random operands at shapes off the path."""
+    """Phase 3 for the kernels of paths 2-4: each against its plain version
+    on random operands at shapes off the path (the backward kernels
+    against autograd through theirs)."""
     gen = torch.Generator().manual_seed(2)
     return {
         "flash_attention": _flash_check(
@@ -1198,6 +1473,14 @@ def check_generic(mods, device) -> dict:
             _gmm_operands(gen, s, device) for s in GMM_GENERIC], "generic"),
         "rglru": _rglru_check(mods["rglru"], [
             _rglru_operands(gen, s, device) for s in RGLRU_GENERIC],
+            "generic"),
+        "flash_attention_bwd": _flash_bwd_check(
+            mods["flash_attention"], [
+                (_flash_bwd_operands(mods["flash_attention"], gen, s,
+                                     _flash_kw(s), device), _flash_kw(s))
+                for s in FLASH_GENERIC], "generic"),
+        "ssd_bwd": _ssd_bwd_check(mods["ssd"], [
+            _ssd_bwd_operands(gen, s, device) for s in SSD_GENERIC],
             "generic")}
 
 
@@ -1205,8 +1488,9 @@ def check_generic(mods, device) -> dict:
 def record_calls(module, name: str, key_fn):
     """Record every call of ``module.<name>`` inside the block: a count per
     ``key_fn(*args, **kw)`` and up to RECORDED_OPERANDS clones of its
-    operands per key.  The recorder calls the function it replaced, so the
-    wrappers' launch counts are untouched."""
+    operands per key, detached from any autograd graph.  The recorder calls
+    the function it replaced, so the wrappers' launch counts are
+    untouched."""
     shapes: collections.Counter = collections.Counter()
     operands: dict = collections.defaultdict(list)
     wrapped = getattr(module, name)
@@ -1215,8 +1499,9 @@ def record_calls(module, name: str, key_fn):
         key = key_fn(*args, **kw)
         shapes[key] += 1
         if len(operands[key]) < RECORDED_OPERANDS:
-            operands[key].append((tuple(a.clone() if torch.is_tensor(a)
-                                        else a for a in args), dict(kw)))
+            operands[key].append((tuple(a.detach().clone()
+                                        if torch.is_tensor(a) else a
+                                        for a in args), dict(kw)))
         return wrapped(*args, **kw)
 
     setattr(module, name, recorder)
@@ -1235,6 +1520,14 @@ def _flash_key(q, k, v, *, causal=True, window=None, softcap=None,
 def _ssd_key(x, Bm, Cm, dt, A):
     B, nc, H, Q, P = x.shape
     return (B, nc, H, Q, P, Bm.shape[-1])
+
+
+def _flash_bwd_key(q, k, v, lse, dout, **kw):
+    return _flash_key(q, k, v, **kw)
+
+
+def _ssd_bwd_key(x, Bm, Cm, dt, A, gy, ghc, gdec):
+    return _ssd_key(x, Bm, Cm, dt, A)
 
 
 def _minplus_key(a, b):
@@ -1466,13 +1759,16 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     _check_on_cpu(name, cfg, params, tokens, pos)
     del sim, out, warm, h, mono
     torch.cuda.empty_cache()
-    serve = None
+    serve = train = None
     if name in SERVE:
         serve = run_serve_path(name, cfg, params, SERVE[name], spec.kernels,
                                mods, device)
+    if name in TRAIN:
+        train = run_train_path(name, cfg, params, TRAIN[name], mods, device)
     del params
     torch.cuda.empty_cache()
-    return {"launches": launches, "recorded": recorded, "serve": serve}
+    return {"launches": launches, "recorded": recorded, "serve": serve,
+            "train": train}
 
 
 def serve_prompts(traffic: ServeTraffic, vocab: int) -> list:
@@ -1706,6 +2002,323 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
             "cache_bytes": cache_bytes, "peak_bytes": peak}
 
 
+# ------------------------------------------------------------------ path 4 --
+# the block kinds that run each forward kernel of path 4's models
+KERNEL_KINDS = {"flash_attention": ("attn", "local_attn", "moe", "moe_dense"),
+                "ssd": ("ssd",)}
+
+
+def _train_launches(cfg, kernel: str) -> tuple[int, int]:
+    """A train step's (forward, backward) launches of ``kernel``: every
+    layer of its kinds once each way, and the forward once more in every
+    full pattern repetition that ``cfg.remat`` recomputes."""
+    from repro_torch.models import transformer as MT
+
+    full = cfg.n_layers // len(cfg.pattern) * len(cfg.pattern)
+    layers = [i for i, kind in enumerate(MT.layer_kinds(cfg.n_layers,
+                                                        cfg.pattern))
+              if kind in KERNEL_KINDS[kernel]]
+    return (sum(2 if cfg.remat and i < full else 1 for i in layers),
+            len(layers))
+
+
+def _charged_transfer_s(ev, path, cut_after: int, direction: str) -> float:
+    """The evaluator's charge for one cut's smashed data in one direction:
+    each link's transmission (``link_trans_dir_s``) plus its propagation."""
+    size = ev.request.batch_size * ev.profile.cut_bytes(cut_after, direction)
+    trans = prop = 0.0
+    for u, v in zip(path, path[1:]):
+        trans += ev.net.link_trans_dir_s(u, v, size, direction)
+        prop += ev.net.links[(u, v)].delay(direction)
+    return trans + prop
+
+
+def _round_trip_gates(name: str, sim, plan, rt) -> str:
+    """The round trip's traces in the order FW (chain order), BW (reverse),
+    each charge ``==`` ``segment_comp_dir_s`` and the evaluator's transfer
+    in its direction (the two directions of a cut summing to the fused
+    ``cut_transfer_s``), and the event replay ``executed_round_trip_s``
+    within 1e-9 of ``evaluate_round_trip``'s closed form at M 1 and 4.
+    Raises on a failure, else returns a summary."""
+    from repro_torch.core import BW, FW
+    from repro_torch.core.trainpipe import (
+        evaluate_round_trip,
+        segment_comp_dir_s,
+    )
+    from repro_torch.msl import executed_round_trip_s
+
+    K, ev = plan.K, sim.ev
+    order = [(k, FW) for k in range(K)] + [(k, BW) for k in reversed(
+        range(K))]
+    if [(t.stage, t.direction) for t in rt.traces] != order:
+        raise AssertionError(f"{name}: round-trip traces "
+                             f"{[(t.stage, t.direction) for t in rt.traces]}"
+                             f" against {order}")
+    by = {}
+    for t in rt.traces:
+        cut = t.stage if t.direction == FW else t.stage - 1
+        want_t = (_charged_transfer_s(ev, plan.paths[cut],
+                                      plan.segments[cut][1], t.direction)
+                  if 0 <= cut < K - 1 else 0.0)
+        want_c = segment_comp_dir_s(ev, t.node, *t.groups, t.direction)
+        if (t.compute_s_predicted, t.transfer_s_charged) != (want_c, want_t):
+            raise AssertionError(f"{name}: round-trip stage {t.stage} "
+                                 f"{t.direction} charged "
+                                 f"{(t.compute_s_predicted, t.transfer_s_charged)}"
+                                 f" against {(want_c, want_t)}")
+        by[(t.stage, t.direction)] = t
+    for c in range(K - 1):
+        fused = sum(ev.cut_transfer_s(plan.paths[c], plan.segments[c][1]))
+        both = (by[(c, FW)].transfer_s_charged
+                + by[(c + 1, BW)].transfer_s_charged)
+        if not abs(both - fused) <= 1e-12 * fused:
+            raise AssertionError(f"{name}: cut {c} charged {both!r} both "
+                                 f"ways against {fused!r} fused")
+    replays = []
+    for M in (1, 4):
+        replay = executed_round_trip_s(ev, plan, M)
+        closed = evaluate_round_trip(ev, plan, M).total_s
+        if not abs(replay - closed) <= 1e-9 * closed:
+            raise AssertionError(f"{name}: the event replay {replay!r} s "
+                                 f"against the closed form {closed!r} s at "
+                                 f"M {M}")
+        replays.append((M, replay, closed))
+    return (f"charges == segment_comp_dir_s and the evaluator's transfers; "
+            f"charged FW {rt.charged_s(FW)!r} s, BW {rt.charged_s(BW)!r} s; "
+            f"executed_round_trip_s vs evaluate_round_trip (M, replay, "
+            f"closed) {replays}")
+
+
+def _rel2(out, ref) -> float:
+    """||out - ref|| / ||ref||, in float64."""
+    d = (out.double() - ref.double()).norm()
+    return float(d / ref.double().norm().clamp_min(1e-300))
+
+
+def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
+    """The first TRAIN_CHECK_DEPTH pattern repetitions at S = CHECK_SEQ on
+    the card (kernels) against the same on the CPU (plain versions): the
+    round trip's ``grad_in`` through the chain's stage function (seed
+    ones) within CHECK_TOL of its largest magnitude, as path 2 holds the
+    forward; and every parameter's gradient in train mode (rematerialised)
+    for a fixed random cotangent of the output (the head left out), each
+    leaf within CHECK_TOL in 2-norm (||card - CPU|| / ||CPU||).  A
+    parameter's gradient sums its terms over every token, and where they
+    cancel, bf16 rounding is amplified in single elements (a bias's
+    largest element can be far below the terms it sums), so the leaves
+    are held as the vectors the optimizer takes; their largest element's
+    error, and the same gradients through the plain versions on the card
+    against the CPU (the floor of two bf16 evaluations), are printed
+    beside.  Raises on a failure, else returns the readings."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    t0 = time.perf_counter()
+    n = min(cfg.n_layers, TRAIN_CHECK_DEPTH * len(cfg.pattern))
+    sub = {"layers": params["stack"]["layers"][:n]}
+    cpu_sub = MT.tree_map(lambda t: t.detach().cpu(), sub)
+    sub_cfg = dataclasses.replace(cfg, n_layers=n)
+    toks = tokens[:, :CHECK_SEQ]
+    B, S = toks.shape
+    with torch.no_grad():
+        x = MT.embed_tokens(params, cfg, toks)
+    cot = torch.randn((B, S, cfg.d_model),
+                      generator=torch.Generator().manual_seed(5))
+
+    def grad_in(stack, h):
+        h = h.detach().requires_grad_()
+        with torch.enable_grad():
+            out = stage(stack, h)
+        return torch.autograd.grad(out, h, torch.ones_like(out))[0]
+
+    def param_grads(stack, h):
+        leaves = [t.detach().requires_grad_() for t in MT.tree_leaves(stack)]
+        it = iter(leaves)
+        tree = MT.tree_map(lambda _: next(it), stack)
+        pos = torch.arange(S, device=h.device).expand(B, S)
+        with torch.enable_grad():
+            out, _, _ = MT.apply_stack(tree, sub_cfg, n, cfg.pattern, h,
+                                       ML.Ctx(mode="train", positions=pos),
+                                       None)
+            loss = (out.float() * cot.to(h.device)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    cpu_in = grad_in(cpu_sub, x.cpu()).float()
+    cpu_p = [g.float() for g in param_grads(cpu_sub, x.cpu())]
+    err_in = _rel(grad_in(sub, x).float().cpu(), cpu_in)
+    card_p = [g.float().cpu() for g in param_grads(sub, x)]
+    with plain_kernels():
+        floor_in = _rel(grad_in(sub, x).float().cpu(), cpu_in)
+        floor_p = [g.float().cpu() for g in param_grads(sub, x)]
+    names = [".".join(map(str, path)) for path, _ in MT.tree_paths(sub)]
+    errs = [_rel2(a, b) for a, b in zip(card_p, cpu_p)]
+    tops = [_rel(a, b) for a, b in zip(card_p, cpu_p)]
+    floors = [_rel2(a, b) for a, b in zip(floor_p, cpu_p)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    top = max(range(len(tops)), key=tops.__getitem__)
+    line = (f"first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
+            f"(plain versions) in {cfg.compute_dtype}: grad_in {err_in!r} "
+            f"of its largest magnitude (limit {CHECK_TOL}; the plain "
+            f"versions on the card {floor_in!r}); the {len(errs)} parameter "
+            f"gradients up to {errs[worst]!r} ({names[worst]}) in 2-norm "
+            f"(limit {CHECK_TOL}; the plain versions on the card up to "
+            f"{max(floors)!r}), their largest element up to {tops[top]!r} "
+            f"({names[top]}) of each one's largest magnitude; in "
+            f"{time.perf_counter() - t0!r} s")
+    if not (err_in < CHECK_TOL and errs[worst] < CHECK_TOL):
+        raise AssertionError(f"{name}: path 4's gradients on the card differ "
+                             f"from the CPU's past the limit; {line}; every "
+                             f"leaf: {dict(zip(names, errs))}")
+    return line
+
+
+def _recorded_run(mods, fn) -> tuple:
+    """``fn()`` with every kernel's calls recorded and the counts set to 0
+    just before it and read just after: (its result, launches, recorded),
+    each kernel's recorded calls checked against its launches."""
+    with contextlib.ExitStack() as stack:
+        recorded = {k: stack.enter_context(record_calls(
+            importlib.import_module(ks.site[0]), ks.site[1], ks.key))
+            for k, ks in KERNELS.items()}
+        _zero_counts(mods)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = _counts(mods)
+    for k, (shapes, _) in recorded.items():
+        if sum(shapes.values()) != launches[k]:
+            raise AssertionError(f"{sum(shapes.values())} recorded {k} calls "
+                                 f"against {launches[k]} launches")
+    return out, launches, recorded
+
+
+def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
+                   device) -> dict:
+    """Path 4 for one model, on the weights paths 2 and 3 ran, which the
+    train steps then update in place:
+
+    1. ``plan_pipeline(mode="TR")`` and ``ChainSimulator.round_trip`` at
+       full depth, the counts set to 0 just before and read just after
+       (one forward and one backward launch a layer); its charges and
+       event replay gated (``_round_trip_gates``); ``grad_in`` finite;
+    2. ``traffic.steps`` steps of ``make_train_step`` with AdamW at
+       TRAIN_LR on ``SyntheticLM`` batches ``batch_at(i % 2)``, counted
+       likewise (``_train_launches`` a step): every loss and grad norm
+       finite, and the loss on ``batch_at(0)`` lower at step 3 than at
+       step 1;
+    3. one more step under the profiler (device busy time and the top
+       kernels), then ``_train_check_on_cpu``: grad_in and the parameter
+       gradients of the first TRAIN_CHECK_DEPTH repetitions, card against
+       CPU.
+
+    Returns each part's counts and recorded kernel calls, and the
+    numbers."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.msl import ChainSimulator, plan_pipeline
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    t_path = time.perf_counter()
+    B, S = traffic.batch, traffic.seq
+    fwd, bwd = traffic.kernels
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(4)).to(
+        device)
+    pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="TR", device=device)
+    sim = ChainSimulator(cfg, params, pp.problem.net, pp.problem.profile,
+                         pp.problem.request)
+    torch.cuda.reset_peak_memory_stats()
+    rt, rt_launches, rt_recorded = _recorded_run(
+        mods, lambda: sim.round_trip(pp.plan, tokens))
+    rt_peak = torch.cuda.max_memory_allocated()
+    per_layer = _train_launches(dataclasses.replace(cfg, remat=False), fwd)
+    if (rt_launches[fwd], rt_launches[bwd]) != per_layer:
+        raise AssertionError(f"{name}: the round trip launched "
+                             f"{rt_launches[fwd]} {fwd} and "
+                             f"{rt_launches[bwd]} {bwd} kernels, not "
+                             f"{per_layer}")
+    gates = _round_trip_gates(name, sim, pp.plan, rt)
+    if rt.grad_in.shape != (B, S, cfg.d_model) or not bool(
+            torch.isfinite(rt.grad_in).all()):
+        raise AssertionError(f"{name}: the round trip's grad_in "
+                             f"{tuple(rt.grad_in.shape)} is not finite of "
+                             f"shape {(B, S, cfg.d_model)}")
+    print(f"{name}: path 4 round trip, plan_pipeline(mode=TR) K {pp.K}, "
+          f"groups {pp.segments} on {pp.placement}; {gates}; grad_in "
+          f"finite (max |g| {float(rt.grad_in.float().abs().max())!r}); "
+          f"launches {rt_launches}; peak device memory {rt_peak} B")
+    del rt
+    warm = sim.round_trip(pp.plan, tokens)  # the first run grew the heap
+    for t in warm.traces:
+        print(f"{name}: warm round trip stage {t.stage} {t.direction} on "
+              f"{t.node}, groups {t.groups}: measured compute "
+              f"{t.compute_s_measured!r} s, charged compute "
+              f"{t.compute_s_predicted!r} s + transfer "
+              f"{t.transfer_s_charged!r} s, smashed {t.smashed_bytes!r} B")
+    stage = sim._stage_fn(1, TRAIN_CHECK_DEPTH)
+    measured = {d: sum(t.compute_s_measured for t in warm.traces
+                       if t.direction == d) for d in ("FW", "BW")}
+    del warm, sim
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup=1, total=50)
+    state = opt.init(params, cfg)
+    step = make_train_step(cfg, opt)
+    stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size), seed=0)
+    batches = [shard_batch(stream.batch_at(i), device) for i in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        nonlocal state
+        losses, norms, ms = [], [], []
+        for i in range(traffic.steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = step(params, state, batches[i % 2])
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, norms, ms
+
+    (losses, norms, step_ms), launches, recorded = _recorded_run(mods, steps)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _train_launches(cfg, fwd)
+    want = tuple(traffic.steps * n for n in per_step)
+    if (launches[fwd], launches[bwd]) != want:
+        raise AssertionError(f"{name}: {traffic.steps} train steps launched "
+                             f"{launches[fwd]} {fwd} and {launches[bwd]} "
+                             f"{bwd} kernels, not {want}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"{name}: losses {losses}, grad norms {norms} "
+                             f"are not all finite")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"{name}: the loss on batch_at(0) did not fall "
+                             f"from step 1 to step 3: {losses}")
+    p50 = statistics.median(step_ms[1:])
+    wall, busy, by_name = _device_us(lambda: step(params, state, batches[0]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"{name}: one more train step under the profiler: wall {wall!r} "
+          f"us, device busy {busy!r} us (share {busy / wall!r}); top device "
+          f"time: {top}")
+    print(f"{name}: path 4 on {_card_line()}: {traffic.steps} train steps "
+          f"({cfg.optimizer}, lr {TRAIN_LR}, remat {cfg.remat}) at B {B} x S "
+          f"{S}: losses {losses}, grad norms {norms}; step ms {step_ms}, p50 "
+          f"over steps 2-{traffic.steps} {p50!r} ms = "
+          f"{B * S / (p50 * 1e-3)!r} tokens/s; peak device memory {peak} B; "
+          f"launches {launches} ({per_step} a step)")
+    check = _train_check_on_cpu(name, cfg, params, tokens, stage)
+    print(f"{name}: path 4 {check}; path 4 in "
+          f"{time.perf_counter() - t_path!r} s")
+    del state, opt, step, batches
+    torch.cuda.empty_cache()
+    return {"round trip": {"launches": rt_launches, "recorded": rt_recorded},
+            "train": {"launches": launches, "recorded": recorded},
+            "round_trip_measured_s": measured, "round_trip_peak": rt_peak,
+            "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "step_ms_p50": p50, "tokens_per_s": B * S / (p50 * 1e-3),
+            "peak_bytes": peak}
+
+
 def _flash_bound(key) -> tuple[float, str, int, int]:
     B, Sq, Hq, Skv, Hkv, hd, causal, window, _ = key
     qi = torch.arange(Sq)[:, None]
@@ -1779,6 +2392,58 @@ def _rglru_bound(key) -> tuple[float, str, int, int]:
             "bytes", n_ops, n_bytes)
 
 
+def _flash_bwd_bound(key) -> tuple[float, str, int, int]:
+    """Five products over the visible pairs (S = Q K^T, dP = dO V^T, dV =
+    P^T dO, dQ = dS K, dK = dS^T Q), 2.5 times the forward's operations;
+    q, k, v, dO and lse read and dQ, dK, dV written once."""
+    B, Sq, Hq, Skv, Hkv, hd = key[:6]
+    _, _, fwd_ops, _ = _flash_bound(key)
+    n_ops = fwd_ops * 5 // 2
+    q_bytes, kv_bytes = 2 * B * Sq * Hq * hd, 2 * B * Skv * Hkv * hd
+    n_bytes = (2 * q_bytes + 2 * kv_bytes + 4 * B * Hq * Sq
+               + q_bytes + 2 * kv_bytes)
+    op_ms = n_ops / BF16_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _ssd_bwd_work(key) -> tuple[int, int]:
+    """The least work of the backward, its products counted as
+    ``_ssd_work`` counts the forward's (over causal pairs; the head-free
+    C B^T, dC = (sum_h dS) B and dB = (sum_h dS)^T C once per (batch,
+    chunk)): C B^T, dC and dB; G = gy x^T and W^T gy per head; the chunk
+    states' ghc^T B and ghc x per head.  Operands and cotangents read and
+    gradients written once."""
+    B, nc, H, Q, P, N = key
+    pairs = Q * (Q + 1) // 2
+    n_ops = (3 * 2 * N * pairs * B * nc + 2 * 2 * P * pairs * B * nc * H
+             + 2 * 2 * Q * N * P * B * nc * H)
+    reads = (2 * B * nc * H * Q * P + 2 * B * nc * Q * N
+             + 2 * B * nc * H * Q + H + B * nc * H * N * P)
+    writes = B * nc * H * Q * P + 2 * B * nc * Q * N + B * nc * H * Q + H
+    return n_ops, 4 * (reads + writes)
+
+
+def _ssd_bwd_bound(key) -> tuple[float, str, int, int]:
+    """The least work at the forward's rate: SSD_TF32_PASSES TF32 products
+    on the tensor cores for each fp32 product (fp32 accuracy)."""
+    n_ops, n_bytes = _ssd_bwd_work(key)
+    op_ms = SSD_TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _ssd_bwd_fp32_bound(key) -> tuple[float, str]:
+    """The same work at the fp32 rate outside the tensor cores, the rate
+    this plain SIMT kernel computes at: printed beside the bound."""
+    n_ops, n_bytes = _ssd_bwd_work(key)
+    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
 def _flash_path_check(fa, recorded, random) -> float:
     err = _flash_check(fa, recorded + random, "at path 2's shapes (recorded "
                        "operands and random)")
@@ -1810,6 +2475,23 @@ def _ssd_path_check(ssd, recorded, random) -> float:
                                "random at path 2's shapes"))
 
 
+def _flash_bwd_path_check(fa, recorded, random) -> float:
+    err = _flash_bwd_check(fa, recorded + random, "at path 4's shapes "
+                           "(recorded operands and random)")
+    _flash_bwd_rejects_wrong_outputs(fa, *next(
+        case for case in recorded if case[1].get("causal", True)
+        and case[0][0].shape[2] > case[0][1].shape[2]))
+    return err
+
+
+def _ssd_bwd_path_check(ssd, recorded, random) -> float:
+    err = _ssd_bwd_check(ssd, [args for args, _ in recorded],
+                         "recorded at path 4's shapes", witness=True)
+    _ssd_bwd_rejects_wrong_outputs(ssd, recorded[0][0])
+    return max(err, _ssd_bwd_check(ssd, [args for args, _ in random],
+                                   "random at path 4's shapes"))
+
+
 def _flash_library(args, kw):
     """One ``scaled_dot_product_attention`` call on the same operands, the
     library yardstick (never called by the port): causal, or with the
@@ -1827,6 +2509,25 @@ def _flash_library(args, kw):
     mask = (qi >= ki) & (qi - ki < window)
     return lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def _flash_bwd_library(args, kw):
+    """The backward of one ``scaled_dot_product_attention`` call on the same
+    operands (its forward run once beforehand), the library yardstick of
+    the backward kernel (never called by the port); None where the
+    forward has no such call."""
+    q, k, v, _, dout = args
+    if _flash_library((q, k, v), kw) is None:
+        return None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = _flash_library(leaves, kw)()
+
+    def grads():
+        return tuple(torch.autograd.grad(out, leaves, dout,
+                                         retain_graph=True))
+
+    return grads
 
 
 def _gmm_library(args, kw):
@@ -1858,6 +2559,12 @@ class Kernel(NamedTuple):
     fp32_bound: Callable = lambda key: None  # noqa: E731
     module: str = ""  # module of repro_torch.kernels, if not the kernel's name
     counter: str = "launch_count"  # the module's count of this kernel
+
+
+def _tuple(out) -> tuple:
+    """A kernel's result as a tuple of tensors (a backward gives three or
+    five)."""
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
 
 def _module(name: str) -> str:
@@ -1917,6 +2624,28 @@ KERNELS = {
         "rglru_chunk", "rglru_scan", "reference_rglru_scan",
         lambda gen, s, kw, device: (_rglru_operands(gen, s, device), kw),
         _rglru_path_check, _rglru_bound),
+    # the backward kernels (path 4): the gradients of the TPU kernels, which
+    # have none of their own
+    "flash_attention_bwd": Kernel(
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:29",
+        ("repro_torch.kernels.flash_attention", "flash_attention_bwd"),
+        _flash_bwd_key, "flash_bwd_", "flash_attention_bwd",
+        "reference_attention_bwd",
+        lambda gen, s, kw, device: (_flash_bwd_operands(
+            importlib.import_module("repro_torch.kernels.flash_attention"),
+            gen, (s[0], s[1], s[3], s[2], s[4], s[5]), kw, device), kw),
+        _flash_bwd_path_check, _flash_bwd_bound, _flash_bwd_library,
+        module="flash_attention", counter="bwd_launch_count"),
+    "ssd_bwd": Kernel(
+        "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        "src/repro/kernels/ssd.py:25",
+        ("repro_torch.kernels.ssd", "ssd_intra_chunk_bwd"), _ssd_bwd_key,
+        "ssd_bwd_", "ssd_intra_chunk_bwd", "reference_ssd_intra_chunk_bwd",
+        lambda gen, s, kw, device: (_ssd_bwd_operands(
+            gen, (s[0], s[1] * s[3], s[2], s[4], s[5], s[3]), device), kw),
+        _ssd_bwd_path_check, _ssd_bwd_bound, fp32_bound=_ssd_bwd_fp32_bound,
+        module="ssd", counter="bwd_launch_count"),
 }
 
 
@@ -1945,8 +2674,9 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
         library = spec.library(args, kw)
         library_ms = None
         if library is not None:
-            lib_err = float((library().float()
-                             - plain(*args, **kw).float()).abs().max())
+            lib_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(_tuple(library()),
+                                          _tuple(plain(*args, **kw))))
             library_ms = _kernel_device_ms(library, 20, None)
             print(f"{name} {s}: library yardstick (never called by the port) "
                   f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
@@ -2034,13 +2764,20 @@ def main() -> int:
             for name in MODELS}}), matmul]
     print(f"clocks after the minplus_scan timings (sm, max sm, "
           f"temperature): {_clocks_line()}")
-    for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru"):
-        models = [m for m, spec in MODELS.items() if kernel in spec.kernels]
-        runs = [(m, by_model[m]) for m in models] + [
-            (f"serve/{m}", by_model[m]["serve"]) for m in models
-            if by_model[m]["serve"] is not None]
+    for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru",
+                   "flash_attention_bwd", "ssd_bwd"):
+        runs = []
+        for m, spec in MODELS.items():
+            res = by_model[m]
+            if kernel in spec.kernels:
+                runs.append((m, res))
+                if res["serve"] is not None:
+                    runs.append((f"serve/{m}", res["serve"]))
+            if res["train"] is not None and kernel in TRAIN[m].kernels:
+                runs += [(f"{part}/{m}", res["train"][part])
+                         for part in ("round trip", "train")]
         kernels.append(check_model_path(
-            kernel, mods[kernel],
+            kernel, mods[_module(kernel)],
             _merge([run["recorded"][kernel] for _, run in runs]),
             {path: run["launches"][kernel] for path, run in runs},
             generic_new[kernel], device))

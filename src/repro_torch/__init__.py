@@ -14,7 +14,12 @@ NVIDIA H100, one slice at a time:
    hand-written CUDA kernels ``kernels.flash_attention``, ``kernels.ssd``,
    ``kernels.moe_gmm`` and ``kernels.rglru``;
 3. serving: ``serving`` (``prefill`` and ``decode_step`` over the
-   per-family caches, and the host loop ``ServingEngine``).
+   per-family caches, and the host loop ``ServingEngine``);
+4. training: ``optim`` (AdamW, Adafactor, gradient compression), ``data``
+   (the synthetic token streams), ``train`` (the loss, its gradients and
+   the optimizer step) and ``msl.ChainSimulator.round_trip`` (the executed
+   split-learning round trip), through the backward kernels of flash
+   attention and SSD (``flash_attention_bwd``, ``ssd_intra_chunk_bwd``).
 
 Importing the package touches no CUDA: a kernel is built and loaded at its
 first launch, and the solvers and models run on the card only when called.

@@ -13,7 +13,8 @@ A model is an embedding + a repeated *pattern* of block kinds + head.  Kinds:
 
 `n_layers` layers follow `pattern` cyclically.  This is a copy of the JAX
 package's config module: the port walks the layers one by one, so the
-scan-related fields (`remat`, `q_chunk`) are carried but unused.
+scan-related `q_chunk` is carried but unused; `remat` checkpoints each full
+pattern repetition in train mode, as the JAX package's scan body.
 """
 from __future__ import annotations
 

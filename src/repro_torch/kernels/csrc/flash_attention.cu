@@ -71,7 +71,10 @@
 //     V from shared memory, MN-major through the transpose bit; O stays fp32
 //     in registers and is rescaled by each tile's correction.
 //   - Epilogue: O / l in bf16 into the warpgroup's own Q rows (the same
-//     swizzle), then one TMA store per column block.
+//     swizzle), then one TMA store per column block.  Only when the caller
+//     passes an lse buffer (the training path), each row's log-sum-exp
+//     (m + log2 l) ln 2 goes there for the backward
+//     (csrc/flash_attention_bwd.cu); the inference paths pass none.
 //   - No atomics: two launches on the same operands give the same bits.
 
 #include <cuda.h>
@@ -88,6 +91,7 @@ constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
 constexpr int CONSUMERS = 256;
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
@@ -311,7 +315,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const __grid_constant__ CUtensorMap o_map, int B, int Sq,
                        int Skv, int Hq, int Hkv, float scale, int causal,
-                       int window, float softcap) {
+                       int window, float softcap, float* __restrict__ lse) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -512,6 +516,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
     const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    if (lse != nullptr && lane % 4 == 0) {
+      // each row's log-sum-exp of s, natural log, for the backward (m is in
+      // the exp2 domain); a row that sees no key keeps the masked score
+      float* row = lse + (size_t(b) * Hq + h) * Sq;
+      if (row0 < Sq) row[row0] = m0 == MASKED ? MASKED : (m0 + log2f(l0)) * LN2;
+      if (row0 + 8 < Sq) row[row0 + 8] = m1 == MASKED ? MASKED : (m1 + log2f(l1)) * LN2;
+    }
     named_barrier(1 + wg, 128);  // the warpgroup's products no longer read Q
     const uint32_t ob = sq + wg * 64 * C::SW;
     const int r = warp * 16 + lane / 4;  // and r + 8: the same swizzle
@@ -580,7 +591,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Skv, int Hq, int Hkv, float scale, int causal, int window,
-           float softcap, cudaStream_t stream) {
+           float softcap, float* lse, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap q_map, k_map, v_map, o_map;
   if (!make_map(&q_map, q, B, Sq, Hq, HD, C::AW, BQ, C::SW) ||
@@ -596,7 +607,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   flash_attention_kernel<HD><<<unsigned(blocks), THREADS, C::SMEM, stream>>>(
       q_map, k_map, v_map, o_map, B, Sq, Skv, Hq, Hkv, scale, causal, window,
-      softcap);
+      softcap, lse);
   return int(cudaGetLastError());
 }
 
@@ -604,21 +615,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 // Returns the CUDA error of the launch (0 when it was accepted).  window <= 0
 // and softcap <= 0 mean none; hd must be 32, 64, 128 or 256, and every
-// pointer 16-byte aligned (the TMA's rule).
+// pointer 16-byte aligned (the TMA's rule).  lse, when not null, receives
+// each row's log-sum-exp of the scores, fp32 (B, Hq, Sq): the backward's.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, int B, int Sq, int Skv, int Hq,
                                     int Hkv, int hd, float scale, int causal,
-                                    int window, float softcap, void* stream) {
+                                    int window, float softcap, void* lse_out,
+                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
+      return launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     case 64:
-      return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
+      return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     case 128:
-      return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
+      return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     case 256:
-      return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, s);
+      return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -39,6 +39,12 @@ TMA_ELEMS = 8  # bf16 elements in TMA's 16-byte row pitch: D and F are multiples
 
 # Kernel launches made by expert_matmul since the count was last set to 0.
 launch_count = 0
+# Where grad mode is on and an operand requires grad, a CUDA launch raises
+# naming the ROADMAP item that brings this kernel's backward: a result
+# without autograd history would cut the gradient of every parameter before
+# it.  (CPU tensors take the plain version, which autograd differentiates.)
+TRAINING_ITEM = ("ROADMAP A4b: MoE and RG-LRU training (the expert matmul's "
+                 "and the RG-LRU scan's backward kernels)")
 
 
 def build():
@@ -101,6 +107,9 @@ def expert_matmul(x, w, activation: str = "none"):
         return reference_expert_matmul(x, w, activation=activation)
     if x.device.type != "cuda":
         raise ValueError(f"expert_matmul runs on cuda or cpu, got {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(f"the expert matmul kernel has no backward "
+                                  f"yet: {TRAINING_ITEM}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"the expert matmul kernel takes bf16 operands, got "
                         f"{x.dtype}, {w.dtype}")

@@ -24,6 +24,12 @@ LIBRARY = _build.KernelLibrary("rglru", {
 
 # Kernel launches made by rglru_scan since the count was last set to 0.
 launch_count = 0
+# Where grad mode is on and an operand requires grad, a CUDA launch raises
+# naming the ROADMAP item that brings this kernel's backward: a result
+# without autograd history would cut the gradient of every parameter before
+# it.  (CPU tensors take the plain version, which autograd differentiates.)
+TRAINING_ITEM = ("ROADMAP A4b: MoE and RG-LRU training (the expert matmul's "
+                 "and the RG-LRU scan's backward kernels)")
 
 
 def build():
@@ -69,6 +75,9 @@ def rglru_scan(a, b):
         return reference_rglru_scan(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, got {a.device}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise NotImplementedError(f"the RG-LRU kernel has no backward yet: "
+                                  f"{TRAINING_ITEM}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"the RG-LRU kernel takes float32 operands, got "
                         f"{a.dtype}, {b.dtype}")

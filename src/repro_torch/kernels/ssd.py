@@ -1,4 +1,4 @@
-"""Mamba-2 SSD intra-chunk terms as a CUDA kernel.
+"""Mamba-2 SSD intra-chunk terms as CUDA kernels, forward and backward.
 
 Per (batch, chunk, head), with ``cum = cumsum(-A * dt)`` over the chunk:
 
@@ -12,9 +12,14 @@ CUDA tensors it launches the hand-written kernel in ``csrc/ssd.cu`` (built
 with ``nvcc`` for ``sm_90a`` at first use, see :mod:`.build`) and raises if
 the build or the launch fails; the kernel takes float32, the type the model
 path gives it, and does its products on the tensor cores in TF32, three
-products for each fp32 one, which keeps fp32 accuracy.  On CPU tensors it
-computes :func:`reference_ssd_intra_chunk`, the plain PyTorch version.
-Nothing here touches CUDA at import.
+products for each fp32 one, which keeps fp32 accuracy.  Where grad mode is
+on and an operand requires grad, the launch goes through the autograd
+Function ``_SSDIntraChunk``, whose backward is the hand-written kernel in
+``csrc/ssd_bwd.cu`` (:func:`ssd_intra_chunk_bwd`, plain fp32 SIMT for now),
+which maps the cotangents of all three outputs to dx, dB, dC, ddt and dA.
+On CPU tensors it computes :func:`reference_ssd_intra_chunk`, the plain
+PyTorch version, and autograd differentiates that.  Nothing here touches
+CUDA at import.
 """
 from __future__ import annotations
 
@@ -27,15 +32,21 @@ from . import build as _build
 LIBRARY = _build.KernelLibrary("ssd", {
     "ssd_intra_chunk_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]})
-HEAD_WIDTHS = (16, 32, 64)  # head widths P the kernel is built for
-MAX_STATE = 128             # widest state N the kernel takes
+BWD_LIBRARY = _build.KernelLibrary("ssd_bwd", {
+    "ssd_intra_chunk_bwd_f32": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p]})
+HEAD_WIDTHS = (16, 32, 64)  # head widths P the kernels are built for
+MAX_STATE = 128             # widest state N the kernels take
 
-# Kernel launches made by ssd_intra_chunk since the count was last set to 0.
+# Kernel launches made by ssd_intra_chunk since the count was last set to 0
+# (forward), and by ssd_intra_chunk_bwd (backward).
 launch_count = 0
+bwd_launch_count = 0
 
 
 def build():
-    """Compile the kernel now (else it is built at its first launch)."""
+    """Compile the forward kernel now (else it is built at its first
+    launch)."""
     return LIBRARY.build()
 
 
@@ -61,6 +72,20 @@ def reference_ssd_intra_chunk(x, Bm, Cm, dt, A, *, dtype=torch.float32):
     return y, hc, torch.exp(cum)
 
 
+def reference_ssd_intra_chunk_bwd(x, Bm, Cm, dt, A, gy, ghc, gdec, *,
+                                  dtype=torch.float32):
+    """The plain version of the backward: ``(dx, dB, dC, ddt, dA)`` in
+    ``dtype`` (float64 gives a witness), autograd through
+    :func:`reference_ssd_intra_chunk` for the cotangents ``gy`` of y,
+    ``ghc`` of the chunk states and ``gdec`` of the decay."""
+    with torch.enable_grad():
+        ins = [t.detach().to(dtype).requires_grad_() for t in
+               (x, Bm, Cm, dt, A)]
+        outs = reference_ssd_intra_chunk(*ins, dtype=dtype)
+        return torch.autograd.grad(outs, ins, [g.to(dtype) for g in
+                                               (gy, ghc, gdec)])
+
+
 def _check_shapes(x, Bm, Cm, dt, A) -> None:
     if x.ndim != 5:
         raise ValueError(f"x (B, nc, H, Q, P) expected, got {tuple(x.shape)}")
@@ -74,36 +99,34 @@ def _check_shapes(x, Bm, Cm, dt, A) -> None:
                          f"got {tuple(dt.shape)}, {tuple(A.shape)}")
 
 
-def ssd_intra_chunk(x, Bm, Cm, dt, A):
-    """Returns ``(y (B, nc, H, Q, P), chunk_states (B, nc, H, N, P),
-    in_decay (B, nc, H, Q))``, all float32.
-
-    CPU tensors take :func:`reference_ssd_intra_chunk`.  CUDA tensors must
-    be contiguous float32 on one device, with P in ``HEAD_WIDTHS`` and N at
-    most ``MAX_STATE``; they launch the kernel on the current stream, and
-    anything the kernel does not take raises.
-    """
-    global launch_count
-    _check_shapes(x, Bm, Cm, dt, A)
-    operands = (x, Bm, Cm, dt, A)
+def _check_call(operands) -> None:
+    _check_shapes(*operands[:5])
     if len({t.device for t in operands}) != 1:
         raise ValueError(f"operands on different devices: "
                          f"{[str(t.device) for t in operands]}")
-    if x.device.type == "cpu":
-        return reference_ssd_intra_chunk(x, Bm, Cm, dt, A)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk runs on cuda or cpu, got "
-                         f"{x.device}")
+    if operands[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SSD kernels run on cuda or cpu, got "
+                         f"{operands[0].device}")
+
+
+def _check_launch(operands, what: str) -> None:
+    """What the kernels take of CUDA operands; raises on anything else."""
     if any(t.dtype != torch.float32 for t in operands):
-        raise TypeError(f"the SSD kernel takes float32 operands, got "
+        raise TypeError(f"the SSD {what} kernel takes float32 operands, got "
                         f"{[t.dtype for t in operands]}")
     if not all(t.is_contiguous() for t in operands):
-        raise ValueError("the SSD kernel takes contiguous operands")
+        raise ValueError(f"the SSD {what} kernel takes contiguous operands")
+    P, N = operands[0].shape[-1], operands[1].shape[-1]
+    if P not in HEAD_WIDTHS or not 1 <= N <= MAX_STATE:
+        raise ValueError(f"the SSD {what} kernel takes P in {HEAD_WIDTHS} and "
+                         f"N <= {MAX_STATE}, got P {P}, N {N}")
+
+
+def _launch_forward(x, Bm, Cm, dt, A):
+    global launch_count
+    _check_launch((x, Bm, Cm, dt, A), "forward")
     Bsz, nc, H, Q, P = x.shape
     N = Bm.shape[-1]
-    if P not in HEAD_WIDTHS or not 1 <= N <= MAX_STATE:
-        raise ValueError(f"the SSD kernel takes P in {HEAD_WIDTHS} and N <= "
-                         f"{MAX_STATE}, got P {P}, N {N}")
     y = torch.empty_like(x)
     dec = torch.empty_like(dt)
     if x.numel() == 0:
@@ -126,3 +149,80 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A):
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     launch_count += 1
     return y, hc[..., :N, :], dec
+
+
+def ssd_intra_chunk_bwd(x, Bm, Cm, dt, A, gy, ghc, gdec):
+    """The gradients ``(dx, dB, dC, ddt, dA)`` of :func:`ssd_intra_chunk`
+    at ``(x, B, C, dt, A)`` for the cotangents ``gy`` (B, nc, H, Q, P) of y,
+    ``ghc`` (B, nc, H, N, P) of the chunk states and ``gdec`` (B, nc, H, Q)
+    of the decay, all float32.
+
+    CPU tensors take :func:`reference_ssd_intra_chunk_bwd`.  CUDA tensors
+    launch the backward kernel on the current stream (float32, P in
+    ``HEAD_WIDTHS``, N at most ``MAX_STATE``; the kernel reads B and C
+    unpadded, so no gradient of a padded column arises); anything it does
+    not take raises."""
+    global bwd_launch_count
+    operands = (x, Bm, Cm, dt, A)
+    _check_call(operands + (gy, ghc, gdec))
+    Bsz, nc, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    if gy.shape != x.shape or ghc.shape != (Bsz, nc, H, N, P) \
+            or gdec.shape != dt.shape:
+        raise ValueError(f"cotangents of shapes {tuple(x.shape)}, "
+                         f"{(Bsz, nc, H, N, P)}, {tuple(dt.shape)} expected, "
+                         f"got {tuple(gy.shape)}, {tuple(ghc.shape)}, "
+                         f"{tuple(gdec.shape)}")
+    if x.device.type == "cpu":
+        return reference_ssd_intra_chunk_bwd(*operands, gy, ghc, gdec)
+    gy, ghc, gdec = (t.float().contiguous() for t in (gy, ghc, gdec))
+    _check_launch(operands + (gy, ghc, gdec), "backward")
+    grads = tuple(torch.empty_like(t) for t in operands)
+    if x.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    fn = BWD_LIBRARY.entry("ssd_intra_chunk_bwd_f32")
+    heads = Bsz * nc * H
+    scratch = torch.empty(heads * (4 * Q + 1) + 2 * heads * Q * N,
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in operands + (gy, ghc, gdec) + grads),
+                 scratch.data_ptr(), Bsz, nc, H, Q, P, N, stream)
+    if err != 0:
+        raise RuntimeError(f"SSD backward kernel launch failed: CUDA error "
+                           f"{err}")
+    bwd_launch_count += 1
+    return grads
+
+
+class _SSDIntraChunk(torch.autograd.Function):
+    """The forward kernel, and the backward kernel for all three outputs'
+    cotangents (an unused output's is zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, Bm, Cm, dt, A):
+        ctx.save_for_backward(x, Bm, Cm, dt, A)
+        return _launch_forward(x, Bm, Cm, dt, A)
+
+    @staticmethod
+    def backward(ctx, gy, ghc, gdec):
+        return ssd_intra_chunk_bwd(*ctx.saved_tensors, gy, ghc, gdec)
+
+
+def ssd_intra_chunk(x, Bm, Cm, dt, A):
+    """Returns ``(y (B, nc, H, Q, P), chunk_states (B, nc, H, N, P),
+    in_decay (B, nc, H, Q))``, all float32.
+
+    CPU tensors take :func:`reference_ssd_intra_chunk`.  CUDA tensors must
+    be contiguous float32 on one device, with P in ``HEAD_WIDTHS`` and N at
+    most ``MAX_STATE``; they launch the kernel on the current stream, and
+    anything the kernel does not take raises.  Where grad mode is on and an
+    operand requires grad, the results carry the backward kernel.
+    """
+    operands = (x, Bm, Cm, dt, A)
+    _check_call(operands)
+    if x.device.type == "cpu":
+        return reference_ssd_intra_chunk(*operands)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return _SSDIntraChunk.apply(*operands)
+    return _launch_forward(*operands)

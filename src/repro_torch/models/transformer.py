@@ -8,11 +8,14 @@ keeps one dict per layer in layer order (``params["stack"]["layers"]``) and
 walks them in a Python loop; its caches are laid out the same way, one per
 layer (``init_cache(...)["layers"]``).  ``models/convert.py`` carries JAX
 parameters and caches over.  Initialisation draws from an explicit
-``torch.Generator`` on the device the parameters live on.
+``torch.Generator`` on the device the parameters live on.  In train mode with
+``cfg.remat`` each full repetition of the pattern is rematerialised in the
+backward (:func:`apply_stack`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.torch_solvers import resolve_device
@@ -140,26 +143,57 @@ def init_stack_cache(cfg: ModelConfig, n_layers: int, pattern, batch: int,
                        for kind in layer_kinds(n_layers, pattern)]}
 
 
+def _run_layers(layers, cfg: ModelConfig, kinds, x, ctx: Ctx, caches):
+    """``layers`` in order; returns (x, new_caches, aux_sum)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for lp, kind, c in zip(layers, kinds, caches):
+        x, c, aux = apply_block(lp, cfg, kind, x, ctx, c)
+        aux_total = aux_total + aux
+        new_caches.append(c)
+    return x, new_caches, aux_total
+
+
 def apply_stack(p, cfg: ModelConfig, n_layers: int, pattern, x, ctx: Ctx,
                 cache):
     """Every layer in order, each with its cache where ``cache`` (one per
     layer, as :func:`init_stack_cache` lays them out) is given.  Returns
-    (x, new_cache, aux_sum), ``new_cache`` None without a cache."""
+    (x, new_cache, aux_sum), ``new_cache`` None without a cache.
+
+    Where ``cfg.remat`` and ``ctx.mode == "train"``, each full repetition of
+    the pattern runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, as the JAX package's
+    ``jax.checkpoint`` over its scan body does; the remainder layers run
+    without it, as there."""
     kinds = layer_kinds(n_layers, pattern)
-    if len(p["layers"]) != len(kinds):
-        raise ValueError(f"{len(p['layers'])} layers of parameters for "
+    layers = p["layers"]
+    if len(layers) != len(kinds):
+        raise ValueError(f"{len(layers)} layers of parameters for "
                          f"{len(kinds)} layers")
     caches = [None] * len(kinds) if cache is None else cache["layers"]
     if len(caches) != len(kinds):
         raise ValueError(f"{len(caches)} layers of caches for {len(kinds)} "
                          f"layers")
+    if not (cfg.remat and ctx.mode == "train" and cache is None):
+        x, new_caches, aux_total = _run_layers(layers, cfg, kinds, x, ctx,
+                                               caches)
+        return x, (None if cache is None else {"layers": new_caches}), \
+            aux_total
+    plen = len(pattern)
+    full = n_layers // plen * plen
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = []
-    for lp, kind, c in zip(p["layers"], kinds, caches):
-        x, c, aux = apply_block(lp, cfg, kind, x, ctx, c)
+    for r0 in range(0, full, plen):
+        def rep(h, r0=r0):
+            h, _, aux = _run_layers(layers[r0:r0 + plen], cfg,
+                                    kinds[r0:r0 + plen], h, ctx,
+                                    caches[r0:r0 + plen])
+            return h, aux
+
+        x, aux = checkpoint(rep, x, use_reentrant=False)
         aux_total = aux_total + aux
-        new_caches.append(c)
-    return x, (None if cache is None else {"layers": new_caches}), aux_total
+    x, _, aux = _run_layers(layers[full:], cfg, kinds[full:], x, ctx,
+                            caches[full:])
+    return x, None, aux_total + aux
 
 
 # ---------------------------------------------------------------- full model --
@@ -180,6 +214,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, prefix=()) -> list:
+    """(path, leaf) of every leaf of nested dicts and lists, in
+    :func:`tree_leaves` order; a path is the tuple of keys and indices."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_paths(
+            v, prefix + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in tree_paths(
+            v, prefix + (i,))]
+    return [(prefix, tree)]
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,

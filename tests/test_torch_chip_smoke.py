@@ -355,3 +355,154 @@ def test_serve_path_rejects_a_wrong_decode(fault, cpu_launches,
         name = "mamba2-370m"
     with pytest.raises(AssertionError, match="teacher-forced"):
         _serve(name, cpu_launches)
+
+
+# ------------------------------------------------------------- path 4 ---
+# reduced traffic: B 2 x S 32 (two SSD chunks of 16), four steps; the
+# card-vs-CPU gradient check at S 16; the models deepened to four pattern
+# groups, so that the TR plan has stages to chain
+TRAIN_REHEARSAL = {
+    "qwen2-1.5b": cs.TrainTraffic(2, 32, 4, cs.TRAIN["qwen2-1.5b"].kernels),
+    "mamba2-370m": cs.TrainTraffic(2, 32, 4,
+                                   cs.TRAIN["mamba2-370m"].kernels),
+}
+
+
+class _PlainWithBackward(torch.autograd.Function):
+    """The CPU's plain forward (through the site's counting wrapper) with
+    its backward routed through the backward wrapper, as the card's
+    autograd Functions route theirs, so that the rehearsal counts the
+    backward launches; on the CPU both wrappers take the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, kw, *args):
+        outs = fwd(*args, **kw)
+        ctx.bwd, ctx.kw = bwd, kw
+        ctx.save_for_backward(*args, *cs._tuple(outs))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cot):
+        saved = ctx.saved_tensors
+        grads = ctx.bwd(saved, cot, ctx.kw)
+        return (None, None, None, *grads)
+
+
+@pytest.fixture
+def cpu_backward(cpu_launches, monkeypatch):
+    """cpu_launches, with flash attention's and SSD's backward taken
+    through their backward wrappers (``_PlainWithBackward``)."""
+    fa = cpu_launches["flash_attention"]
+    ssd = cpu_launches["ssd"]
+    from repro_torch.kernels import ops
+
+    flash_site, ssd_site = ML.flash_attention, ops.ssd_intra_chunk
+
+    def flash_bwd(saved, cot, kw):
+        q, k, v, _ = saved
+        lse = fa.reference_lse(q, k, **kw)
+        return fa.flash_attention_bwd(q, k, v, lse, cot[0], **kw)
+
+    def flash(q, k, v, **kw):
+        return _PlainWithBackward.apply(flash_site, flash_bwd, kw, q, k, v)
+
+    def ssd_bwd(saved, cot, kw):
+        return ssd.ssd_intra_chunk_bwd(*saved[:5], *cot)
+
+    def intra(*args):
+        return _PlainWithBackward.apply(ssd_site, ssd_bwd, {}, *args)
+
+    monkeypatch.setattr(ML, "flash_attention", flash)
+    monkeypatch.setattr(ops, "ssd_intra_chunk", intra)
+    monkeypatch.setattr(cs, "CHECK_SEQ", 16)
+    monkeypatch.setattr(cs, "_device_us", lambda fn: (cs._wall(fn) * 1e6,
+                                                      0.0, {}))
+    return cpu_launches
+
+
+@pytest.mark.parametrize("name", list(TRAIN_REHEARSAL))
+def test_train_path_rehearsed_on_the_cpu(name, cpu_backward, capsys):
+    """run_train_path at reduced size in bf16, the plain versions standing
+    in for the kernels: the round trip's and the train steps' gates pass,
+    with one forward and one backward call a layer in the round trip and
+    two forward calls (rematerialised) and one backward a layer in each
+    step, counted and recorded."""
+    cfg = ARCHS[name].reduced(n_layers=4)
+    traffic = TRAIN_REHEARSAL[name]
+    params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    run = cs.run_train_path(name, cfg, params, traffic, cpu_backward, "cpu")
+    fwd, bwd = traffic.kernels
+    assert cs._train_launches(cfg, fwd) == (8, 4)
+    rt, tr = run["round trip"], run["train"]
+    assert (rt["launches"][fwd], rt["launches"][bwd]) == (4, 4)
+    assert (tr["launches"][fwd], tr["launches"][bwd]) == (32, 16)
+    for part in (rt, tr):
+        for k in cs.KERNELS:
+            assert sum(part["recorded"][k][0].values()) == part["launches"][k]
+    assert run["losses"][2] < run["losses"][0]
+    out = capsys.readouterr().out
+    assert "charges == segment_comp_dir_s" in out and "tokens/s" in out
+    assert "parameter gradients" in out and "warm round trip stage 0 BW" in out
+
+
+def _flash_bwd_case():
+    gen = torch.Generator().manual_seed(8)
+    shape = (1, 130, 130, 4, 2, 32, True, None, None)
+    kw = cs._flash_kw(shape)
+    return cs._flash_bwd_operands(fa_module(), gen, shape, kw, "cpu"), kw
+
+
+def fa_module():
+    return importlib.import_module("repro_torch.kernels.flash_attention")
+
+
+@pytest.mark.parametrize("fault", [None, "dK and dV without the sum over "
+                                   "the G query heads",
+                                   "dQ that ignores the causal mask"])
+def test_flash_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
+    """The backward check passes the plain version and fails each wrong
+    gradient of ``_flash_bwd_wrong_outputs`` standing in for the kernel."""
+    fa = fa_module()
+    args, kw = _flash_bwd_case()
+    cs._flash_bwd_rejects_wrong_outputs(fa, args, kw)
+    if fault is None:
+        assert cs._flash_bwd_check(fa, [(args, kw)], "plain") >= 0.0
+        return
+    wrong = cs._flash_bwd_wrong_outputs(fa, args, kw)[fault]
+    monkeypatch.setattr(fa, "flash_attention_bwd", lambda *a, **k: wrong)
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._flash_bwd_check(fa, [(args, kw)], "wrong")
+
+
+@pytest.mark.parametrize("fault", [None, "ddt without the reverse-cumsum "
+                                   "term", "dA with its sign flipped"])
+def test_ssd_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
+    """The backward check (with its float64 witness) passes the plain
+    version and fails each wrong gradient of ``_ssd_bwd_wrong_outputs``
+    standing in for the kernel."""
+    from repro_torch.kernels import ssd
+
+    args = cs._ssd_bwd_operands(torch.Generator().manual_seed(9),
+                                (1, 128, 3, 16, 8, 64), "cpu")
+    cs._ssd_bwd_rejects_wrong_outputs(ssd, args)
+    if fault is None:
+        assert cs._ssd_bwd_check(ssd, [args], "plain", witness=True) >= 0.0
+        return
+    wrong = cs._ssd_bwd_wrong_outputs(ssd, args)[fault]
+    monkeypatch.setattr(ssd, "ssd_intra_chunk_bwd", lambda *a: wrong)
+    with pytest.raises(AssertionError, match="past a limit"):
+        cs._ssd_bwd_check(ssd, [args], "wrong", witness=True)
+
+
+def test_backward_bounds_at_the_path_shapes():
+    """The flash backward's five products are 2.5 times the forward's
+    operations: 64.5 GFLOP at qwen2-1.5b's shape, 65 us at 989 TFLOP/s;
+    the SSD backward's at mamba2-370m's shape, bound by operations."""
+    key = (2, 2048, 12, 2048, 2, 128, True, None, None)
+    ms, by, n_ops, _ = cs._flash_bwd_bound(key)
+    assert n_ops == 5 * cs._flash_bound(key)[2] // 2 == 64_455_966_720
+    assert by == "operations" and ms == pytest.approx(0.0652, rel=1e-3)
+    ms, by, n_ops, n_bytes = cs._ssd_bwd_bound((2, 8, 32, 256, 64, 128))
+    assert by == "operations" and n_ops > 2 * cs._ssd_work(
+        (2, 8, 32, 256, 64, 128))[0]

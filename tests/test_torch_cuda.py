@@ -663,3 +663,223 @@ def test_prefill_and_decode_on_cuda_match_the_cpu(cuda, arch):
         else:
             err = (g.float().cpu() - w.float()).abs().max()
             assert float(err / w.float().abs().max()) < SERVE_TOL
+
+
+# ----------------------------------------------------------------- training --
+# The backward kernels against autograd through their plain versions
+# (reference_attention_bwd, reference_ssd_intra_chunk_bwd), at the forward
+# checks' shapes.  Flash attention in bf16: the kernel sums in fp32 and
+# rounds each gradient once to bf16, so each gradient is held to 2**-6 of
+# its largest magnitude (chip_smoke.py's FLASH_BWD_TOL).
+# SSD in float32: sums in other orders, 1e-4 of each gradient's largest
+# magnitude (chip_smoke.py's SSD_BWD_TOL).
+FLASH_BWD_TOL = 2.0 ** -6
+SSD_BWD_TOL = 1e-4
+FLASH_BWD_CASES = FLASH_CASES[:6] + [
+    (1, 37, 37, 8, 2, 128, True, None, None),
+    (1, 200, 200, 4, 1, 256, True, None, None),
+    (1, 300, 300, 4, 2, 256, True, 128, None),
+    (2, 96, 96, 2, 1, 256, False, 40, 30.0),
+    (1, 300, 129, 2, 1, 64, True, 16, None),
+    (2, 512, 512, 12, 2, 128, True, None, None),
+]
+
+
+def _flash_bwd_operands(cuda, B, Sq, Sk, Hq, Hkv, hd, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+                 for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd),
+                           (B, Sk, Hkv, hd), (B, Sq, Hq, hd)))
+
+
+def _within(got, want, tol) -> bool:
+    return float((got.float() - want.float()).abs().max()) <= \
+        tol * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap",
+                         FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_plain_autograd(
+        cuda, B, Sq, Sk, Hq, Hkv, hd, causal, window, softcap):
+    """dQ, dK and dV of the backward kernel within FLASH_BWD_TOL of autograd
+    through the plain version; two launches give the same bits."""
+    q, k, v, dout = _flash_bwd_operands(cuda, B, Sq, Sk, Hq, Hkv, hd,
+                                        Sq + hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    before = fa.bwd_launch_count
+    got = fa.flash_attention_bwd(q, k, v, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launch_count == before + 2
+    want = fa.reference_attention_bwd(q, k, v, lse, dout, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        assert _within(g, w, FLASH_BWD_TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap",
+                         FLASH_CASES[:6] + [FLASH_BWD_CASES[-1]])
+def test_flash_attention_lse_and_unchanged_output(cuda, B, Sq, Sk, Hq, Hkv,
+                                                  hd, causal, window,
+                                                  softcap):
+    """The forward kernel's log-sum-exp against ``logsumexp`` of the plain
+    scores (rows that see no key keep -1e30 on both sides), and its output
+    the same bits with the buffer and without."""
+    q, k, v, _ = _flash_bwd_operands(cuda, B, Sq, Sk, Hq, Hkv, hd, Sk + hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    plain = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert torch.allclose(lse, fa.reference_lse(q, k, **kw), atol=1e-4,
+                          rtol=1e-5)
+
+
+def test_flash_attention_autograd_reaches_the_backward_kernel(cuda):
+    """Through ``flash_attention`` with operands that require grad, the
+    forward kernel runs once and ``backward`` runs the backward kernel
+    once, giving what ``flash_attention_bwd`` gives."""
+    q, k, v, dout = _flash_bwd_operands(cuda, 2, 256, 256, 4, 2, 64, 7)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = fa.launch_count, fa.bwd_launch_count
+    out = fa.flash_attention(*leaves, window=100)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fa.bwd_launch_count) == (fwd + 1, bwd + 1)
+    _, lse = fa.flash_attention_with_lse(q, k, v, window=100)
+    want = fa.flash_attention_bwd(q, k, v, lse, dout, window=100)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES[:5] + [
+    (1, 512, 5, 64, 128, 256), (1, 128, 2, 32, 10, 64),
+    (1, 1000, 5, 64, 128, 500)])
+def test_ssd_bwd_matches_plain_autograd(cuda, B, S, H, P, N, Q):
+    """dx, dB, dC, ddt and dA of the backward kernel within SSD_BWD_TOL of
+    autograd through the plain version, for cotangents of all three
+    outputs; two launches give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(S + N)
+    nc = S // Q
+    args = (torch.randn((B, nc, H, Q, P), generator=gen, device=cuda),
+            torch.randn((B, nc, Q, N), generator=gen, device=cuda) * 0.3,
+            torch.randn((B, nc, Q, N), generator=gen, device=cuda) * 0.3,
+            torch.rand((B, nc, H, Q), generator=gen, device=cuda) * 0.19
+            + 0.01,
+            torch.rand((H,), generator=gen, device=cuda) * 3.5 + 0.5)
+    cot = (torch.randn((B, nc, H, Q, P), generator=gen, device=cuda),
+           torch.randn((B, nc, H, N, P), generator=gen, device=cuda),
+           torch.randn((B, nc, H, Q), generator=gen, device=cuda))
+    before = ssd.bwd_launch_count
+    got = ssd.ssd_intra_chunk_bwd(*args, *cot)
+    again = ssd.ssd_intra_chunk_bwd(*args, *cot)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launch_count == before + 2
+    want = ssd.reference_ssd_intra_chunk_bwd(*args, *cot)
+    for g, a, w, t in zip(got, again, want, args):
+        assert g.shape == t.shape and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        assert _within(g, w, SSD_BWD_TOL)
+
+
+def test_ssd_autograd_reaches_the_backward_kernel(cuda):
+    """``ssd_forward`` with inputs that require grad: one forward and one
+    backward launch, and the inputs' gradients within SSD_BWD_TOL of the
+    same function on the plain version's autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xh = torch.randn((2, 128, 3, 32), generator=gen, device=cuda)
+    dtv = torch.rand((2, 128, 3), generator=gen, device=cuda) * 0.2 + 0.01
+    A = torch.rand((3,), generator=gen, device=cuda) * 3 + 0.5
+    Bm, Cm = (torch.randn((2, 128, 16), generator=gen, device=cuda) * 0.3
+              for _ in range(2))
+    gy = torch.randn((2, 128, 3, 32), generator=gen, device=cuda)
+
+    def grads(device):
+        leaves = [t.to(device).clone().requires_grad_()
+                  for t in (xh, dtv, A, Bm, Cm)]
+        y, h = ops.ssd_forward(*leaves, chunk=32)
+        torch.autograd.backward((y, h), (gy.to(device), torch.ones_like(h)))
+        return [leaf.grad for leaf in leaves]
+
+    fwd, bwd = ssd.launch_count, ssd.bwd_launch_count
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert (ssd.launch_count, ssd.bwd_launch_count) == (fwd + 1, bwd + 1)
+    for g, w in zip(got, grads("cpu")):
+        assert _within(g.cpu(), w, SSD_BWD_TOL)
+
+
+def test_expert_matmul_and_rglru_raise_under_grad(cuda):
+    """The two kernels without a backward raise on the card when an operand
+    requires grad in grad mode (naming ROADMAP A4b), and launch as before
+    under ``no_grad``."""
+    x = torch.randn((2, 64, 32), device=cuda).to(torch.bfloat16)
+    w = torch.randn((2, 32, 16), device=cuda).to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A4b"):
+        moe_gmm.expert_matmul(x, w.requires_grad_())
+    a = torch.rand((1, 16, 8), device=cuda)
+    b = torch.randn((1, 16, 8), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A4b"):
+        rglru.rglru_scan(a, b)
+    with torch.no_grad():
+        assert moe_gmm.expert_matmul(x, w).shape == (2, 64, 16)
+        assert rglru.rglru_scan(a, b).shape == (1, 16, 8)
+
+
+@pytest.mark.parametrize("arch,kernel", [("qwen2-1.5b", fa), ("mamba2-370m",
+                                                                ssd)])
+def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel):
+    """A reduced model (four layers, head widths 32) on the card: one
+    ``ChainSimulator.round_trip`` over a TR plan (one forward and one
+    backward launch a layer) and one train step (two forward launches a
+    layer under remat, one backward), against the same on the CPU (plain
+    versions) in bf16: the hidden state, ``grad_in``, the loss and the
+    global gradient norm within SERVE_TOL."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg = ARCHS[arch].reduced(n_layers=4, head_dim=32, ssm_head_dim=32)
+    B, S = 2, 64
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S)))
+    pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="TR",
+                       device="cpu")
+
+    def round_trip(p, device):
+        sim = ChainSimulator(cfg, p, pp.problem.net, pp.problem.profile,
+                             pp.problem.request)
+        return sim.round_trip(pp.plan, tokens.to(device))
+
+    before = (kernel.launch_count, kernel.bwd_launch_count)
+    got = round_trip(params, cuda)
+    torch.cuda.synchronize()
+    assert (kernel.launch_count, kernel.bwd_launch_count) == (
+        before[0] + 4, before[1] + 4)
+    want = round_trip(cpu_params, "cpu")
+    for g, w in ((got.hidden, want.hidden), (got.grad_in, want.grad_in)):
+        assert torch.isfinite(g).all()
+        assert _within(g.cpu(), w, SERVE_TOL)
+
+    stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size), seed=0)
+    metrics = []
+    for p, device in ((params, cuda), (cpu_params, "cpu")):
+        opt = make_optimizer(cfg.optimizer, lr=3e-4, warmup=1, total=50)
+        step = make_train_step(cfg, opt)
+        before = (kernel.launch_count, kernel.bwd_launch_count)
+        _, _, m = step(p, opt.init(p, cfg),
+                       shard_batch(stream.batch_at(0), device))
+        if device == "cpu":
+            assert (kernel.launch_count, kernel.bwd_launch_count) == before
+        else:
+            torch.cuda.synchronize()
+            assert (kernel.launch_count, kernel.bwd_launch_count) == (
+                before[0] + 8, before[1] + 4)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(
+            metrics[1][key])

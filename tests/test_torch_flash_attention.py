@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -112,3 +113,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q[..., :16], kv, kv)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(*(torch.empty((1, 8, 2, 32), device="meta"),) * 3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd,causal,window,softcap", CASES + [
+    (1, 48, 16, 2, 1, 32, False, 8, None),  # rows that see no key
+])
+def test_gradients_match_jax_vjp(B, Sq, Sk, Hq, Hkv, hd, causal, window,
+                                 softcap):
+    """The backward's plain version (autograd through
+    ``reference_attention``), the wrapper ``flash_attention_bwd`` and
+    autograd through ``flash_attention`` on the CPU, against ``jax.vjp`` of
+    the JAX oracle, float32 at 1e-5 of each gradient's largest magnitude."""
+    q, k, v = _inputs(Sq + hd, B, Sq, Sk, Hq, Hkv, hd, "float32")
+    dout = np.random.default_rng(hd).standard_normal(q.shape).astype(
+        np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, pull = jax.vjp(lambda *a: ref.reference_attention(*a, **kw),
+                      *map(jnp.asarray, (q, k, v)))
+    want = pull(jnp.asarray(dout))
+    qt, kt, vt, dt = map(_torch, (q, k, v, dout))
+    before = (fa.launch_count, fa.bwd_launch_count)
+    _, lse = fa.flash_attention_with_lse(qt, kt, vt, **kw)
+    plain = fa.reference_attention_bwd(qt, kt, vt, lse, dt, **kw)
+    wrapped = fa.flash_attention_bwd(qt, kt, vt, lse, dt, **kw)
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    fa.flash_attention(*leaves, **kw).backward(dt)
+    assert (fa.launch_count, fa.bwd_launch_count) == before
+    assert torch.allclose(lse, fa.reference_lse(qt, kt, **kw))
+    for p, w, a, leaf in zip(plain, wrapped, want, leaves):
+        assert torch.equal(p, w) and torch.equal(p, leaf.grad)
+        a = np.asarray(a)
+        assert np.abs(_f32(p) - a).max() <= 1e-5 * np.abs(a).max()

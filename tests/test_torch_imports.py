@@ -51,7 +51,8 @@ def test_import_initialises_no_cuda():
             "repro_torch.core.torch_solvers, repro_torch.kernels.minplus, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd, "
             "repro_torch.kernels.ops, repro_torch.configs, "
-            "repro_torch.models, repro_torch.msl, repro_torch.serving\n"
+            "repro_torch.models, repro_torch.msl, repro_torch.serving, "
+            "repro_torch.optim, repro_torch.data, repro_torch.train\n"
             "assert not torch.cuda.is_initialized()\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               or m == 'repro' for m in sys.modules)\n")
