@@ -128,7 +128,9 @@ Phases, in order; any failure exits non-zero:
    temperature sampled before and after the timings; the backward kernels
    likewise at path 4's shapes (recorded operands and random, flash's
    rejecting dK and dV without the sum over the G query heads and a dQ
-   that ignores the causal mask, SSD's held to its float64 witness at
+   that ignores the causal mask, with the kernel's and the fp32 plain
+   version's errors against the plain version in float64 printed beside
+   its gate on the recorded operands, SSD's held to its float64 witness at
    SSD_BWD_WITNESS and rejecting ddt without its reverse-cumsum term and
    dA with its sign flipped), flash's yardstick the backward of
    ``scaled_dot_product_attention``;
@@ -1265,13 +1267,31 @@ def _flash_bwd_operands(fa, gen, shape, kw, device):
     return q, k, v, lse, dout
 
 
-def _flash_bwd_check(fa, cases, what: str) -> float:
+FLASH_GRADS = ("dQ", "dK", "dV")
+
+
+def _flash_bwd_witness(got, want, exact) -> list:
+    """For each gradient: (name, the largest error of the kernel's ``got``
+    and of the fp32 plain version's ``want`` against the float64 values
+    ``exact``, each over the largest |exact|)."""
+    rows = []
+    for name, g, w, e in zip(FLASH_GRADS, got, want, exact):
+        top = float(e.abs().max()) or 1.0
+        rows.append((name, float((g.double() - e).abs().max()) / top,
+                     float((w.double() - e).abs().max()) / top))
+    return rows
+
+
+def _flash_bwd_check(fa, cases, what: str, witness: bool = False) -> float:
     """The backward kernel against autograd through the plain version on
     each ``(args, kw)``: dQ, dK and dV each within FLASH_BWD_TOL of its
-    largest magnitude, and a second launch the same bits.  Raises on a
-    failure, else returns the max_abs_err."""
+    largest magnitude, and a second launch the same bits.  With
+    ``witness``, each case's errors of the kernel and of the plain version
+    against the plain version run in float64 are printed beside the gate,
+    which they do not decide.  Raises on a failure, else returns the
+    max_abs_err."""
     failures, worst, max_err = 0, [0.0] * 3, 0.0
-    for args, kw in cases:
+    for n, (args, kw) in enumerate(cases):
         got = fa.flash_attention_bwd(*args, **kw)
         again = fa.flash_attention_bwd(*args, **kw)
         want = fa.reference_attention_bwd(*args, **kw)
@@ -1281,6 +1301,16 @@ def _flash_bwd_check(fa, cases, what: str) -> float:
                              and bool(torch.isfinite(g).all()))
             worst[i] = max(worst[i], rel)
             max_err = max(max_err, float((g.float() - w).abs().max()))
+        if witness:
+            exact = fa.reference_attention_bwd(*args, **kw,
+                                               dtype=torch.float64)
+            print(f"flash_attention_bwd {what}, case {n} (q "
+                  f"{tuple(args[0].shape)}), against float64, of the "
+                  f"largest magnitude: " + "; ".join(
+                      f"{name} kernel {err_k!r}, plain {err_p!r}"
+                      for name, err_k, err_p in _flash_bwd_witness(
+                          got, want, exact)))
+            del exact
     line = (f"flash_attention_bwd {what}: {len(cases)} bf16 cases, max error "
             f"of dQ, dK, dV {worst!r} of their largest magnitude (limit "
             f"{FLASH_BWD_TOL}), two launches the same bits, max_abs_err "
@@ -2476,8 +2506,9 @@ def _ssd_path_check(ssd, recorded, random) -> float:
 
 
 def _flash_bwd_path_check(fa, recorded, random) -> float:
-    err = _flash_bwd_check(fa, recorded + random, "at path 4's shapes "
-                           "(recorded operands and random)")
+    err = max(_flash_bwd_check(fa, recorded, "recorded at path 4's shapes",
+                               witness=True),
+              _flash_bwd_check(fa, random, "random at path 4's shapes"))
     _flash_bwd_rejects_wrong_outputs(fa, *next(
         case for case in recorded if case[1].get("causal", True)
         and case[0][0].shape[2] > case[0][1].shape[2]))

@@ -26,7 +26,9 @@ differs from its plain version by that rounding too: on an H100 its worst
 with fp32 p), inside ``chip_smoke.py``'s FLASH_TOL of 1e-2.  The tensor
 cores' rate bounds it; it reaches about 350–370 TFLOP/s at head width 128
 and 550 at 256 (PERF.md).  The backward differentiates the fp32-p function
-(:func:`reference_attention`'s); it is plain SIMT for now (PERF.md).
+(:func:`reference_attention`'s) on the tensor cores too (``wgmma``, with P
+and dS rounded to bf16 as the products' operands; PERF.md gives its
+errors and times).
 """
 from __future__ import annotations
 
@@ -61,16 +63,17 @@ def build():
 
 
 def reference_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                        scale=None):
+                        scale=None, dtype=torch.float32):
     """Plain PyTorch attention with the kernel's semantics: fp32 scores,
-    softcap before masking, masked scores -1e30, softmax over all keys."""
+    softcap before masking, masked scores -1e30, softmax over all keys.
+    ``dtype`` is the type it computes in (float64 for a witness)."""
     _check_shapes(q, k, v)
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    q32 = q.float().reshape(B, Sq, Hkv, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", q32, k.float()) * scale
+    qg = q.to(dtype).reshape(B, Sq, Hkv, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(dtype)) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     qi = torch.arange(Sq, device=q.device)[:, None]
@@ -82,7 +85,7 @@ def reference_attention(q, k, v, *, causal=True, window=None, softcap=None,
         mask &= qi - ki < window
     s = s.masked_fill(~mask, MASKED)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(dtype))
     return o.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
@@ -111,18 +114,18 @@ def reference_lse(q, k, *, causal=True, window=None, softcap=None,
 
 
 def reference_attention_bwd(q, k, v, lse, dout, *, causal=True, window=None,
-                            softcap=None, scale=None):
-    """The plain version of the backward: (dq, dk, dv), float32, autograd
-    through :func:`reference_attention` on the operands widened to float32
-    (fp32 probabilities, the function the backward kernel differentiates).
-    It takes the wrapper's operands; the forward's ``lse`` is not needed
-    here."""
+                            softcap=None, scale=None, dtype=torch.float32):
+    """The plain version of the backward: (dq, dk, dv) in ``dtype``,
+    autograd through :func:`reference_attention` on the operands widened to
+    it (float32: fp32 probabilities, the function the backward kernel
+    differentiates; float64: the witness).  It takes the wrapper's
+    operands; the forward's ``lse`` is not needed here."""
     with torch.enable_grad():
-        q32, k32, v32 = (t.detach().float().requires_grad_()
+        q32, k32, v32 = (t.detach().to(dtype).requires_grad_()
                          for t in (q, k, v))
         o = reference_attention(q32, k32, v32, causal=causal, window=window,
-                                softcap=softcap, scale=scale)
-        return torch.autograd.grad(o, (q32, k32, v32), dout.float())
+                                softcap=softcap, scale=scale, dtype=dtype)
+        return torch.autograd.grad(o, (q32, k32, v32), dout.to(dtype))
 
 
 def _check_shapes(q, k, v) -> None:
@@ -153,8 +156,7 @@ def _check_launch(q, k, v, what: str) -> None:
                          f"widths {HEAD_DIMS}, got {q.shape[3]}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"the flash attention {what} kernel takes 16-byte "
-                         f"aligned operands (the forward's TMA loads need "
-                         f"them)")
+                         f"aligned operands (its TMA loads need them)")
 
 
 def _check_call(q, k, v, window) -> None:

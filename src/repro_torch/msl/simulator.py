@@ -130,8 +130,11 @@ class ChainSimulator:
 
         return run
 
+    @torch.no_grad()
     def forward(self, tokens) -> ChainResult:
-        """Walk the chain: embed at the source, per-stage blocks at each hop."""
+        """Walk the chain: embed at the source, per-stage blocks at each hop,
+        with no autograd graph (``round_trip`` is the chain's training
+        pass)."""
         plan: Plan = self.plan
         x = T.embed_tokens(self.params, self.cfg, tokens)
         result = ChainResult(hidden=x)

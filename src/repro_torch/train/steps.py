@@ -74,15 +74,23 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     metrics)``: the loss and its gradients with respect to every parameter,
     clipped to ``max_grad_norm`` by their global norm, then ``opt``'s
     update.  The parameters and the optimizer's moments are updated in
-    place; ``opt_state`` must come from ``opt.init(params, cfg)``."""
+    place; ``opt_state`` must come from ``opt.init(params, cfg)``.  Each
+    parameter leaves the step with the ``requires_grad`` it came with, so
+    a forward outside the step builds no autograd graph unless the caller
+    asked for one."""
 
     def train_step(params, opt_state, batch):
         leaves = T.tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            loss, metrics = loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(loss, leaves)
+        flags = [p.requires_grad for p in leaves]
+        try:
+            for p in leaves:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                loss, metrics = loss_fn(params, cfg, batch)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p, flag in zip(leaves, flags):
+                p.requires_grad_(flag)
         it = iter(grads)
         grads = T.tree_map(lambda _: next(it), params)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)

@@ -475,6 +475,34 @@ def test_flash_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
         cs._flash_bwd_check(fa, [(args, kw)], "wrong")
 
 
+def test_flash_bwd_witness_is_computed_and_printed(capsys, monkeypatch):
+    """The flash backward check's float64 witness on the path's recorded
+    operands: each gradient's largest error, over its largest magnitude, of
+    the kernel and of the fp32 plain version against the plain version run
+    in float64, printed beside the gate.  On the CPU the wrapper is the
+    plain version, so the two columns agree; a kernel standing in with the
+    plain gradients rounded to bf16 shows that rounding in its column
+    alone."""
+    fa = fa_module()
+    args, kw = _flash_bwd_case()
+    exact = fa.reference_attention_bwd(*args, **kw, dtype=torch.float64)
+    want = fa.reference_attention_bwd(*args, **kw)
+    assert all(e.dtype == torch.float64 for e in exact)
+    rows = cs._flash_bwd_witness(want, want, exact)
+    assert [name for name, _, _ in rows] == ["dQ", "dK", "dV"]
+    assert all(err_k == err_p < 1e-5 for _, err_k, err_p in rows)
+    cs._flash_bwd_check(fa, [(args, kw)], "plain", witness=True)
+    assert capsys.readouterr().out.count("against float64") == 1
+    rounded = tuple(w.to(torch.bfloat16) for w in want)
+    monkeypatch.setattr(fa, "flash_attention_bwd", lambda *a, **k: rounded)
+    cs._flash_bwd_check(fa, [(args, kw)], "rounded", witness=True)
+    line = next(line for line in capsys.readouterr().out.splitlines()
+                if "against float64" in line)
+    for name, err_k, err_p in cs._flash_bwd_witness(rounded, want, exact):
+        assert f"{name} kernel {err_k!r}, plain {err_p!r}" in line
+        assert err_p < 1e-5 < err_k <= 2.0 ** -8
+
+
 @pytest.mark.parametrize("fault", [None, "ddt without the reverse-cumsum "
                                    "term", "dA with its sign flipped"])
 def test_ssd_bwd_check_rejects_wrong_outputs(fault, monkeypatch):

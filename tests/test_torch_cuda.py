@@ -681,7 +681,16 @@ FLASH_BWD_CASES = FLASH_CASES[:6] + [
     (1, 300, 300, 4, 2, 256, True, 128, None),
     (2, 96, 96, 2, 1, 256, False, 40, 30.0),
     (1, 300, 129, 2, 1, 64, True, 16, None),
-    (2, 512, 512, 12, 2, 128, True, None, None),
+    # the tensor-core kernel's tiles (64 keys and ring rows, 128 dQ rows):
+    (1, 63, 65, 2, 1, 64, True, None, None),      # either side of 64
+    (1, 129, 127, 4, 2, 128, False, None, None),  # either side of 128
+    (2, 200, 100, 6, 1, 64, True, 24, None),      # G 6, rows 123.. blind
+    (1, 160, 160, 12, 2, 128, True, None, None),  # G 6
+    (1, 192, 192, 8, 1, 64, True, 80, None),      # G 8 with a window
+    (1, 130, 130, 4, 2, 32, True, None, 20.0),    # hd 32, a softcap
+    (1, 150, 150, 2, 1, 256, True, None, 50.0),   # hd 256, a softcap
+    (1, 100, 300, 4, 2, 64, False, 50, None),     # Sq < Skv, a window
+    (2, 512, 512, 12, 2, 128, True, None, None),  # qwen2's path at S 512
 ]
 
 
