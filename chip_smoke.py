@@ -94,14 +94,14 @@ Phases, in order; any failure exits non-zero:
    ``segment_comp_dir_s`` and the evaluator's transfer in its direction,
    ``executed_round_trip_s`` within 1e-9 of ``evaluate_round_trip``,
    ``grad_in`` finite, each stage's measured FW and BW compute printed
-   beside its charge; four train steps counted likewise (two forward
+   beside its charge; on the same weights, the first TRAIN_CHECK_DEPTH
+   repetitions at S CHECK_SEQ, card (kernels) against CPU (plain
+   versions): the round trip's ``grad_in`` and every parameter's gradient
+   within CHECK_TOL; four train steps counted likewise (two forward
    launches a layer under remat and one backward a step), every loss and
    grad norm finite, the loss on ``batch_at(0)`` lower at step 3 than at
    step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
-   printed; the first TRAIN_CHECK_DEPTH repetitions at S CHECK_SEQ, card
-   (kernels) against CPU (plain versions): the round trip's ``grad_in``
-   and every parameter's gradient within CHECK_TOL; the model freed
-   before the next;
+   printed; the model freed before the next;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
    shapes of paths 1-3, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
    and 2 gave it (recorded, random with +inf holes and an all-+inf tour,
@@ -214,13 +214,14 @@ CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 # The backward kernels against autograd through their plain versions.
 # Flash attention, bf16: the kernel sums in fp32 and rounds each gradient
 # once to bf16, where the plain version keeps them fp32: each of dQ, dK and
-# dV within FLASH_BWD_TOL of its largest magnitude.  SSD, float32 (plain SIMT sums in
-# other orders): each of dx, dB, dC, ddt and dA within SSD_BWD_TOL of its
-# largest magnitude on random operands; on the path's recorded operands,
-# as the forward's, each held to its float64 value instead, the kernel's
-# largest error at most SSD_BWD_WITNESS times the plain version's own (or
-# eps of the largest value): there the plain version's own error of ddt
-# exceeded SSD_BWD_TOL of its largest value (PERF.md).
+# dV within FLASH_BWD_TOL of its largest magnitude.  SSD, float32 (3xTF32
+# products summed in other orders): each of dx, dB, dC, ddt and dA within
+# SSD_BWD_TOL of its largest magnitude on random operands; on the path's
+# recorded operands, as the forward's, each held to its float64 value
+# instead, the kernel's largest error at most SSD_BWD_WITNESS times the
+# plain version's own (or eps of the largest value): there the plain
+# version's own error of ddt exceeded SSD_BWD_TOL of its largest value
+# (PERF.md).
 FLASH_BWD_TOL = 2.0 ** -6
 SSD_BWD_TOL = 1e-4
 SSD_BWD_WITNESS = 4.0
@@ -2230,15 +2231,19 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
        full depth, the counts set to 0 just before and read just after
        (one forward and one backward launch a layer); its charges and
        event replay gated (``_round_trip_gates``); ``grad_in`` finite;
-    2. ``traffic.steps`` steps of ``make_train_step`` with AdamW at
+    2. ``_train_check_on_cpu`` on the same weights: grad_in and the
+       parameter gradients of the first TRAIN_CHECK_DEPTH repetitions,
+       card against CPU.  It runs before the steps because the weights
+       they leave depend, through AdamW, on the last bits of every
+       gradient the card computed: any change of a kernel's rounding moves
+       the bf16 floor of card against CPU there (PERF.md, ROADMAP C3);
+    3. ``traffic.steps`` steps of ``make_train_step`` with AdamW at
        TRAIN_LR on ``SyntheticLM`` batches ``batch_at(i % 2)``, counted
        likewise (``_train_launches`` a step): every loss and grad norm
        finite, and the loss on ``batch_at(0)`` lower at step 3 than at
        step 1;
-    3. one more step under the profiler (device busy time and the top
-       kernels), then ``_train_check_on_cpu``: grad_in and the parameter
-       gradients of the first TRAIN_CHECK_DEPTH repetitions, card against
-       CPU.
+    4. one more step under the profiler (device busy time and the top
+       kernels).
 
     Returns each part's counts and recorded kernel calls, and the
     numbers."""
@@ -2289,6 +2294,8 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
                        if t.direction == d) for d in ("FW", "BW")}
     del warm, sim
     torch.cuda.empty_cache()
+    print(f"{name}: path 4 "
+          f"{_train_check_on_cpu(name, cfg, params, tokens, stage)}")
 
     opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup=1, total=50)
     state = opt.init(params, cfg)
@@ -2336,9 +2343,7 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
           f"over steps 2-{traffic.steps} {p50!r} ms = "
           f"{B * S / (p50 * 1e-3)!r} tokens/s; peak device memory {peak} B; "
           f"launches {launches} ({per_step} a step)")
-    check = _train_check_on_cpu(name, cfg, params, tokens, stage)
-    print(f"{name}: path 4 {check}; path 4 in "
-          f"{time.perf_counter() - t_path!r} s")
+    print(f"{name}: path 4 in {time.perf_counter() - t_path!r} s")
     del state, opt, step, batches
     torch.cuda.empty_cache()
     return {"round trip": {"launches": rt_launches, "recorded": rt_recorded},
@@ -2467,7 +2472,7 @@ def _ssd_bwd_bound(key) -> tuple[float, str, int, int]:
 
 def _ssd_bwd_fp32_bound(key) -> tuple[float, str]:
     """The same work at the fp32 rate outside the tensor cores, the rate
-    this plain SIMT kernel computes at: printed beside the bound."""
+    the first, plain SIMT version computed at: printed beside the bound."""
     n_ops, n_bytes = _ssd_bwd_work(key)
     op_ms = n_ops / FP32_OPS_PER_S * 1e3
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3

@@ -23,10 +23,7 @@ qwen2-1.5b attention: B 2, S 2048, 12 query heads on 2 kv heads of width
 from __future__ import annotations
 
 import argparse
-import collections
 import importlib
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -35,7 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from _kernel_timing import sass_counts, variant_library, with_library  # noqa: E402
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -58,56 +55,8 @@ CHECKS = [*cs.FLASH_GENERIC,
 CALLS = 20  # launches a held-queue timing takes
 
 
-def _sass_counts(path: str) -> dict:
-    """Each kernel function of the library: its instruction counts of
-    HGMMA, HMMA and FFMA, and all instructions, from ``cuobjdump -sass``."""
-    tool = build.nvcc().parent / "cuobjdump"
-    proc = subprocess.run([str(tool), "-sass", path], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed: {proc.stderr}")
-    counts: dict = {}
-    name = None
-    for line in proc.stdout.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = collections.Counter()
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            counts[name]["all"] += 1
-            for op in ("HGMMA", "HMMA", "FFMA"):
-                if re.search(rf"\b{op}\b", line):
-                    counts[name][op] += 1
-    return counts
-
-
-def _variant_library(name: str, source: str) -> build.KernelLibrary:
-    """A library with the kernel's C entry, built from ``source``."""
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"flash_attention_bwd_{name}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run([str(build.nvcc()), *build.NVCC_FLAGS, "-o",
-                           str(out), str(Path(source).resolve())],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    print(f"variant {name} ({source}) built in {time.perf_counter() - t0!r} s")
-    print((proc.stdout + proc.stderr).strip())
-    lib = build.KernelLibrary("flash_attention_bwd", fa.BWD_LIBRARY.entries)
-    lib.build_info = {"seconds": 0.0, "log": "", "path": str(out)}
-    return lib
-
-
-def _with_library(lib, fn):
-    """fn() with the wrapper launching ``lib``'s kernel."""
-    kept = fa.BWD_LIBRARY
-    fa.BWD_LIBRARY = lib
-    try:
-        return fn()
-    finally:
-        fa.BWD_LIBRARY = kept
+def _with(lib, fn):
+    return with_library(fa, "BWD_LIBRARY", lib, fn)
 
 
 def _case(gen, shape):
@@ -130,12 +79,12 @@ def main() -> int:
     path = fa.BWD_LIBRARY.build()
     print(f"build {time.perf_counter() - t0!r} s")
     print(fa.BWD_LIBRARY.build_info["log"])
-    for fn, n in _sass_counts(str(path)).items():
+    for fn, n in sass_counts(path).items():
         print(f"sass {fn}: {dict(n)}")
     libs = {"kernel": fa.BWD_LIBRARY}
     for v in args.variant:
         name, source = v.split("=", 1)
-        libs[name] = _variant_library(name, source)
+        libs[name] = variant_library(fa.BWD_LIBRARY, name, source)
 
     gen = torch.Generator().manual_seed(0)
     failures = 0
@@ -151,7 +100,7 @@ def main() -> int:
     for name, lib in libs.items():
         if name != "kernel":
             try:
-                _with_library(lib, lambda: cs._flash_bwd_check(
+                _with(lib, lambda: cs._flash_bwd_check(
                     fa, [case], f"variant {name} at the path shape",
                     witness=True))
             except AssertionError as e:
@@ -163,11 +112,11 @@ def main() -> int:
         ["kernel", "kernel"]
     times: dict = {}
     for name in turns:
-        ms = _with_library(libs[name], lambda: cs._held_queue_ms(
+        ms = _with(libs[name], lambda: cs._held_queue_ms(
             lambda: fa.flash_attention_bwd(*case[0], **case[1]), CALLS))
         times.setdefault(name, []).append(ms)
     for name, lib in libs.items():
-        _, by_name, count = _with_library(lib, lambda: cs._device_events(
+        _, by_name, count = _with(lib, lambda: cs._device_events(
             lambda: [fa.flash_attention_bwd(*case[0], **case[1])
                      for _ in range(CALLS)]))
         print(f"{name}, device time per launch by kernel (profiler): " +

@@ -31,40 +31,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build, minplus  # noqa: E402
+from _kernel_timing import variant_library, with_library  # noqa: E402
+from repro_torch.kernels import minplus  # noqa: E402
 
 # (N, K, S): bcd_torch's tours, the lockstep waves' groups, path 2's plans
 PATH_SHAPES = [(1, 5, 4), (1, 3, 8), (1, 8, 8), (1, 4, 8), (1, 2, 1),
                (8, 5, 4), (64, 3, 8), (512, 3, 8), (512, 5, 4)]
 
 
-def _variant_library(name: str, source: str) -> build.KernelLibrary:
-    """A library with the kernel's C entries, built from ``source``."""
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"minplus_{name}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run([str(build.nvcc()), *build.NVCC_FLAGS, "-o",
-                           str(out), str(Path(source).resolve())],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    print(f"variant {name} ({source}) built in {time.perf_counter() - t0!r} s")
-    print((proc.stdout + proc.stderr).strip())
-    lib = build.KernelLibrary("minplus", minplus.LIBRARY.entries)
-    lib.build_info = {"seconds": 0.0, "log": "", "path": str(out)}
-    return lib
-
-
-def _with_library(lib, fn):
-    """fn() with the wrappers launching ``lib``'s kernels."""
-    kept = minplus.LIBRARY
-    minplus.LIBRARY = lib
-    try:
-        return fn()
-    finally:
-        minplus.LIBRARY = kept
+def _with(lib, fn):
+    return with_library(minplus, "LIBRARY", lib, fn)
 
 
 def _held_ms(fn) -> float:
@@ -89,14 +65,14 @@ def main() -> int:
     libs = {"kernel": minplus.LIBRARY}
     for v in args.variant:
         name, source = v.split("=", 1)
-        libs[name] = _variant_library(name, source)
+        libs[name] = variant_library(minplus.LIBRARY, name, source)
 
     gen = torch.Generator().manual_seed(0)
     cases = [ops for s in PATH_SHAPES + cs.SCAN_GENERIC
              for ops in cs._scan_cases(gen, s, "cuda")]
     failures = 0
     for name, lib in libs.items():
-        n, mismatches, _ = _with_library(lib, lambda: cs._compare_scan(
+        n, mismatches, _ = _with(lib, lambda: cs._compare_scan(
             minplus, cases))
         failures += mismatches
         print(f"{name}: {n - mismatches} of {n} cases == the plain version "
@@ -113,7 +89,7 @@ def main() -> int:
         ops = cs._scan_cases(gen, s, "cuda")[0]
         times: dict = {}
         for name in turns:
-            times.setdefault(name, []).append(_with_library(
+            times.setdefault(name, []).append(_with(
                 libs[name], lambda: _held_ms(
                     lambda: minplus.minplus_scan(*ops))))
         bound, by, _, n_bytes = cs._scan_bound(s)

@@ -31,7 +31,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import build, ssd  # noqa: E402
+from _kernel_timing import variant_library, with_library  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
 
 PATH = (2, 2048, 32, 64, 128, 256)  # (B, S, H, P, N, Q)
 PATH_KEY = (2, 8, 32, 256, 64, 128)  # chip_smoke's key: (B, nc, H, Q, P, N)
@@ -60,33 +61,8 @@ def _ms(fn, n=20) -> float:
     return statistics.median(times)
 
 
-def _variant_library(name: str, source: str) -> build.KernelLibrary:
-    """A library with the kernel's C entry, built from ``source``."""
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"ssd_{name}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run([str(build.nvcc()), *build.NVCC_FLAGS, "-o",
-                           str(out), str(Path(source).resolve())],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    print(f"variant {name} ({source}) built in {time.perf_counter() - t0!r} s")
-    print((proc.stdout + proc.stderr).strip())
-    lib = build.KernelLibrary("ssd", ssd.LIBRARY.entries)
-    lib.build_info = {"seconds": 0.0, "log": "", "path": str(out)}
-    return lib
-
-
-def _with_library(lib, fn):
-    """fn() with the wrapper launching ``lib``'s kernel."""
-    kept = ssd.LIBRARY
-    ssd.LIBRARY = lib
-    try:
-        return fn()
-    finally:
-        ssd.LIBRARY = kept
+def _with(lib, fn):
+    return with_library(ssd, "LIBRARY", lib, fn)
 
 
 def _within(got, want) -> bool:
@@ -113,7 +89,7 @@ def main() -> int:
     libs = {"kernel": ssd.LIBRARY}
     for v in args.variant:
         name, source = v.split("=", 1)
-        libs[name] = _variant_library(name, source)
+        libs[name] = variant_library(ssd.LIBRARY, name, source)
 
     gen = torch.Generator().manual_seed(0)
     failures = 0
@@ -141,7 +117,7 @@ def main() -> int:
               f"{err_k <= limit}")
     for name, lib in libs.items():
         if name != "kernel":
-            vgot = _with_library(lib, lambda: ssd.ssd_intra_chunk(*ops))
+            vgot = _with(lib, lambda: ssd.ssd_intra_chunk(*ops))
             print(f"variant {name} at the path shape within {cs.SSD_TOL} of "
                   f"the plain version: {_within(vgot, want)}; max |y - plain| "
                   f"{float((vgot[0] - want[0]).abs().max())!r}")
@@ -151,7 +127,7 @@ def main() -> int:
         ["kernel", "kernel"]
     times: dict = {}
     for name in turns:
-        ms = _with_library(libs[name], lambda: _ms(
+        ms = _with(libs[name], lambda: _ms(
             lambda: ssd.ssd_intra_chunk(*ops)))
         times.setdefault(name, []).append(ms)
     bound, by, n_ops, n_bytes = cs._ssd_bound(PATH_KEY)

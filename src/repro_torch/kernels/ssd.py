@@ -15,8 +15,9 @@ path gives it, and does its products on the tensor cores in TF32, three
 products for each fp32 one, which keeps fp32 accuracy.  Where grad mode is
 on and an operand requires grad, the launch goes through the autograd
 Function ``_SSDIntraChunk``, whose backward is the hand-written kernel in
-``csrc/ssd_bwd.cu`` (:func:`ssd_intra_chunk_bwd`, plain fp32 SIMT for now),
-which maps the cotangents of all three outputs to dx, dB, dC, ddt and dA.
+``csrc/ssd_bwd.cu`` (:func:`ssd_intra_chunk_bwd`, its products on the tensor
+cores in 3xTF32 too), which maps the cotangents of all three outputs to dx,
+dB, dC, ddt and dA.
 On CPU tensors it computes :func:`reference_ssd_intra_chunk`, the plain
 PyTorch version, and autograd differentiates that.  Nothing here touches
 CUDA at import.
@@ -34,7 +35,9 @@ LIBRARY = _build.KernelLibrary("ssd", {
         ctypes.c_void_p]})
 BWD_LIBRARY = _build.KernelLibrary("ssd_bwd", {
     "ssd_intra_chunk_bwd_f32": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p]})
+    + [ctypes.c_void_p],
+    "ssd_bwd_scratch_floats": [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]})
 HEAD_WIDTHS = (16, 32, 64)  # head widths P the kernels are built for
 MAX_STATE = 128             # widest state N the kernels take
 
@@ -159,9 +162,9 @@ def ssd_intra_chunk_bwd(x, Bm, Cm, dt, A, gy, ghc, gdec):
 
     CPU tensors take :func:`reference_ssd_intra_chunk_bwd`.  CUDA tensors
     launch the backward kernel on the current stream (float32, P in
-    ``HEAD_WIDTHS``, N at most ``MAX_STATE``; the kernel reads B and C
-    unpadded, so no gradient of a padded column arises); anything it does
-    not take raises."""
+    ``HEAD_WIDTHS``, N at most ``MAX_STATE``; B, C and ghc padded with zero
+    state columns to a multiple of 4 for TMA, as the forward pads B and C,
+    and dB and dC cut back to N); anything it does not take raises."""
     global bwd_launch_count
     operands = (x, Bm, Cm, dt, A)
     _check_call(operands + (gy, ghc, gdec))
@@ -177,22 +180,32 @@ def ssd_intra_chunk_bwd(x, Bm, Cm, dt, A, gy, ghc, gdec):
         return reference_ssd_intra_chunk_bwd(*operands, gy, ghc, gdec)
     gy, ghc, gdec = (t.float().contiguous() for t in (gy, ghc, gdec))
     _check_launch(operands + (gy, ghc, gdec), "backward")
-    grads = tuple(torch.empty_like(t) for t in operands)
     if x.numel() == 0:
-        return tuple(g.zero_() for g in grads)
+        return tuple(torch.zeros_like(t) for t in operands)
+    N4 = -(-N // 4) * 4
+    if N4 != N:
+        Bm, Cm = (torch.nn.functional.pad(t, (0, N4 - N)) for t in (Bm, Cm))
+        ghc = torch.nn.functional.pad(ghc, (0, 0, 0, N4 - N))
+    dx, ddt, dA = (torch.empty_like(t) for t in (x, dt, A))
+    dB, dC = (torch.empty_like(Bm) for _ in range(2))
+    floats = ctypes.c_longlong()
+    err = BWD_LIBRARY.entry("ssd_bwd_scratch_floats")(
+        Bsz, nc, H, Q, N4, ctypes.byref(floats))
+    if err != 0:
+        raise RuntimeError(f"SSD backward scratch size: CUDA error {err}")
+    scratch = torch.empty(floats.value, dtype=torch.float32,
+                          device=x.device)
     fn = BWD_LIBRARY.entry("ssd_intra_chunk_bwd_f32")
-    heads = Bsz * nc * H
-    scratch = torch.empty(heads * (4 * Q + 1) + 2 * heads * Q * N,
-                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in operands + (gy, ghc, gdec) + grads),
-                 scratch.data_ptr(), Bsz, nc, H, Q, P, N, stream)
+        err = fn(*(t.data_ptr() for t in (x, Bm, Cm, dt, A, gy, ghc, gdec,
+                                          dx, dB, dC, ddt, dA)),
+                 scratch.data_ptr(), Bsz, nc, H, Q, P, N4, stream)
     if err != 0:
         raise RuntimeError(f"SSD backward kernel launch failed: CUDA error "
                            f"{err}")
     bwd_launch_count += 1
-    return grads
+    return dx, dB[..., :N], dC[..., :N], ddt, dA
 
 
 class _SSDIntraChunk(torch.autograd.Function):

@@ -444,6 +444,9 @@ def test_train_path_rehearsed_on_the_cpu(name, cpu_backward, capsys):
     out = capsys.readouterr().out
     assert "charges == segment_comp_dir_s" in out and "tokens/s" in out
     assert "parameter gradients" in out and "warm round trip stage 0 BW" in out
+    # the card-vs-CPU check reads the weights the round trip ran on, before
+    # the steps move them
+    assert out.index("parameter gradients") < out.index("train steps (")
 
 
 def _flash_bwd_case():

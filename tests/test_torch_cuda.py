@@ -765,7 +765,14 @@ def test_flash_attention_autograd_reaches_the_backward_kernel(cuda):
 
 @pytest.mark.parametrize("B,S,H,P,N,Q", SSD_CASES[:5] + [
     (1, 512, 5, 64, 128, 256), (1, 128, 2, 32, 10, 64),
-    (1, 1000, 5, 64, 128, 500)])
+    (1, 1000, 5, 64, 128, 500),
+    # the edges of the kernel's tiles and head groups: 5 and 33 heads
+    # across groups of 4, Q either side of a 64-position tile, N 10 padded
+    # for TMA and N 124 off a multiple of 16, the path's widths at nc 2
+    (1, 256, 5, 64, 128, 256), (1, 256, 33, 32, 64, 128),
+    (1, 128, 4, 64, 128, 64), (1, 130, 4, 64, 128, 65),
+    (2, 128, 4, 32, 10, 64), (1, 256, 4, 64, 124, 128),
+    (2, 512, 32, 64, 128, 256)])
 def test_ssd_bwd_matches_plain_autograd(cuda, B, S, H, P, N, Q):
     """dx, dB, dC, ddt and dA of the backward kernel within SSD_BWD_TOL of
     autograd through the plain version, for cotangents of all three

@@ -179,3 +179,102 @@ def test_ssd_forward_gradients_reach_every_input():
     for leaf, a in zip(leaves, want):
         a = np.asarray(a)
         assert np.abs(leaf.grad.numpy() - a).max() <= 1e-5 * np.abs(a).max()
+
+
+def _tf32(v):
+    """v rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero: the kernel's ``cvt.rna.tf32.f32``)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(v):
+    """v cut to TF32 as the tensor cores read an operand (its low 13 bits
+    ignored)."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_mm(a, b, passes):
+    """a @ b as the kernel's products compute it on the tensor cores, in
+    float32: one TF32 pass (hi . hi), or three (lo . hi + hi . lo + hi . hi,
+    hi = tf32(v), lo = v - hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulated_bwd(x, Bm, Cm, dt, A, gy, ghc, gdec, *, passes, G=4):
+    """The backward as ``csrc/ssd_bwd.cu`` arranges it, in torch float32:
+    every product through ``_tc_mm``; dS summed over each group of G heads
+    before the one product per group that gives its part of dB and of dC;
+    the chunk-state term ``ghc (x o ed)^T`` summed into the group's dB part;
+    the parts summed in group order; dcum from the key side's part and
+    rowsum(M), its reverse cumsum, ddt and dA."""
+    Bsz, nc, H, Q, P = x.shape
+    a = -A
+    cum = torch.cumsum(dt * a[None, None, :, None], dim=-1)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    L = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~causal, float("-inf")))
+    S = _tc_mm(Cm, Bm.transpose(-1, -2), passes)[:, :, None]  # once a group
+    Gm = _tc_mm(gy, x.transpose(-1, -2), passes)
+    dtk = dt[..., None, :]
+    W = S * L * dtk
+    dS = Gm * L * dtk
+    M = Gm * W
+    ed = torch.exp(cum[..., -1:] - cum) * dt
+    dx = _tc_mm(W.transpose(-1, -2), gy, passes)
+    u = _tc_mm(Bm[:, :, None], ghc, passes)  # (ghc^T B_k) per head
+    dx = dx + ed[..., None] * u
+    E = (u * x).sum(-1)
+    state = _tc_mm(x * ed[..., None], ghc.transpose(-1, -2), passes)
+    dB = dC = 0
+    for g0 in range(0, H, G):
+        dSg = dS[:, :, g0:g0 + G].sum(2)
+        dB = dB + (_tc_mm(dSg.transpose(-1, -2), Cm, passes)
+                   + state[:, :, g0:g0 + G].sum(2))
+        dC = dC + _tc_mm(dSg, Bm, passes)
+    eed = E * ed
+    dcum = M.sum(-1) - M.sum(-2) + gdec * torch.exp(cum) - eed
+    dcum[..., -1] += eed.sum(-1)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = ((Gm * S * L).sum(-2) + E * torch.exp(cum[..., -1:] - cum)
+           - A[None, None, :, None] * da)
+    dA = -(dt * da).sum((0, 1, 3))
+    return dx, dB, dC, ddt, dA
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q", SHAPES)
+def test_tensor_core_arrangement_of_the_backward_matches(B, S, H, P, N, Q):
+    """The backward kernel's arithmetic, emulated in torch (dS summed over a
+    group's heads before dB and dC; operands split into TF32 hi and lo,
+    three products), within SSD_BWD_TOL 1e-4 of each gradient's largest
+    magnitude of the plain version and of ``jax.vjp`` of the JAX oracle.
+    One TF32 pass alone is printed beside it: too coarse for that limit.
+    It holds the design's error budget, not the kernel: the card-only
+    cases of tests/test_torch_cuda.py hold ssd_bwd.cu itself."""
+    args = _chunked(S + N + 2, B, S, H, P, N, Q)
+    rng = np.random.default_rng(N + 1)
+    nc = S // Q
+    cot = tuple(rng.standard_normal(s).astype(np.float32) for s in
+                ((B, nc, H, Q, P), (B, nc, H, N, P), (B, nc, H, Q)))
+    targs = [torch.from_numpy(t) for t in args + cot]
+    got = _emulated_bwd(*targs, passes=3)
+    once = _emulated_bwd(*targs, passes=1)
+    plain = ssd.reference_ssd_intra_chunk_bwd(*targs)
+    _, pull = jax.vjp(ref.reference_ssd_intra_chunk,
+                      *map(jnp.asarray, args))
+    jaxs = pull(tuple(map(jnp.asarray, cot)))
+    errors = []
+    for name, g, o, p, j in zip(("dx", "dB", "dC", "ddt", "dA"), got, once,
+                                plain, jaxs):
+        j = torch.from_numpy(np.array(j))
+        assert g.shape == p.shape and g.dtype == torch.float32
+        scale = float(p.abs().max())
+        err, err_1 = (float((t - p).abs().max()) / scale for t in (g, o))
+        err_j = float((g - j).abs().max()) / float(j.abs().max())
+        assert err <= 1e-4 and err_j <= 1e-4, (name, err, err_j)
+        errors.append(f"{name} {err:.2e} (one pass {err_1:.2e})")
+    print(f"3xTF32 emulation at {(B, S, H, P, N, Q)}: " + ", ".join(errors))
