@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's four paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's five paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -40,6 +40,13 @@ at B 2 x S 2048 and full depth, then four steps of
 batches, through the forward kernels and the backward kernels of flash
 attention and SSD (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_bwd.cu``).
 
+Path 5 is the serving control plane, right after path 1 on the same card:
+``repro_torch.serve``'s ``ServePlanner.admit``, ``ServeGateway.run_stream``
+and ``ServeSim.run`` on NSFNET x ResNet-101, planning through
+``dfts_torch`` / ``bcd_torch`` on ``cuda`` (presolve waves and replans,
+the scan kernel again), each fleet held ``==`` against the same fleet
+planned by the NumPy oracles on the host (``_stack_runs``).
+
 Phases, in order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
@@ -63,6 +70,16 @@ Phases, in order; any failure exits non-zero:
    ``dfts_np``, its scans (at most MAX_WARM_SCANS), its wall, device busy
    time and idle share under the profiler, and its host split (encode,
    capped-tour build, scan with its copies, decode, and the rest);
+   then path 5 (``run_serve_stack_path``): the scan count set to 0, every
+   fleet of ``_stack_runs`` through its entry class twice, with the card
+   solver and with its oracle, the served records, summaries, timelines
+   and per-tick counts ``==`` (STACK_UNCOMPARED aside), the card's traces
+   replayed by ``replay_verify`` / ``replay_verify_sim``, each card run's
+   scans and scan launches equal and not 0, each scan's shape and first
+   operands recorded; each run's wall, presolve seconds beside the
+   oracle's, instances presolved, plan-cache hit rate, ticks and admitted
+   share printed, and the card's busy time and idle share over the gated
+   card run of the longest fleet, which runs under the profiler;
 5. path 2, one model after the other: the counts set to 0, the plan and the
    planned chain run on the card, the counts read (the scan and each of the
    model's kernels must have launched), every kernel call's shape and first
@@ -103,8 +120,9 @@ Phases, in order; any failure exits non-zero:
    step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
    printed; the model freed before the next;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
-   shapes of paths 1-3, on the recorded operands and random ones: the scan ``==`` its plain version at every shape paths 1
-   and 2 gave it (recorded, random with +inf holes and an all-+inf tour,
+   shapes of paths 1-3 and 5, on the recorded operands and random ones:
+   the scan ``==`` its plain version at every shape paths 1, 2 and 5
+   gave it (recorded, random with +inf holes and an all-+inf tour,
    tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
    path shape timed as below; flash attention at FLASH_TOL, which must also
    reject two wrong
@@ -662,15 +680,23 @@ def _compare_scan(mp, cases) -> tuple[int, int, float]:
     return len(cases), mismatches, max_err
 
 
-def check_scan_path(mp, device, recorded, launches_by_path: dict) -> dict:
+def _top_shape(shapes) -> tuple:
+    """The shape with the most launches (the smallest of equals)."""
+    return min(shapes, key=lambda s: (-shapes[s], s))
+
+
+def check_scan_path(mp, device, recorded, launches_by_path: dict,
+                    headline: tuple) -> dict:
     """Phase 6 for the fused scan: ``==`` against the plain version at
-    every shape paths 1 and 2 gave it (on the recorded operands and on
+    every shape paths 1, 2 and 5 gave it (on the recorded operands and on
     random and tie-forcing ones) and at SCAN_GENERIC; then each path shape
-    timed.  Returns the kernels-line entry: the numbers of the shape with
-    the most launches, and every shape's under ``shapes``."""
+    timed.  Returns the kernels-line entry: the numbers of ``headline``
+    (path 1's most launched shape, so that the scalar replans of path 5 do
+    not move the line from one shape to another), and every shape's, in
+    order of launches, under ``shapes``."""
     shapes, operands = recorded
     gen = torch.Generator().manual_seed(1)
-    order = sorted(shapes, key=lambda s: (-shapes[s], s))
+    order = sorted(shapes, key=lambda s: (s != headline, -shapes[s], s))
     cases = [args for s in order for args, _ in operands[s]]
     for s in order + SCAN_GENERIC:
         cases += _scan_cases(gen, s, device)
@@ -896,6 +922,255 @@ def _wall(fn) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------- path 5
+class StackRun(NamedTuple):
+    """One fleet of path 5 through one entry class of ``repro_torch.serve``
+    on NSFNET x ResNet-101 (source v4, destination v13): ``driver`` is
+    ``"admit"`` (one static ``ServePlanner.admit`` round), ``"gateway"``
+    (``ServeGateway.run_stream``) or ``"sim"`` (``ServeSim.run``), under
+    the ``fcfs`` policy, with the retry queue where ``retry``; ``fleet``
+    the keyword arguments of ``generate_fleet`` beyond the fabric and the
+    endpoints; ``failures`` those of ``generate_failures`` beyond the
+    fabric (none: no failures); ``pairs`` the (card solver, its NumPy
+    oracle) pairs it runs with, each once on the card and once on the
+    host."""
+    label: str
+    driver: str
+    fleet: dict
+    pairs: tuple
+    window_s: float = 0.0
+    failures: dict | None = None
+    retry: bool = True
+
+
+STACK_PAIRS = (("dfts_torch", "dfts_np"), ("bcd_torch", "bcd"))
+STACK_HOLD_S = 4.0  # nsfnet_gateway's mean hold (src/repro/sweep/suites.py)
+
+
+def _stack_runs() -> list:
+    """Path 5's traffic: the quick tier of ``nsfnet_gateway`` (Poisson
+    fleets of 16 and 32, batch 2 spread 1/2/4, IF, K 3, candidate seed 0:
+    each fleet's static round, then the gateway at windows 0.0 and 0.5 s
+    with exponential holds of mean 4 s and the retry queue), a 512-request
+    stream at 64 requests/s through the gateway at window 0.5 s (K 5, 4
+    candidates a stage, half of it TR, about 32 presolve misses a tick) and
+    the ``nsfnet_failures`` quick tier's failure cell (16 requests, holds
+    of mean 6 s, failures at 0.2/s recovering after 12 s on average) at
+    seed 2, the first seed whose failures take chains of both oracles down
+    (at seed 0 none of ``dfts_np``'s), so that live migration replans.
+
+    The stream runs without the retry queue: NSFNET holds a few of its
+    chains at a time, and with retries every departure re-attempts the
+    whole queue, one replan (a scan of one instance) per waiting request:
+    259,504 such scans for this stream, 340 s through ``dfts_torch`` and
+    225 s through ``dfts_np`` on a CPU, where its presolve waves make 17
+    scans."""
+    base = dict(batch_size=2, mode="IF", K=3, seed=0, arrival="poisson",
+                model_id="resnet101")
+    churn = dict(hold_model="exp", hold_time_s=STACK_HOLD_S)
+    runs = []
+    for n in (16, 32):
+        runs.append(StackRun(f"static n{n}", "admit",
+                             dict(base, n_requests=n), STACK_PAIRS))
+        runs += [StackRun(f"gateway n{n} window {w}", "gateway",
+                          dict(base, n_requests=n, **churn), STACK_PAIRS, w)
+                 for w in (0.0, 0.5)]
+    runs.append(StackRun(
+        "stream n512 64/s window 0.5 no retry", "gateway",
+        dict(base, n_requests=512, K=5, candidates_per_stage=4,
+             arrival_rate_rps=64.0, train_share=0.5, **churn),
+        (("dfts_torch", "dfts_np"),), 0.5, retry=False))
+    runs.append(StackRun(
+        "failures n16 rate 0.2 seed 2", "sim",
+        dict(base, n_requests=16, seed=2, hold_model="exp", hold_time_s=6.0),
+        (("dfts_torch", "dfts_np"),),
+        failures=dict(rate_per_s=0.2, mean_downtime_s=12.0)))
+    return runs
+
+
+# what two runs of one fleet may differ in: wall-clock fields, the
+# engine's EvalCache counters (the torch solvers do not use the cache) and
+# the solver's name
+STACK_UNCOMPARED = ("wall_time_s", "wall_s", "tick_wall_total_s",
+                    "tick_wall_mean_s", "tick_wall_pct", "admissions_per_s",
+                    "eval_cache", "solver")
+
+
+def _without(value, keys):
+    if isinstance(value, dict):
+        return {k: _without(v, keys) for k, v in value.items()
+                if k not in keys}
+    if isinstance(value, list):
+        return [_without(v, keys) for v in value]
+    return value
+
+
+def serve_view(outcome, ticks=(), solves=()) -> dict:
+    """An outcome of either package's serve stack as plain values: every
+    served record (request, decision, latency, plan, reason, status, admit
+    and depart times, migrations), the summary, the event timeline, the
+    per-tick counts and the solves (``stack_solves``), STACK_UNCOMPARED
+    left out."""
+    return _without({"served": [s.to_dict() for s in outcome.served],
+                     "summary": outcome.summary(),
+                     "timeline": list(getattr(outcome, "timeline", [])),
+                     "ticks": list(ticks), "solves": list(solves)},
+                    STACK_UNCOMPARED)
+
+
+@contextlib.contextmanager
+def stack_solves(S):
+    """Inside the block, every outcome the serve package ``S`` gets from its
+    solver registry (presolves, replans, the replans of failure victims),
+    in order, as (plan and breakdown, objective, status).  A served record
+    carries the latency its plan has on the residual fabric, not the
+    solver's, so a solver's own numbers are held here."""
+    sites = [(S.planner, "solve"), (S.planner, "solve_batch"),
+             (S.admission, "solve_batch")]
+    originals = [getattr(module, name) for module, name in sites]
+    log: list = []
+
+    def logged(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            log.extend((_plain(o), o.objective, o.status)
+                       for o in (out if isinstance(out, list) else [out]))
+            return out
+        return call
+
+    for (module, name), fn in zip(sites, originals):
+        setattr(module, name, logged(fn))
+    try:
+        yield log
+    finally:
+        for (module, name), fn in zip(sites, originals):
+            setattr(module, name, fn)
+
+
+def drive_stack(S, run: StackRun, net, profile, fleet, failures, solver,
+                solver_kwargs) -> tuple:
+    """One run of ``run``'s fleet through its entry class with ``solver``:
+    (outcome, the gateway's per-tick rows, the solves)."""
+    with stack_solves(S) as solves:
+        if run.driver == "admit":
+            planner = S.ServePlanner(net, profile, solver=solver,
+                                     solver_kwargs=solver_kwargs)
+            return planner.admit(fleet, policy="fcfs"), [], solves
+        if run.driver == "gateway":
+            gw = S.ServeGateway(
+                net, profile, solver=solver, policy="fcfs",
+                config=S.GatewayConfig(batch_window_s=run.window_s,
+                                       retry=run.retry),
+                solver_kwargs=solver_kwargs)
+            outcome = gw.run_stream(fleet, failures=failures)
+            return outcome, gw.stats.ticks, solves
+        sim = S.ServeSim(net, profile, solver=solver, retry=run.retry,
+                         solver_kwargs=solver_kwargs)
+        return sim.run(fleet, policy="fcfs", failures=failures), [], solves
+
+
+def run_serve_stack_path(C, TS, mp, device: str = "cuda",
+                         runs: list | None = None) -> dict:
+    """Path 5: the serving control plane through its entry classes, each
+    fleet once with the card solver on ``device`` and once with its NumPy
+    oracle on the host, every served record, the summary, the timeline,
+    the per-tick counts and the solver outcomes ``==`` between the two
+    (``serve_view``); the card's traces replayed
+    (``replay_verify`` / ``replay_verify_sim``); every card run must launch
+    the scan kernel as often as it made scans.  Returns the scan launches
+    of the path and the recorded scan shapes and operands."""
+    import repro_torch.serve as S
+    from repro_torch.serve import planner as SP
+
+    net = C.nsfnet(source=C.SOURCE)
+    profile = C.resnet101_profile()
+    if profile.L != 37 or len(net.nodes) != 14:
+        raise AssertionError("ResNet-101 at full width on NSFNET expected")
+    mp.scan_launch_count = mp.launch_count = 0
+    total = 0
+    runs = runs if runs is not None else _stack_runs()
+    # the gated card run of the longest fleet runs under the profiler
+    longest = max(runs, key=lambda r: r.fleet["n_requests"])
+    with record_calls(TS, "minplus_scan", _scan_key) as (shapes, operands):
+        for run in runs:
+            fleet = S.generate_fleet(net, source=C.SOURCE,
+                                     destination=C.DEST, **run.fleet)
+            failures = None
+            if run.failures is not None:
+                horizon = (max(r.arrival_s for r in fleet)
+                           + run.fleet["hold_time_s"])
+                failures = S.generate_failures(
+                    net, horizon_s=horizon, seed=run.fleet["seed"],
+                    protect=(C.SOURCE, C.DEST), **run.failures)
+            for card, oracle in run.pairs:
+                scans, launches = sum(shapes.values()), mp.scan_launch_count
+                out = []
+
+                def card_run():
+                    out.extend(drive_stack(S, run, net, profile, fleet,
+                                           failures, card,
+                                           {"device": device}))
+
+                profiled = (device == "cuda" and run is longest
+                            and card == run.pairs[0][0])
+                with timed_calls(SP.ServePlanner,
+                                 {"presolve": "presolve"}) as spent:
+                    if profiled:
+                        wall_us, dev_us, by_name = _device_us(card_run)
+                        wall = wall_us / 1e6
+                    else:
+                        wall = _wall(card_run)
+                got, ticks, solves = out
+                scans = sum(shapes.values()) - scans
+                launches = mp.scan_launch_count - launches
+                with timed_calls(SP.ServePlanner,
+                                 {"presolve": "presolve"}) as host:
+                    t0 = time.perf_counter()
+                    want, want_ticks, want_solves = drive_stack(
+                        S, run, net, profile, fleet, failures, oracle, None)
+                    host_wall = time.perf_counter() - t0
+                what = f"serve stack: {run.label}, {card}"
+                if (serve_view(got, ticks, solves)
+                        != serve_view(want, want_ticks, want_solves)):
+                    raise AssertionError(f"{what} differs from {oracle}")
+                if launches == 0 or scans != launches:
+                    raise AssertionError(f"{what}: {scans} scans, "
+                                         f"{launches} scan launches")
+                ok = (S.replay_verify(net, profile, got.served)
+                      if run.driver == "admit" else
+                      S.replay_verify_sim(net, profile, got.served, failures))
+                if not ok:
+                    raise AssertionError(f"{what}: the trace does not replay")
+                if failures and not got.failure_summary()["n_restored"]:
+                    raise AssertionError(f"{what}: no chain was migrated")
+                total += launches
+                pc = (got.gateway_stats.get("plan_cache", {})
+                      if run.driver == "gateway" else {})
+                print(f"{what} ({device}) == {oracle} (cpu): wall {wall!r} s "
+                      f"({oracle} {host_wall!r} s), presolve "
+                      f"{spent['presolve']!r} s ({oracle} "
+                      f"{host['presolve']!r} s), {got.n_presolved} instances "
+                      f"presolved, {len(solves)} solver outcomes, {scans} "
+                      f"scans, {launches} minplus scan launches, plan-cache "
+                      f"hit rate "
+                      f"{pc.get('hit_rate', 'n/a')}, {len(ticks)} ticks, "
+                      f"admitted {got.n_accepted} of {got.n_requests} "
+                      f"({got.acceptance_ratio!r})")
+                if profiled:
+                    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+                    print(f"{what} ran under the profiler: device busy "
+                          f"{dev_us!r} us of the wall {wall_us!r} us (idle "
+                          f"{1.0 - dev_us / wall_us!r}); top device time "
+                          f"(us): {top}")
+    if mp.scan_launch_count != total:
+        raise AssertionError("minplus scan launches outside the card runs")
+    print(f"serve stack: minplus scan launches in all {total}; the gated "
+          f"runs' by (N, K, S): " + ", ".join(
+              f"{s}: {c}" for s, c in shapes.most_common()))
+    return {"launches": total, "matmul_launches": mp.launch_count,
+            "recorded": (shapes, operands)}
 
 
 # ------------------------------------------------------------------ builds --
@@ -2783,21 +3058,24 @@ def main() -> int:
     generic_new = check_generic(mods, device)
 
     path = run_main_path(C, TS, mp)
+    stack = run_serve_stack_path(C, TS, mp)
     by_model = {}
     for name in MODELS:
         by_model[name] = run_model_path(name, mods, device)
-    matmul["launches_by_path"] = {"planner": path["matmul_launches"], **{
-        name: by_model[name]["launches"]["minplus"] for name in MODELS}}
+    matmul["launches_by_path"] = {
+        "planner": path["matmul_launches"],
+        "serve-stack": stack["matmul_launches"], **{
+            name: by_model[name]["launches"]["minplus"] for name in MODELS}}
     matmul["launches"] = sum(matmul["launches_by_path"].values())
     print(f"clocks before the kernel timings (sm, max sm, temperature): "
           f"{_clocks_line()}")
     time_minplus_matmul(mp, device, matmul)
     kernels = [check_scan_path(
-        mp, device, _merge([path["recorded"]] + [
+        mp, device, _merge([path["recorded"], stack["recorded"]] + [
             by_model[name]["recorded"]["minplus_scan"] for name in MODELS]),
-        {"planner": path["launches"], **{
+        {"planner": path["launches"], "serve-stack": stack["launches"], **{
             name: by_model[name]["launches"]["minplus_scan"]
-            for name in MODELS}}), matmul]
+            for name in MODELS}}, _top_shape(path["recorded"][0])), matmul]
     print(f"clocks after the minplus_scan timings (sm, max sm, "
           f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru",

@@ -21,6 +21,9 @@ Registered solvers:
                     ``device``.  Bit-identical to `bcd`.
   * `dfts_np`, `bcd`, `comp-ms`, `comm-ms` -- the NumPy oracles and the
                     paper's comparison schemes.
+  * `exact`      -- the joint DP, the fast optimal oracle (host).
+  * `ilp`        -- the MILP of Eqs. (1)-(15) through scipy's HiGHS,
+                    sequential schedule only (host).
   * `portfolio`  -- best feasible outcome over a member set.
 
 The torch solvers never fall back to the CPU: without a card they raise
@@ -40,28 +43,35 @@ from .costmodel import (
     even_split,
 )
 from .engine import (
+    ensure_solver_supported,
     get_solver,
     portfolio_solve,
     register_solver,
     solve,
     solve_batch,
     solver_names,
+    solver_supports,
     unregister_solver,
 )
 from .network import LinkSpec, NodeSpec, PhysicalNetwork
-from .plan import EvalCache, LatencyBreakdown, Plan, ServiceChainRequest
+from .plan import (EvalCache, LatencyBreakdown, Plan, PlanEvaluator,
+                   ServiceChainRequest)
 from .problem import ProblemInstance, SolveOutcome, SolveResult
 from .resnet101_profile import resnet101_profile
-from .topology import DEST, NSFNET_NODES, SOURCE, candidate_sets, nsfnet
+from .topology import (DEST, NSFNET_NODES, SOURCE, candidate_sets, nsfnet,
+                       random_network, tpu_pod_topology)
+from .trainpipe import round_trip_bottleneck_s
 
 __all__ = [
     "BW", "FW", "IF", "TR", "SEQ", "PIPE", "SCHEDULES",
     "ComputeModel", "LayerProfile", "ModelProfile", "even_split",
-    "get_solver", "portfolio_solve", "register_solver", "solve",
-    "solve_batch", "solver_names", "unregister_solver",
+    "ensure_solver_supported", "get_solver", "portfolio_solve",
+    "register_solver", "solve", "solve_batch", "solver_names",
+    "solver_supports", "unregister_solver",
     "LinkSpec", "NodeSpec", "PhysicalNetwork",
-    "EvalCache", "LatencyBreakdown", "Plan", "ServiceChainRequest",
+    "EvalCache", "LatencyBreakdown", "Plan", "PlanEvaluator",
+    "ServiceChainRequest",
     "ProblemInstance", "SolveOutcome", "SolveResult",
     "resnet101_profile", "DEST", "NSFNET_NODES", "SOURCE", "candidate_sets",
-    "nsfnet",
+    "nsfnet", "random_network", "tpu_pod_topology", "round_trip_bottleneck_s",
 ]

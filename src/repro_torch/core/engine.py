@@ -123,7 +123,7 @@ def _ensure_builtins() -> None:
     global _BUILTINS_LOADED
     if _BUILTINS_LOADED:
         return
-    from . import baselines, bcd, torch_solvers  # noqa: F401
+    from . import baselines, bcd, exact, ilp, torch_solvers  # noqa: F401
     _BUILTINS_LOADED = True
 
 

@@ -9,6 +9,7 @@ wrong decodes its teacher-forced gate must reject."""
 from __future__ import annotations
 
 import collections
+import dataclasses
 import importlib
 import types
 
@@ -537,3 +538,97 @@ def test_backward_bounds_at_the_path_shapes():
     ms, by, n_ops, n_bytes = cs._ssd_bwd_bound((2, 8, 32, 256, 64, 128))
     assert by == "operations" and n_ops > 2 * cs._ssd_work(
         (2, 8, 32, 256, 64, 128))[0]
+
+
+# ------------------------------------------------- path 5: the serve stack
+def _short_stack_runs():
+    """``_stack_runs`` with shorter fleets: 8 chains a gateway fleet, 64 in
+    the stream; the failure cell stays at 16 (its failures must hit)."""
+    size = {"admit": 8, "gateway": 8, "sim": 16}
+    out = []
+    for run in cs._stack_runs():
+        n = 64 if run.fleet["n_requests"] == 512 else size[run.driver]
+        out.append(run._replace(fleet=dict(run.fleet, n_requests=n)))
+    return out
+
+
+@pytest.fixture
+def counted_scans(monkeypatch):
+    """The solvers' ``minplus_scan`` counting its CPU calls as launches
+    (the count restored after the test)."""
+    monkeypatch.setattr(mp, "scan_launch_count", mp.scan_launch_count)
+    scan = TS.minplus_scan
+
+    def counting(*args, **kw):
+        mp.scan_launch_count += 1
+        return scan(*args, **kw)
+
+    monkeypatch.setattr(TS, "minplus_scan", counting)
+
+
+def test_serve_stack_path_rehearsed_on_the_cpu(counted_scans, capsys):
+    """Path 5 on shortened fleets: every card run == its oracle, each with
+    scans, the launches those of the card runs alone, and the recorder and
+    the solve log taken out again."""
+    import repro_torch.serve as S
+
+    scan, solve = TS.minplus_scan, S.planner.solve
+    runs = _short_stack_runs()
+    out = cs.run_serve_stack_path(T, TS, mp, device="cpu", runs=runs)
+    shapes, operands = out["recorded"]
+    assert out["launches"] == mp.scan_launch_count == sum(shapes.values())
+    assert out["matmul_launches"] == 0
+    assert TS.minplus_scan is scan and S.planner.solve is solve
+    assert all(0 < len(ops) <= cs.RECORDED_OPERANDS
+               for ops in operands.values())
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("serve stack: ") and " == " in ln]
+    assert len(lines) == sum(len(run.pairs) for run in runs)
+    assert {(1, 5, 4), (1, 3, 2)} <= set(shapes)  # scalar replans
+    assert any(n > 1 for n, _, _ in shapes)  # presolve waves
+
+
+def _wrong_dfts_torch(monkeypatch, fault):
+    """The registry's ``dfts_torch`` with its first feasible result made
+    wrong: one plan's middle stage on the stage's other candidate, or the
+    latency one ulp high."""
+    info = T.get_solver("dfts_torch")  # loads the registry
+    done = []
+
+    def spoil(res, candidates):
+        if res.plan is None or done:
+            return res
+        done.append(res)
+        if fault == "placement":
+            place = list(res.plan.placement)
+            place[1] = next(c for c in candidates[1] if c != place[1])
+            return dataclasses.replace(
+                res, plan=dataclasses.replace(res.plan, placement=place))
+        lat = res.latency
+        return dataclasses.replace(res, latency=dataclasses.replace(
+            lat, computation_s=float(np.nextafter(lat.computation_s,
+                                                  np.inf))))
+
+    def fn(net, profile, request, K, candidates, **kw):
+        return spoil(info.fn(net, profile, request, K, candidates, **kw),
+                     candidates)
+
+    def batch(problems, **kw):
+        return [spoil(r, p.candidates)
+                for r, p in zip(info.batch_fn(problems, **kw), problems)]
+
+    monkeypatch.setitem(T.engine._REGISTRY, "dfts_torch",
+                        dataclasses.replace(info, fn=fn, batch_fn=batch))
+    return done
+
+
+@pytest.mark.parametrize("fault", ["placement", "latency"])
+def test_serve_stack_gate_rejects_a_wrong_solver(fault, counted_scans,
+                                                 monkeypatch):
+    run = next(r for r in _short_stack_runs()
+               if r.label.startswith("static"))
+    done = _wrong_dfts_torch(monkeypatch, fault)
+    with pytest.raises(AssertionError, match="differs from dfts_np"):
+        cs.run_serve_stack_path(T, TS, mp, device="cpu", runs=[
+            run._replace(pairs=(("dfts_torch", "dfts_np"),))])
+    assert len(done) == 1

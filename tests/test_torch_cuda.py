@@ -13,6 +13,7 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 from __future__ import annotations
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -899,3 +900,66 @@ def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel):
     for key in ("loss", "grad_norm"):
         assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(
             metrics[1][key])
+
+
+# ------------------------------------------ the serving control plane
+def test_gateway_fleet_on_cuda_matches_dfts_np(cuda):
+    """A 16-request Poisson fleet through ``ServeGateway.run_stream`` at a
+    0.5 s window with exponential holds and the retry queue: ``dfts_torch``
+    on the card ``==`` ``dfts_np`` on the host, record for record, solve
+    for solve, with scans launched (chip_smoke.py's gate, path 5)."""
+    import chip_smoke as cs
+    import repro_torch.serve as S
+
+    net, profile = T.nsfnet(source=T.SOURCE), T.resnet101_profile()
+    run = cs.StackRun("gateway n16 window 0.5", "gateway", dict(
+        n_requests=16, batch_size=2, mode="IF", K=3, seed=0,
+        arrival="poisson", model_id="resnet101", hold_model="exp",
+        hold_time_s=4.0), (("dfts_torch", "dfts_np"),), 0.5)
+    fleet = S.generate_fleet(net, source=T.SOURCE, destination=T.DEST,
+                             **run.fleet)
+    before = mp.scan_launch_count
+    got = cs.drive_stack(S, run, net, profile, fleet, None, "dfts_torch",
+                         {"device": "cuda"})
+    assert mp.scan_launch_count > before
+    want = cs.drive_stack(S, run, net, profile, fleet, None, "dfts_np", None)
+    assert cs.serve_view(*got) == cs.serve_view(*want)
+    assert S.replay_verify_sim(net, profile, got[0].served)
+
+
+def test_serve_cli_plans_on_cuda_by_default(cuda, tmp_path, capsys):
+    """``python -m repro_torch.serve`` with no device flag: ``bcd_torch`` on
+    the card, the same records as the host's ``bcd``."""
+    from repro_torch.serve.__main__ import main
+
+    before = mp.scan_launch_count
+    assert main(["--n-requests", "8", "--json", str(tmp_path / "card.json")
+                 ]) == 0
+    assert mp.scan_launch_count > before
+    assert main(["--n-requests", "8", "--solver", "bcd", "--json",
+                 str(tmp_path / "host.json")]) == 0
+    card, host = (json.loads((tmp_path / f"{n}.json").read_text())
+                  for n in ("card", "host"))
+    assert card["served"] == host["served"]
+    assert card["summary"]["solver"] == "bcd_torch"
+
+
+def test_ft_controller_plans_on_cuda_by_default(cuda):
+    """``ElasticPlanController`` with no solver: ``bcd_torch`` on the card,
+    launching the scan, with the plans and latencies of the host's ``bcd``
+    before and after its middle node fails."""
+    import repro_torch.ft as TF
+
+    net, profile = T.nsfnet(source="v4"), T.resnet101_profile()
+    req = T.ServiceChainRequest("resnet101", "v4", "v13", 8, T.TR)
+    cands = [["v4"], ["v7", "v11"], ["v13"]]
+    before = mp.scan_launch_count
+    card = TF.ElasticPlanController(net, profile, req, 3, cands)
+    assert mp.scan_launch_count > before
+    host = TF.ElasticPlanController(net, profile, req, 3, cands,
+                                    solver="bcd")
+    middle = card.plan.placement[1]
+    for ctl in (card, host):
+        assert ctl.fail_node(middle, step=1) is not None
+    assert card.plan == host.plan
+    assert card.result.latency_s == host.result.latency_s

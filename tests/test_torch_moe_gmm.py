@@ -33,6 +33,7 @@ from repro.models import layers as JL
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import moe_gmm, ops
 from repro_torch.models import layers as L
+from test_torch_flash_attention import _spy
 from test_torch_models import jax_route
 
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}  # tests/test_kernels.py
@@ -53,13 +54,14 @@ def _operands(seed, E, C, D, F, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,C,D,F,act", SHAPES)
-def test_expert_matmul_matches_jax_oracle_and_pallas(E, C, D, F, act, dtype):
+def test_expert_matmul_matches_jax_oracle_and_pallas(E, C, D, F, act, dtype,
+                                                    monkeypatch):
     (jx, jw), (x, w) = _operands(E + C + D, E, C, D, F, dtype)
+    plain = _spy(monkeypatch, moe_gmm, "reference_expert_matmul")
     before = moe_gmm.launch_count
     got = ops.expert_matmul(x, w, act)
     assert moe_gmm.launch_count == before  # the CPU takes the plain version
-    assert torch.equal(got, moe_gmm.reference_expert_matmul(
-        x, w, activation=act))
+    assert len(plain) == 1 and got is plain[0]
     assert got.dtype == x.dtype and got.shape == (E, C, F)
     tol = 8 * TOL[dtype]
     for want in (ref.reference_expert_matmul(jx, jw, activation=act),
