@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's five paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's six paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -47,6 +47,15 @@ and ``ServeSim.run`` on NSFNET x ResNet-101, planning through
 the scan kernel again), each fleet held ``==`` against the same fleet
 planned by the NumPy oracles on the host (``_stack_runs``).
 
+Path 6 is the sweep engine, right after path 5: ``repro_torch.sweep``'s
+``SweepRunner`` on ``cuda`` over the ``nsfnet_paper`` grid at full width
+(ResNet-101's 37 layer groups on the 14-node NSFNET, K 2-7, b 1-256, both
+modes, SWEEP_SEEDS of the paper's 10 candidate seeds) with ``exact`` and
+``bcd_torch``, whose instances its batched presolve solves on the card,
+then the quick tiers of ``nsfnet_gateway`` and ``nsfnet_mixed_training``
+through the serve classes with ``bcd_torch`` on the card, each suite held
+``==`` against the same suite with the host ``bcd`` (``run_sweep_path``).
+
 Phases, in order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
@@ -80,6 +89,20 @@ Phases, in order; any failure exits non-zero:
    oracle's, instances presolved, plan-cache hit rate, ticks and admitted
    share printed, and the card's busy time and idle share over the gated
    card run of the longest fleet, which runs under the profiler;
+   then path 6 (``run_sweep_path``): the scan count set to 0, each suite
+   through ``SweepRunner(workers=0, device="cuda")`` and again with the
+   host ``bcd`` on the CPU, the results, the comparison report and the
+   CSV rows ``==`` (``sweep_view``: SWEEP_UNCOMPARED aside, ``bcd_torch``
+   and its scenario ids mapped to ``bcd``'s), every card result passing
+   ``verify_result`` with no errors, every spec the batched presolve
+   takes in a map it returned (``presolved_maps``), each suite's scans
+   and scan launches equal and not 0, each scan's shape and first
+   operands recorded, each suite's artifact written and reloaded ``==``;
+   each suite's wall and presolve seconds beside the host's, the BCD gap
+   against ``exact`` beside the card, the first seed's presolve again
+   under the profiler (busy time and idle share), a spawned worker's
+   start-up, and four of the specs through SWEEP_WORKERS spawned workers
+   ``==`` the serial run;
 5. path 2, one model after the other: the counts set to 0, the plan and the
    planned chain run on the card, the counts read (the scan and each of the
    model's kernels must have launched), every kernel call's shape and first
@@ -120,8 +143,8 @@ Phases, in order; any failure exits non-zero:
    step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
    printed; the model freed before the next;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
-   shapes of paths 1-3 and 5, on the recorded operands and random ones:
-   the scan ``==`` its plain version at every shape paths 1, 2 and 5
+   shapes of paths 1-3, 5 and 6, on the recorded operands and random ones:
+   the scan ``==`` its plain version at every shape paths 1, 2, 5 and 6
    gave it (recorded, random with +inf holes and an all-+inf tour,
    tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
    path shape timed as below; flash attention at FLASH_TOL, which must also
@@ -158,15 +181,17 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import dataclasses
 import importlib
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -688,7 +713,7 @@ def _top_shape(shapes) -> tuple:
 def check_scan_path(mp, device, recorded, launches_by_path: dict,
                     headline: tuple) -> dict:
     """Phase 6 for the fused scan: ``==`` against the plain version at
-    every shape paths 1, 2 and 5 gave it (on the recorded operands and on
+    every shape paths 1, 2, 5 and 6 gave it (on the recorded operands and on
     random and tie-forcing ones) and at SCAN_GENERIC; then each path shape
     timed.  Returns the kernels-line entry: the numbers of ``headline``
     (path 1's most launched shape, so that the scalar replans of path 5 do
@@ -1169,6 +1194,327 @@ def run_serve_stack_path(C, TS, mp, device: str = "cuda",
     print(f"serve stack: minplus scan launches in all {total}; the gated "
           f"runs' by (N, K, S): " + ", ".join(
               f"{s}: {c}" for s, c in shapes.most_common()))
+    return {"launches": total, "matmul_launches": mp.launch_count,
+            "recorded": (shapes, operands)}
+
+
+# ---------------------------------------------------------------- path 6
+# the BCD scheme of the port's suites and its host oracle: `bcd_torch` is
+# the JAX package's `bcd` with its DP scans on the device
+SWEEP_NAMES = {"bcd_torch": "bcd"}
+# of the paper's 10 candidate seeds, those path 6's nsfnet_paper grid runs:
+# as many as fit a budget of SWEEP_BUDGET_S for the whole path on an H100
+# (5 seeds passed it in one run of three); a run past it prints a warning
+SWEEP_SEEDS = 4
+SWEEP_BUDGET_S = 60.0
+SWEEP_FLEETS = ("nsfnet_gateway", "nsfnet_mixed_training")  # quick tiers
+SWEEP_WORKERS = 2  # processes of the pool run
+# what two runs of one sweep with the same solvers, each in a fresh
+# context, may differ in: the wall clocks and what the report derives from
+# them (speedups, Pareto fronts)
+SWEEP_WALL = ("wall_time_s", "wall_s", "tick_wall_total_s",
+              "tick_wall_mean_s", "tick_wall_pct", "admissions_per_s",
+              "speedup_vs_ref", "mean_speedup_vs_ref", "pareto_front",
+              "pareto_count")
+# and what a card solver's run and its host oracle's may also differ in:
+# the engine's EvalCache counters, which the torch solvers do not touch
+# and which count what earlier scenarios of the same process left in the
+# shared cache
+SWEEP_UNCOMPARED = SWEEP_WALL + ("eval_cache", "eval_cache_hit_rate")
+
+
+def sweep_names(results, names: dict = SWEEP_NAMES) -> dict:
+    """``names`` (card solver -> its host oracle) and, for each result of
+    a card solver, its scenario id -> the id of the same spec with the
+    oracle (the id hashes the solver)."""
+    out = dict(names)
+    for r in results:
+        if r.spec.solver in names:
+            twin = type(r.spec).from_dict(
+                {**r.spec.to_dict(), "solver": names[r.spec.solver]})
+            out[r.spec.scenario_id()] = twin.scenario_id()
+    return out
+
+
+def _renamed(value, names: dict):
+    if isinstance(value, dict):
+        return {names.get(k, k): _renamed(v, names) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_renamed(v, names) for v in value]
+    if isinstance(value, str):
+        return names.get(value, value)
+    return value
+
+
+def sweep_view(W, results, out_dir, names: dict | None = None,
+               uncompared=SWEEP_UNCOMPARED) -> dict:
+    """A sweep of either package as plain values (``W``: its sweep
+    package): every result with its spec, the comparison report and the
+    CSV rows of its artifact (written to ``out_dir``), ``uncompared`` left
+    out and every key or string of ``names`` renamed (``sweep_names``)."""
+    art = importlib.import_module(f"{W.__name__}.artifacts")
+    paths = art.write_artifacts(out_dir, "view", results)
+    with open(paths["csv"], newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    view = {"results": [r.to_dict() for r in results],
+            "report": W.comparison_report(results), "csv": rows}
+    return _renamed(_without(view, uncompared), names or {})
+
+
+@contextlib.contextmanager
+def presolved_maps(WR):
+    """Inside the block, every map ``SweepRunner._batch_presolve`` of the
+    runner module ``WR`` returns, in order, and the seconds it spent."""
+    maps: list = []
+    original = WR.SweepRunner._batch_presolve
+    spent = {"presolve": 0.0}
+
+    def watched(self, specs):
+        t0 = time.perf_counter()
+        out = original(self, specs)
+        spent["presolve"] += time.perf_counter() - t0
+        maps.append(out)
+        return out
+
+    WR.SweepRunner._batch_presolve = watched
+    try:
+        yield maps, spent
+    finally:
+        WR.SweepRunner._batch_presolve = original
+
+
+def presolve_eligible(C, specs) -> list:
+    """The specs ``_batch_presolve`` takes: single-chain specs of a solver
+    with a batch entry, in a (solver, solver_kwargs) group of at least two
+    (a group of one has nothing to amortise)."""
+    groups: dict = {}
+    for s in specs:
+        if s.n_requests == 1 and C.get_solver(s.solver).batch_fn is not None:
+            kw = json.dumps(s.solver_kwargs, sort_keys=True, default=str)
+            groups.setdefault((s.solver, kw), []).append(s)
+    return [s for g in groups.values() if len(g) >= 2 for s in g]
+
+
+def _check_presolved(C, WR, specs, maps) -> int:
+    """Every spec of ``specs`` that ``_batch_presolve`` takes must be in a
+    map it returned, so that a fault of the batch entry cannot hide behind
+    the scalar loop that its ``except`` falls back to."""
+    merged: dict = {}
+    for m in maps:
+        merged.update(m)
+    eligible = presolve_eligible(C, specs)
+    missing = [s.scenario_id() for s in eligible
+               if WR._presolve_key(s, s.problem(*WR._context(s)[:2]))
+               not in merged]
+    if missing:
+        raise AssertionError(f"{len(missing)} of {len(eligible)} specs of the "
+                             f"batched presolve were solved one by one, e.g. "
+                             f"{missing[:3]}")
+    return len(eligible)
+
+
+def _verified(W, result) -> bool:
+    """``verify_result``, a plan it rejects by raising counted as False."""
+    try:
+        return W.verify_result(result)
+    except (AssertionError, ValueError):
+        return False
+
+
+def _sweep_errors(W, what: str, runner, results) -> None:
+    if runner.last_stats["n_errors"]:
+        raise AssertionError(f"{what}: {runner.last_stats['errors']}")
+    bad = [r.spec.scenario_id() for r in results if not _verified(W, r)]
+    if bad:
+        raise AssertionError(f"{what}: verify_result fails on {len(bad)} "
+                             f"results, e.g. {bad[:3]}")
+
+
+def _spawned_ready(device: str) -> float:
+    """In a worker: import the sweep runner and make ``device`` ready (a
+    CUDA context on the card); the seconds that took."""
+    t0 = time.perf_counter()
+    importlib.import_module("repro_torch.sweep.runner")
+    torch.zeros(1, device=device).sum().item()
+    return time.perf_counter() - t0
+
+
+def _sweep_suite(W, WR, C, mp, name, specs, oracle_specs, device, tmp,
+                 shapes) -> tuple:
+    """One suite of path 6 on ``device`` and with the host's ``bcd``, held
+    ``==``; its artifact written and reloaded ``==``.  Returns the card's
+    results, the presolved maps and the scan launches."""
+    from repro_torch.sweep.artifacts import load_artifact, write_artifacts
+    from repro_torch.sweep.suites import BCD
+
+    runner = W.SweepRunner(workers=0, device=device)
+    scans, launches = sum(shapes.values()), mp.scan_launch_count
+    with presolved_maps(WR) as (maps, spent):
+        t0 = time.perf_counter()
+        got = runner.run(specs)
+        wall = time.perf_counter() - t0
+    scans = sum(shapes.values()) - scans
+    launches = mp.scan_launch_count - launches
+    what = f"sweep: {name} ({device})"
+    _sweep_errors(W, what, runner, got)
+    n_presolved = _check_presolved(C, WR, specs, maps)
+    if launches == 0 or scans != launches:
+        raise AssertionError(f"{what}: {scans} scans, {launches} scan "
+                             f"launches")
+    host_runner = W.SweepRunner(workers=0, device="cpu")
+    with presolved_maps(WR) as (_, host_spent):
+        t0 = time.perf_counter()
+        want = host_runner.run(oracle_specs)
+        host_wall = time.perf_counter() - t0
+    _sweep_errors(W, f"sweep: {name} (host)", host_runner, want)
+    if (sweep_view(W, got, tmp / "card", sweep_names(got))
+            != sweep_view(W, want, tmp / "host")):
+        raise AssertionError(f"{what} differs from the host's bcd")
+    n_single = sum(s.solver == BCD and s.n_requests == 1 for s in specs)
+    print(f"{what} == the host's bcd (cpu) in {len(got)} results, the "
+          f"report and the CSV rows: wall {wall!r} s (host {host_wall!r} s), "
+          f"presolve {spent['presolve']!r} s (host "
+          f"{host_spent['presolve']!r} s), {n_presolved} of {n_single} "
+          f"single-chain {BCD} scenarios presolved, {scans} scans, "
+          f"{launches} minplus scan launches")
+    paths = write_artifacts(tmp / "artifacts", name, got,
+                            meta={"stats": runner.last_stats})
+    meta, back = load_artifact(paths["json"])
+    if ([r.to_dict() for r in back]
+            != json.loads(json.dumps([r.to_dict() for r in got]))
+            or meta["report"] != json.loads(json.dumps(
+                W.comparison_report(got)))):
+        raise AssertionError(f"{what}: the artifact does not reload ==")
+    return got, maps, launches
+
+
+def _profiled_presolve(W, WR, mp, specs, presolved, device) -> None:
+    """The presolve of ``specs`` again, under the profiler on the card: its
+    outcomes must be the gated run's (``presolved``); prints the card's
+    busy time and idle share."""
+    runner = W.SweepRunner(workers=0, device=device)
+    before = mp.scan_launch_count
+    again = {}
+    if device == "cuda":
+        wall_us, dev_us, by_name = _device_us(
+            lambda: again.update(runner._batch_presolve(specs)))
+    else:
+        again.update(runner._batch_presolve(specs))
+    keys = {WR._presolve_key(s, s.problem(*WR._context(s)[:2]))
+            for s in specs}
+    if set(again) != keys or any(_plain(again[k]) != _plain(presolved[k])
+                                 for k in keys):
+        raise AssertionError("sweep: the profiled presolve differs from the "
+                             "gated one")
+    if device == "cuda":
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"sweep: the presolve of {len(specs)} instances of seed "
+              f"{specs[0].candidate_seed} under the profiler, "
+              f"{mp.scan_launch_count - before} scans: device busy "
+              f"{dev_us!r} us of the wall {wall_us!r} us (idle "
+              f"{1.0 - dev_us / wall_us!r}); top device time (us): {top}")
+
+
+def _pool_check(W, specs, serial, device, tmp) -> None:
+    """A spawned worker's start-up, then ``specs`` through SWEEP_WORKERS
+    spawned workers on ``device``, ``==`` their ``serial`` results."""
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        inside = pool.submit(_spawned_ready, str(device)).result()
+    print(f"sweep: a spawned worker ready in {time.perf_counter() - t0!r} s, "
+          f"{inside!r} s of it importing repro_torch.sweep and making "
+          f"{device} ready")
+    runner = W.SweepRunner(workers=SWEEP_WORKERS, device=device)
+    t0 = time.perf_counter()
+    pooled = runner.run(specs)
+    wall = time.perf_counter() - t0
+    _sweep_errors(W, "sweep: the pool", runner, pooled)
+    if (sweep_view(W, pooled, tmp / "pool")
+            != sweep_view(W, [serial[s.scenario_id()] for s in specs],
+                          tmp / "serial")):
+        raise AssertionError("sweep: the pool's results differ from the "
+                             "serial run's")
+    print(f"sweep: {len(specs)} scenarios through {SWEEP_WORKERS} spawned "
+          f"workers ({device}) == the serial run: wall {wall!r} s")
+
+
+def run_sweep_path(C, TS, mp, device: str = "cuda", card: str = "",
+                   quick: bool = False, fleets=SWEEP_FLEETS) -> dict:
+    """Path 6: the sweep engine, ``repro_torch.sweep.SweepRunner`` on
+    ``device``.  The ``nsfnet_paper`` grid (K 2-7, b 1-256, both modes, the
+    first SWEEP_SEEDS candidate seeds; ``quick`` its quick tier) with
+    ``exact`` and ``bcd_torch``, then the quick tiers of ``fleets``, each
+    suite ``==`` the same suite run with the host ``bcd`` on the CPU
+    (``_sweep_suite``); the presolve of the first seed's ``bcd_torch``
+    specs again under the profiler; a few specs through a pool of
+    SWEEP_WORKERS spawned workers ``==`` the serial run.  Returns the scan
+    launches of the gated runs and the recorded scan shapes and
+    operands."""
+    import tempfile
+
+    import repro_torch.sweep as W
+    from repro_torch.sweep import runner as WR
+    from repro_torch.sweep import suites as WS
+
+    t_path = time.perf_counter()
+    host_bcd = SWEEP_NAMES[WS.BCD]
+    grid = WS.nsfnet_paper(quick=quick, seeds=SWEEP_SEEDS,
+                           schemes=("exact", WS.BCD))
+    net, profile = grid[0].build_network(), grid[0].build_profile()
+    if profile.L != 37 or len(net.nodes) != 14:
+        raise AssertionError("ResNet-101 at full width on NSFNET expected")
+    suites = [("nsfnet_paper", grid, WS.nsfnet_paper(
+        quick=quick, seeds=SWEEP_SEEDS, schemes=("exact", host_bcd)))] + [
+        (name, WS.SUITES[name](quick=True),
+         WS.SUITES[name](quick=True, schemes=(host_bcd,)))
+        for name in fleets]
+    n_seeds = len({s.candidate_seed for s in grid})
+    print(f"sweep: nsfnet_paper with {n_seeds} of the paper's 10 seeds, "
+          f"{len(grid)} scenarios (K {sorted({s.K for s in grid})}, b "
+          f"{sorted({s.batch_size for s in grid})}, modes IF and TR, exact "
+          f"and {WS.BCD}), then the quick tiers of {', '.join(fleets)}")
+
+    mp.scan_launch_count = mp.launch_count = 0
+    total, card_results, presolved = 0, {}, {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        with record_calls(TS, "minplus_scan", _scan_key) as (shapes,
+                                                             operands):
+            for name, specs, oracle_specs in suites:
+                got, maps, launches = _sweep_suite(
+                    W, WR, C, mp, name, specs, oracle_specs, device, tmp,
+                    shapes)
+                total += launches
+                card_results[name] = got
+                for m in maps:
+                    presolved.update(m)
+        if mp.scan_launch_count != total:
+            raise AssertionError("minplus scan launches outside the card "
+                                 "sweeps")
+        gap = W.comparison_report(
+            card_results["nsfnet_paper"])["summary"][WS.BCD]
+        print(f"sweep: nsfnet_paper, {WS.BCD} against exact (the paper's "
+              f"Figs. 4 and 5): mean gap {gap['mean_gap_pct']!r} %, max gap "
+              f"{gap['max_gap_pct']!r} % over {gap['n_feasible']} feasible "
+              f"of {gap['n']}; card {card}")
+        _profiled_presolve(W, WR, mp, [
+            s for s in grid if s.solver == WS.BCD
+            and s.candidate_seed == grid[0].candidate_seed], presolved,
+            device)
+        _pool_check(W, [s for s in grid if s.solver == WS.BCD][:2]
+                    + [s for s in grid if s.solver == "exact"][:1]
+                    + [s for s in suites[-1][1] if s.solver == WS.BCD][:1],
+                    {r.spec.scenario_id(): r
+                     for rs in card_results.values() for r in rs},
+                    device, tmp)
+    spent = time.perf_counter() - t_path
+    print(f"sweep: minplus scan launches in all {total}; path 6 in "
+          f"{spent!r} s ({n_seeds} seeds); the gated runs' scans by (N, K, "
+          f"S): " + ", ".join(f"{s}: {c}" for s, c in shapes.most_common(8)))
+    if not quick and spent > SWEEP_BUDGET_S:
+        print(f"sweep: warning: path 6 took {spent!r} s, past its budget of "
+              f"{SWEEP_BUDGET_S} s; lower SWEEP_SEEDS")
     return {"launches": total, "matmul_launches": mp.launch_count,
             "recorded": (shapes, operands)}
 
@@ -3059,21 +3405,25 @@ def main() -> int:
 
     path = run_main_path(C, TS, mp)
     stack = run_serve_stack_path(C, TS, mp)
+    sweep = run_sweep_path(C, TS, mp, card=card)
     by_model = {}
     for name in MODELS:
         by_model[name] = run_model_path(name, mods, device)
     matmul["launches_by_path"] = {
         "planner": path["matmul_launches"],
-        "serve-stack": stack["matmul_launches"], **{
+        "serve-stack": stack["matmul_launches"],
+        "sweep": sweep["matmul_launches"], **{
             name: by_model[name]["launches"]["minplus"] for name in MODELS}}
     matmul["launches"] = sum(matmul["launches_by_path"].values())
     print(f"clocks before the kernel timings (sm, max sm, temperature): "
           f"{_clocks_line()}")
     time_minplus_matmul(mp, device, matmul)
     kernels = [check_scan_path(
-        mp, device, _merge([path["recorded"], stack["recorded"]] + [
+        mp, device, _merge([path["recorded"], stack["recorded"],
+                            sweep["recorded"]] + [
             by_model[name]["recorded"]["minplus_scan"] for name in MODELS]),
-        {"planner": path["launches"], "serve-stack": stack["launches"], **{
+        {"planner": path["launches"], "serve-stack": stack["launches"],
+         "sweep": sweep["launches"], **{
             name: by_model[name]["launches"]["minplus_scan"]
             for name in MODELS}}, _top_shape(path["recorded"][0])), matmul]
     print(f"clocks after the minplus_scan timings (sm, max sm, "

@@ -24,6 +24,7 @@ from repro_torch.core import torch_solvers as TS
 from repro_torch.kernels import minplus as mp
 from repro_torch.models import layers as ML
 from repro_torch.models import transformer as MT
+from test_torch_sweep import one_thread  # noqa: F401  (a fixture)
 
 CALLS = 10
 KERNEL = "minplus_kernel"
@@ -631,4 +632,80 @@ def test_serve_stack_gate_rejects_a_wrong_solver(fault, counted_scans,
     with pytest.raises(AssertionError, match="differs from dfts_np"):
         cs.run_serve_stack_path(T, TS, mp, device="cpu", runs=[
             run._replace(pairs=(("dfts_torch", "dfts_np"),))])
+    assert len(done) == 1
+
+
+# ------------------------------------------------- path 6: the sweep engine
+@pytest.mark.usefixtures("one_thread")
+def test_sweep_path_rehearsed_on_the_cpu(counted_scans, capsys):
+    """Path 6 on the quick tier of ``nsfnet_paper`` and the
+    ``nsfnet_gateway`` quick tier: every suite == its host run, every
+    ``bcd_torch`` spec presolved, the scans launched, the pool == the
+    serial run, and the recorder and the presolve watch taken out again."""
+    from repro_torch.sweep import runner as WR
+
+    scan, presolve = TS.minplus_scan, WR.SweepRunner._batch_presolve
+    out = cs.run_sweep_path(T, TS, mp, device="cpu", card="cpu",
+                            quick=True, fleets=("nsfnet_gateway",))
+    shapes, operands = out["recorded"]
+    assert out["launches"] == sum(shapes.values()) > 0
+    assert mp.scan_launch_count > out["launches"]  # the profiled presolve
+    assert out["matmul_launches"] == 0
+    assert TS.minplus_scan is scan
+    assert WR.SweepRunner._batch_presolve is presolve
+    assert all(0 < len(ops) <= cs.RECORDED_OPERANDS
+               for ops in operands.values())
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(" == the host's bcd " in ln for ln in lines) == 2
+    assert any("36 of 36 single-chain bcd_torch scenarios presolved" in ln
+               for ln in lines)
+    assert any("spawned workers (cpu) == the serial run" in ln
+               for ln in lines)
+    assert {(1, 3, 2), (1, 5, 2)} <= set(shapes)
+
+
+def _wrong_bcd_torch(monkeypatch, fault):
+    """The registry's ``bcd_torch`` with its first feasible result made
+    wrong: one plan's middle stage on the stage's other candidate, or the
+    latency one ulp high."""
+    info = T.get_solver("bcd_torch")
+    done = []
+
+    def spoil(res, candidates):
+        if not res.feasible or done or len(candidates) < 3:
+            return res
+        done.append(res)
+        plan = res.plan
+        if fault == "placement":
+            place = list(plan.placement)
+            place[1] = next(c for c in candidates[1] if c != place[1])
+            plan = dataclasses.replace(plan, placement=place)
+            return dataclasses.replace(res, plan=plan)
+        lat = res.latency
+        return dataclasses.replace(res, latency=dataclasses.replace(
+            lat, computation_s=float(np.nextafter(lat.computation_s,
+                                                  np.inf))))
+
+    def batch(problems, **kw):
+        return [spoil(r, p.candidates)
+                for r, p in zip(info.batch_fn(problems, **kw), problems)]
+
+    monkeypatch.setitem(T.engine._REGISTRY, "bcd_torch",
+                        dataclasses.replace(info, batch_fn=batch))
+    return done
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("fault, gate", [
+    ("placement", "verify_result fails"),
+    ("latency", "differs from the host's bcd")])
+def test_sweep_gate_rejects_a_wrong_solver(fault, gate, counted_scans,
+                                           monkeypatch):
+    """A plan with its middle stage moved fails ``verify_result``; a
+    latency an ulp high passes it (it holds to 1e-9) and fails the ``==``
+    gate against the host's ``bcd``."""
+    done = _wrong_bcd_torch(monkeypatch, fault)
+    with pytest.raises(AssertionError, match=gate):
+        cs.run_sweep_path(T, TS, mp, device="cpu", card="cpu", quick=True,
+                          fleets=())
     assert len(done) == 1

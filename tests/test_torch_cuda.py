@@ -2,8 +2,9 @@
 flash-attention, SSD, expert-matmul and RG-LRU kernels against their plain
 versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy
 oracles, a planned chain of a reduced model through the kernels against
-the same chain on the CPU, and the serving engine's prefill and decode
-steps on the card against the same on the CPU.
+the same chain on the CPU, the serving engine's prefill and decode
+steps on the card against the same on the CPU, the serving control plane
+and the sweep engine on the card against the host's oracles.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -963,3 +964,44 @@ def test_ft_controller_plans_on_cuda_by_default(cuda):
         assert ctl.fail_node(middle, step=1) is not None
     assert card.plan == host.plan
     assert card.result.latency_s == host.result.latency_s
+
+
+# ------------------------------------------------------- the sweep engine
+def test_sweep_grid_on_cuda_matches_the_host(cuda, tmp_path):
+    """The ``nsfnet_paper`` grid at one seed and K 2-4 through
+    ``SweepRunner`` on the card (the default device): ``bcd_torch``'s
+    results, report and CSV rows ``==`` the same grid with the host's
+    ``bcd`` once the name is mapped, every ``bcd_torch`` spec presolved,
+    scans launched (chip_smoke.py's gates, path 6)."""
+    import chip_smoke as cs
+    import repro_torch.sweep as W
+    from repro_torch.sweep import runner as WR
+    from repro_torch.sweep import suites as WS
+
+    grid = [s for s in WS.nsfnet_paper(seeds=1, schemes=("exact", WS.BCD))
+            if s.K <= 4]
+    host = [s for s in WS.nsfnet_paper(seeds=1, schemes=("exact", "bcd"))
+            if s.K <= 4]
+    before = mp.scan_launch_count
+    runner = W.SweepRunner()
+    with cs.presolved_maps(WR) as (maps, _):
+        got = runner.run(grid)
+    assert mp.scan_launch_count > before
+    assert runner.last_stats["n_errors"] == 0
+    assert cs._check_presolved(T, WR, grid, maps) == len(grid) // 2
+    want = W.SweepRunner(device="cpu").run(host)
+    assert (cs.sweep_view(W, got, tmp_path / "card", cs.sweep_names(got))
+            == cs.sweep_view(W, want, tmp_path / "host"))
+    assert all(W.verify_result(r) for r in got)
+
+
+def test_sweep_cli_runs_on_cuda_by_default(cuda, tmp_path, capsys):
+    """``python -m repro_torch.sweep`` with no device flag runs the
+    ``nsfnet_paper`` quick tier's ``bcd_torch`` scenarios on the card."""
+    from repro_torch.sweep.__main__ import main
+
+    before = mp.scan_launch_count
+    assert main(["--suite", "nsfnet_paper", "--quick", "--no-cache",
+                 "--out", str(tmp_path)]) == 0
+    assert mp.scan_launch_count > before
+    assert "bcd_torch" in capsys.readouterr().out

@@ -54,7 +54,8 @@ def test_import_initialises_no_cuda():
             "repro_torch.models, repro_torch.msl, repro_torch.serving, "
             "repro_torch.optim, repro_torch.data, repro_torch.train, "
             "repro_torch.serve, repro_torch.serve.__main__, "
-            "repro_torch.sweep, repro_torch.ft\n"
+            "repro_torch.sweep, repro_torch.sweep.__main__, "
+            "repro_torch.sweep.artifacts, repro_torch.ft\n"
             "assert not torch.cuda.is_initialized()\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               or m == 'repro' for m in sys.modules)\n")
