@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's six paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's seven paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -55,6 +55,16 @@ modes, SWEEP_SEEDS of the paper's 10 candidate seeds) with ``exact`` and
 then the quick tiers of ``nsfnet_gateway`` and ``nsfnet_mixed_training``
 through the serve classes with ``bcd_torch`` on the card, each suite held
 ``==`` against the same suite with the host ``bcd`` (``run_sweep_path``).
+
+Path 7 is the pipeline runtime, inside every model's turn (PIPELINE):
+right after path 2, on its weights, ``plan_pipeline(mode="TR")`` at a
+microbatch of B / PIPE_MICRO rows and ``msl.pipeline_forward`` of the
+batch in PIPE_MICRO microbatches through the plan's stages (recurrentgemma-9b
+at B 2 x S 4096, its two remainder layers a 13th group); for the models of
+TRAIN right after path 4, PIPE_STEPS steps of
+``msl.make_pipeline_train_step`` from the seeded weights; after the last
+model, ``repro_torch.launch.train`` (``--mode msl-pp``, straight and
+resumed) and ``repro_torch.launch.serve`` at ``--reduced``.
 
 Phases, in order; any failure exits non-zero:
 
@@ -141,10 +151,24 @@ Phases, in order; any failure exits non-zero:
    launches a layer under remat and one backward a step), every loss and
    grad norm finite, the loss on ``batch_at(0)`` lower at step 3 than at
    step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
-   printed; the model freed before the next;
+   printed; then path 7's pipelined forward (``run_pipeline_path``, after
+   path 2's checks): the counts set to 0 just before the plan and read
+   just after the forward, each microbatch's hidden state ``==``
+   ``T.forward`` of its rows and the aux ``==`` theirs over M + K - 1, each
+   kernel launched as in those forwards, the whole batch's forward within
+   CHECK_TOL (MoE: printed at full depth, gated route-aware at
+   TRAIN_CHECK_DEPTH repetitions); and after path 4 its train steps
+   (``run_pipeline_train_path``): the pipelined loss and gradients at
+   TRAIN_CHECK_DEPTH repetitions within CHECK_TOL of ``loss_fn``'s, the
+   steps' launches counted (two forward and one backward a layer and
+   microbatch), finite, the loss on ``batch_at(0)`` falling, the p50,
+   tokens/s and peak printed beside path 4's; the model freed before the
+   next; after the last model, the launchers (``run_launch_path``): the
+   resumed run's final checkpoint ``==`` the straight run's, the flash
+   forward and backward counted;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
-   shapes of paths 1-3, 5 and 6, on the recorded operands and random ones:
-   the scan ``==`` its plain version at every shape paths 1, 2, 5 and 6
+   shapes of paths 1-3 and 5-7, on the recorded operands and random ones:
+   the scan ``==`` its plain version at every shape paths 1, 2 and 5-7
    gave it (recorded, random with +inf holes and an all-+inf tour,
    tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
    path shape timed as below; flash attention at FLASH_TOL, which must also
@@ -175,7 +199,8 @@ Phases, in order; any failure exits non-zero:
    SSD_BWD_WITNESS and rejecting ddt without its reverse-cumsum term and
    dA with its sign flipped), flash's yardstick the backward of
    ``scaled_dot_product_attention``;
-7. one JSON line of per-kernel numbers, the card line, then the result line.
+7. each phase's wall, one JSON line of per-kernel numbers, the card line,
+   then the result line.
 """
 from __future__ import annotations
 
@@ -713,7 +738,7 @@ def _top_shape(shapes) -> tuple:
 def check_scan_path(mp, device, recorded, launches_by_path: dict,
                     headline: tuple) -> dict:
     """Phase 6 for the fused scan: ``==`` against the plain version at
-    every shape paths 1, 2, 5 and 6 gave it (on the recorded operands and on
+    every shape paths 1, 2 and 5-7 gave it (on the recorded operands and on
     random and tie-forcing ones) and at SCAN_GENERIC; then each path shape
     timed.  Returns the kernels-line entry: the numbers of ``headline``
     (path 1's most launched shape, so that the scalar replans of path 5 do
@@ -1204,8 +1229,10 @@ def run_serve_stack_path(C, TS, mp, device: str = "cuda",
 SWEEP_NAMES = {"bcd_torch": "bcd"}
 # of the paper's 10 candidate seeds, those path 6's nsfnet_paper grid runs:
 # as many as fit a budget of SWEEP_BUDGET_S for the whole path on an H100
-# (5 seeds passed it in one run of three); a run past it prints a warning
-SWEEP_SEEDS = 4
+# (5 seeds passed it in one run of three); a run past it prints a warning.
+# 3 since path 7 came in, to hold the whole run near its length before it
+# (4 seeds: 54.2-56.7 s for path 6, all phases 478.8-543.3 s)
+SWEEP_SEEDS = 3
 SWEEP_BUDGET_S = 60.0
 SWEEP_FLEETS = ("nsfnet_gateway", "nsfnet_mixed_training")  # quick tiers
 SWEEP_WORKERS = 2  # processes of the pool run
@@ -2238,7 +2265,8 @@ def _rel(out, ref) -> float:
     return float((out - ref).abs().max() / ref.abs().max())
 
 
-def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int) -> str:
+def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int,
+              names: tuple[str, str] = ("card", "CPU")) -> str:
     """The card-vs-CPU gate of a model with MoE layers, on the tokens
     (rows of ``rows`` sequences, each a row of ``got``): ``own`` is the
     CPU's output with its own routing, ``replayed`` with the card's expert
@@ -2248,8 +2276,11 @@ def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int) -> str:
     each sequence before its first token that routes otherwise must be
     within CHECK_TOL of ``own`` (attention carries a differing pick to
     every later token of its sequence), and every token within CHECK_TOL
-    of ``replayed``.  Raises on a failure, else returns the readings."""
+    of ``replayed``.  ``names`` names the two runs in the readings.
+    Raises on a failure, else returns the readings."""
     from repro_torch.models import layers as ML
+
+    card, cpu = names
 
     ra = ML.routing_agreement([(r.logits, r.idx, r.keep) for r in card_routes],
                               [(r.logits, r.idx, r.keep) for r in cpu_routes])
@@ -2259,19 +2290,20 @@ def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int) -> str:
     line = (f"routing: {ra.flips} of {ra.picks} expert picks differ by slot, "
             f"{ra.diverged} of {len(own)} tokens keep other experts at some "
             f"layer, each first at a near tie (the largest distance of a "
-            f"differing expert from the CPU's top-k cut {ra.worst_gap!r} of "
-            f"the largest |logit|, limit {CHECK_TOL}), "
+            f"differing expert from the {cpu}'s top-k cut {ra.worst_gap!r} "
+            f"of the largest |logit|, limit {CHECK_TOL}), "
             f"{int(ra.agree.sum())} keep the same experts at every layer; "
             f"the {int(first.sum())} tokens before their sequence's first "
             f"that routes otherwise {err_first!r}, every token with the "
-            f"card's picks replayed on the CPU {err_all!r} of the largest "
-            f"magnitude (limit {CHECK_TOL})")
+            f"{card}'s picks replayed on the {cpu} {err_all!r} of the "
+            f"largest magnitude (limit {CHECK_TOL})")
     if not ra.flips_are_near_ties(CHECK_TOL) \
             or 2 * int(ra.agree.sum()) < len(own):
-        raise AssertionError(f"the card's routing is not the CPU's up to "
-                             f"near ties; {line}")
+        raise AssertionError(f"the {card}'s routing is not the {cpu}'s up "
+                             f"to near ties; {line}")
     if not (err_first < CHECK_TOL and err_all < CHECK_TOL):
-        raise AssertionError(f"card and CPU differ past the limit; {line}")
+        raise AssertionError(f"{card} and {cpu} differ past the limit; "
+                             f"{line}")
     return line
 
 
@@ -2411,16 +2443,22 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     _check_on_cpu(name, cfg, params, tokens, pos)
     del sim, out, warm, h, mono
     torch.cuda.empty_cache()
-    serve = train = None
+    pipeline = run_pipeline_path(name, cfg, params, PIPELINE[name], mods,
+                                 device)
+    serve = train = pipeline_train = None
     if name in SERVE:
         serve = run_serve_path(name, cfg, params, SERVE[name], spec.kernels,
                                mods, device)
     if name in TRAIN:
         train = run_train_path(name, cfg, params, TRAIN[name], mods, device)
-    del params
+    del params  # path 7's steps draw the seeded weights again
     torch.cuda.empty_cache()
+    if name in TRAIN:
+        pipeline_train = run_pipeline_train_path(name, cfg, TRAIN[name],
+                                                 mods, device, train)
     return {"launches": launches, "recorded": recorded, "serve": serve,
-            "train": train}
+            "train": train, "pipeline": pipeline,
+            "pipeline train": pipeline_train}
 
 
 def serve_prompts(traffic: ServeTraffic, vocab: int) -> list:
@@ -2975,6 +3013,409 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
             "peak_bytes": peak}
 
 
+# ------------------------------------------------------------------ path 7 --
+class PipeTraffic(NamedTuple):
+    """Path 7's forward for one model: ``batch`` x ``seq`` tokens in
+    PIPE_MICRO microbatches."""
+    batch: int
+    seq: int
+
+
+# path 7, in each model's turn: the forward right after path 2, and for the
+# models of TRAIN, PIPE_STEPS pipelined train steps on path 4's traffic
+# right after path 4; recurrentgemma at S 4096, so that its window masks
+# keys, and at full depth its 13th group is the two remainder layers
+PIPE_MICRO = 2
+PIPE_STEPS = 4
+PIPELINE = {
+    "qwen2-1.5b": PipeTraffic(2, 2048),
+    "mamba2-370m": PipeTraffic(2, 2048),
+    "qwen3-moe-30b-a3b": PipeTraffic(2, 2048),
+    "recurrentgemma-9b": PipeTraffic(2, 4096),
+}
+LAUNCH_ARCH = "qwen2-1.5b"  # the launchers' model, at --reduced
+
+
+def _cat_routes(per_micro: list) -> list:
+    """Each MoE layer's routings of the microbatches, one per layer, as
+    one routing of the whole batch (the groups of 1,024 tokens of the
+    microbatches, in order, are the whole batch's)."""
+    from repro_torch.models import layers as ML
+
+    return [ML.Routing(*(torch.cat(parts) for parts in zip(
+        *(r[:-1] for r in layer))), layer[0].capacity)
+        for layer in zip(*per_micro)]
+
+
+def _pipe_whole_batch(name, cfg, params, tokens, hidden) -> str:
+    """The pipelined hidden state against ``T.forward`` of the whole batch
+    on the card, within CHECK_TOL of the largest magnitude: the same
+    blocks on other shapes.  With MoE layers the whole batch's router
+    products round otherwise (fp32 GEMMs of other shapes), so near ties
+    pick other experts and bf16 carries each difference through the depth
+    (call 3, PR 25: 4,089 of 4,096 tokens of qwen3-moe-30b-a3b kept other
+    experts at some layer of 48, every one first at a near tie, and with
+    the microbatches' picks replayed the whole batch still lay 0.025 of
+    the largest magnitude away).  So there the full depth is printed and
+    the gate is path 2's: the first TRAIN_CHECK_DEPTH repetitions through
+    the pipeline (one stage, the microbatches in order) against the whole
+    batch's forward of them, route-aware (``_moe_gate``), with its own
+    routing and with the microbatches' expert picks replayed."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import PipelinePlan, make_pipeline_mesh
+    from repro_torch.msl import pipeline as MP
+
+    B, S = tokens.shape
+    M = PIPE_MICRO
+    ctx = ML.Ctx(mode="train", positions=torch.arange(
+        S, device=tokens.device).expand(B, S))
+    with torch.no_grad():
+        whole, _, _ = MT.forward(params, cfg, tokens, ctx)
+    err = _rel(hidden.float(), whole.float())
+    if not cfg.n_experts:
+        if not err < CHECK_TOL:
+            raise AssertionError(f"{name}: the pipelined hidden state lies "
+                                 f"{err!r} of the largest magnitude from the "
+                                 f"whole batch's forward (limit {CHECK_TOL})")
+        return f"{err!r} of the largest magnitude (limit {CHECK_TOL})"
+    if (B // M * S) % ML.MOE_GROUP:
+        raise ValueError(f"{name}: a microbatch of {B // M * S} tokens is "
+                         f"not whole MoE groups of {ML.MOE_GROUP}, so its "
+                         f"routing is not the whole batch's")
+    n = min(cfg.n_layers, TRAIN_CHECK_DEPTH * len(cfg.pattern))
+    R = -(-n // len(cfg.pattern))
+    sub_cfg = dataclasses.replace(cfg, n_layers=n)
+    sub = dict(params, stack={"layers": params["stack"]["layers"][:n]})
+    plan = PipelinePlan(K=1, segments=[(1, R)], placement=["s0"],
+                        n_groups=R, predicted_latency_s=0.0, breakdown={})
+    with torch.no_grad(), record_routes() as routes:
+        got, _ = MP.pipeline_forward(sub, {"tokens": tokens}, sub_cfg,
+                                     make_pipeline_mesh(1,
+                                                        device=tokens.device),
+                                     plan, M)
+    per = len(routes) // M  # one stage: microbatch by microbatch
+    picks = _cat_routes([routes[m * per:(m + 1) * per] for m in range(M)])
+    with torch.no_grad(), record_routes() as own:
+        want, _, _ = MT.forward(sub, sub_cfg, tokens, ctx)
+    with torch.no_grad(), record_routes(replay=picks):
+        replayed, _, _ = MT.forward(sub, sub_cfg, tokens, ctx)
+    try:
+        line = _moe_gate(*(t.float().reshape(-1, cfg.d_model)
+                           for t in (got, want, replayed)), picks, own, B,
+                         ("microbatches", "whole batch"))
+    except AssertionError as e:
+        raise AssertionError(f"{name}: pipelined vs whole batch: {e}") \
+            from None
+    return (f"at full depth {err!r} of the largest magnitude (not gated: "
+            f"near-tie routing carried through {cfg.n_layers} layers); the "
+            f"first {n} blocks, route-aware: {line}")
+
+
+def run_pipeline_path(name: str, cfg, params, traffic: PipeTraffic,
+                      mods: dict, device) -> dict:
+    """Path 7's forward for one model, on path 2's weights:
+    ``plan_pipeline(mode="TR")`` for a microbatch of B / PIPE_MICRO rows
+    and ``msl.pipeline_forward`` through its K stages, the counts set to 0
+    just before the plan and read just after the forward.  Gates: every
+    microbatch's hidden state ``==`` ``T.forward`` of its rows (the same
+    blocks on the same shapes, through the same kernels), the aux ``==``
+    those forwards' aux summed over M + K - 1, each kernel launched as often
+    as in those forwards, the scan launched, and the whole batch's forward
+    within CHECK_TOL (``_pipe_whole_batch``)."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import make_pipeline_mesh, plan_pipeline
+    from repro_torch.msl import pipeline as MP
+
+    t_path = time.perf_counter()
+    B, S, M = traffic.batch, traffic.seq, PIPE_MICRO
+    mb = B // M
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(6)).to(
+        device)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        pp = plan_pipeline(cfg, seq_len=S, microbatch=mb, mode="TR",
+                           device=device)
+        t1 = time.perf_counter()
+        mesh = make_pipeline_mesh(pp.K, device=device)
+        with torch.no_grad():
+            hidden, aux = MP.pipeline_forward(params, {"tokens": tokens},
+                                              cfg, mesh, pp, M)
+        torch.cuda.synchronize()
+        return pp, hidden, aux, t1 - t0, time.perf_counter() - t1
+
+    (pp, hidden, aux, plan_s, pipe_s), launches, recorded = _recorded_run(
+        mods, run)
+    peak = torch.cuda.max_memory_allocated()
+    K = pp.K
+    print(f"{name}: path 7 plan_pipeline(mode=TR, microbatch {mb}) on the "
+          f"card: K {K}, groups {pp.segments} on {pp.placement} in "
+          f"{plan_s!r} s; pipelined forward of B {B} x S {S} in {M} "
+          f"microbatches over {M + K - 1} ticks in {pipe_s!r} s; launches "
+          f"{launches}; peak device memory {peak} B")
+    if hidden.shape != (B, S, cfg.d_model) or not bool(
+            torch.isfinite(hidden).all()):
+        raise AssertionError(f"{name}: the pipelined hidden state "
+                             f"{tuple(hidden.shape)} is not finite of shape "
+                             f"{(B, S, cfg.d_model)}")
+
+    _zero_counts(mods)
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    for m in range(M):
+        rows = slice(m * mb, (m + 1) * mb)
+        ctx = ML.Ctx(mode="train", positions=torch.arange(
+            S, device=device).expand(mb, S))
+        with torch.no_grad():
+            h, _, a = MT.forward(params, cfg, tokens[rows], ctx)
+        if not torch.equal(hidden[rows], h):
+            raise AssertionError(
+                f"{name}: microbatch {m}'s pipelined hidden state differs "
+                f"from T.forward of its rows by up to "
+                f"{float((hidden[rows].float() - h.float()).abs().max())}")
+        total = total + a
+        del h
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    alone = _counts(mods)
+    want_aux = total / (M + K - 1)
+    if not torch.equal(aux, want_aux):
+        raise AssertionError(f"{name}: the pipelined aux {float(aux)!r} is "
+                             f"not the microbatches' {float(total)!r} over "
+                             f"{M + K - 1} ticks, {float(want_aux)!r}")
+    for k in ("minplus_scan",) + MODELS[name].kernels:
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: path 7 launched no {k} kernel")
+    for k in MODELS[name].kernels:
+        if launches[k] != alone[k]:
+            raise AssertionError(f"{name}: the pipelined forward launched "
+                                 f"{launches[k]} {k} kernels, the "
+                                 f"microbatches' forwards {alone[k]}")
+    whole = _pipe_whole_batch(name, cfg, params, tokens, hidden)
+    print(f"{name}: path 7 pipelined forward == T.forward of each "
+          f"microbatch's rows on the card (max |h| "
+          f"{float(hidden.float().abs().max())!r}; the {M} forwards in "
+          f"{seq_s!r} s), aux {float(aux)!r} == their aux over {M + K - 1} "
+          f"ticks; against the whole batch's forward: {whole}")
+    del hidden
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_path
+    print(f"{name}: path 7 forward in {seconds!r} s")
+    return {"launches": launches, "recorded": recorded, "K": K,
+            "seconds": seconds,
+            "segments": pp.segments, "pipelined_s": pipe_s,
+            "sequential_s": seq_s, "peak_bytes": peak}
+
+
+def _pipe_train_launches(cfg, kernel: str, n_micro: int) -> tuple[int, int]:
+    """A pipelined train step's (forward, backward) launches of ``kernel``:
+    each layer of its kinds once each way per microbatch, and the forward
+    once more under ``cfg.remat``, which recomputes every group slot."""
+    from repro_torch.models import transformer as MT
+
+    n = sum(kind in KERNEL_KINDS[kernel]
+            for kind in MT.layer_kinds(cfg.n_layers, cfg.pattern))
+    return n_micro * n * (2 if cfg.remat else 1), n_micro * n
+
+
+def _pipe_check_gradients(name, cfg, params, batch, device) -> str:
+    """The first TRAIN_CHECK_DEPTH repetitions (with the embedding, final
+    norm and head) over K 2 stages of a group each, on the card: the
+    pipelined loss (``msl.pipeline_loss``, M PIPE_MICRO) and every
+    parameter's gradient against ``train.steps.loss_fn``'s on the same
+    weights and batch, neither clipped: the loss within CHECK_TOL
+    relative, each leaf within CHECK_TOL in 2-norm.  Raises on a failure,
+    else returns the readings."""
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import PipelinePlan, make_pipeline_mesh
+    from repro_torch.msl import pipeline as MP
+    from repro_torch.train import loss_fn
+
+    n = min(cfg.n_layers, TRAIN_CHECK_DEPTH * len(cfg.pattern))
+    sub_cfg = dataclasses.replace(cfg, n_layers=n)
+    R = -(-n // len(cfg.pattern))
+    plan = PipelinePlan(K=2, segments=[(1, R // 2), (R // 2 + 1, R)],
+                        placement=["s0", "s1"], n_groups=R,
+                        predicted_latency_s=0.0, breakdown={})
+    sub = dict(params, stack={"layers": params["stack"]["layers"][:n]})
+    names = [".".join(map(str, path)) for path, _ in MT.tree_paths(sub)]
+
+    def grads(loss_of):
+        leaves = [t.detach().requires_grad_() for t in MT.tree_leaves(sub)]
+        it = iter(leaves)
+        tree = MT.tree_map(lambda _: next(it), sub)
+        with torch.enable_grad():
+            loss = loss_of(tree)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    pipe_loss, pipe = grads(lambda tree: MP.pipeline_loss(
+        tree, batch, sub_cfg, make_pipeline_mesh(2, device=device), plan,
+        PIPE_MICRO)[0])
+    seq_loss, seq = grads(lambda tree: loss_fn(tree, sub_cfg, batch)[0])
+    err_loss = abs(float(pipe_loss) - float(seq_loss)) / abs(float(seq_loss))
+    errs = [_rel2(a.float(), b.float()) for a, b in zip(pipe, seq)]
+    finite = all(bool(torch.isfinite(g).all()) for g in pipe)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    line = (f"first {n} blocks over K 2 stages, pipelined vs sequential "
+            f"loss_fn on the card: loss {float(pipe_loss)!r} vs "
+            f"{float(seq_loss)!r} ({err_loss!r} relative), the {len(errs)} "
+            f"parameter gradients up to {errs[worst]!r} ({names[worst]}) "
+            f"in 2-norm (limit {CHECK_TOL}), all finite {finite}")
+    if not (finite and err_loss < CHECK_TOL and errs[worst] < CHECK_TOL):
+        raise AssertionError(f"{name}: path 7's pipelined gradients differ "
+                             f"from the sequential loss's; {line}; every "
+                             f"leaf: {dict(zip(names, errs))}")
+    return line
+
+
+def run_pipeline_train_path(name: str, cfg, traffic: TrainTraffic,
+                            mods: dict, device, sequential: dict) -> dict:
+    """Path 7's training for one model, right after path 4, from the
+    seeded weights path 4's steps started from (drawn again: path 4 left
+    its own trained in place, and a fresh AdamW's first step on them moved
+    the loss on batch 0 up, 10.39 to 10.52 at qwen2-1.5b, call 1 of PR
+    25): path 4's TR
+    plan, ``_pipe_check_gradients`` on batch 0, then PIPE_STEPS steps of
+    ``msl.make_pipeline_train_step`` (AdamW at TRAIN_LR, remat on) on
+    ``SyntheticLM`` batches ``batch_at(i % 2)``, path 4's steps but for
+    the microbatches and the clipping, the counts set to 0 just before the
+    steps and read just after (``_pipe_train_launches`` a step): every
+    loss and parameter finite, the loss on ``batch_at(0)`` lower at step 3
+    than at step 1; the losses, the step's p50 ms over steps 2-4, tokens/s
+    and peak memory printed beside path 4's sequential step
+    (``sequential``, run_train_path's numbers)."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import (
+        make_pipeline_mesh,
+        make_pipeline_train_step,
+        plan_pipeline,
+    )
+    from repro_torch.optim import make_optimizer
+
+    t_path = time.perf_counter()
+    B, S, M = traffic.batch, traffic.seq, PIPE_MICRO
+    fwd, bwd = traffic.kernels
+    params = MT.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="TR", device=device)
+    stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size), seed=0)
+    batches = [shard_batch(stream.batch_at(i), device) for i in range(2)]
+    check = _pipe_check_gradients(name, cfg, params, batches[0], device)
+    print(f"{name}: path 7 {check}")
+
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup=1, total=50)
+    state = opt.init(params, cfg)
+    step = make_pipeline_train_step(cfg, make_pipeline_mesh(pp.K,
+                                                            device=device),
+                                    pp, M, opt)
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        nonlocal state
+        losses, ms = [], []
+        for i in range(PIPE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = step(params, state, batches[i % 2])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    (losses, step_ms), launches, recorded = _recorded_run(mods, steps)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = _pipe_train_launches(cfg, fwd, M)
+    want = tuple(PIPE_STEPS * n for n in per_step)
+    if (launches[fwd], launches[bwd]) != want:
+        raise AssertionError(f"{name}: {PIPE_STEPS} pipelined train steps "
+                             f"launched {launches[fwd]} {fwd} and "
+                             f"{launches[bwd]} {bwd} kernels, not {want}")
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in MT.tree_leaves(params))
+    if not (all(map(math.isfinite, losses)) and finite):
+        raise AssertionError(f"{name}: pipelined losses {losses}, every "
+                             f"parameter finite: {finite}")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"{name}: the pipelined loss on batch_at(0) "
+                             f"did not fall from step 1 to step 3: {losses}")
+    p50 = statistics.median(step_ms[1:])
+    print(f"{name}: path 7 on {_card_line()}: {PIPE_STEPS} pipelined train "
+          f"steps (K {pp.K}, groups {pp.segments}, M {M}, {cfg.optimizer}, "
+          f"lr {TRAIN_LR}, remat {cfg.remat}, no clipping) at B {B} x S {S}: "
+          f"losses {losses}; step ms {step_ms}, p50 over steps 2-"
+          f"{PIPE_STEPS} {p50!r} ms = {B * S / (p50 * 1e-3)!r} tokens/s; "
+          f"peak device memory {peak} B; launches {launches} ({per_step} a "
+          f"step); path 4's sequential step on the same weights and tokens: "
+          f"losses {sequential['losses']}, p50 "
+          f"{sequential['step_ms_p50']!r} ms = "
+          f"{sequential['tokens_per_s']!r} tokens/s, peak "
+          f"{sequential['peak_bytes']} B")
+    seconds = time.perf_counter() - t_path
+    print(f"{name}: path 7 training in {seconds!r} s")
+    del state, opt, step, batches, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recorded": recorded, "losses": losses,
+            "seconds": seconds,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": B * S / (p50 * 1e-3), "peak_bytes": peak,
+            "K": pp.K, "segments": pp.segments}
+
+
+def run_launch_path(mods: dict, device) -> dict:
+    """Path 7's launchers at ``--reduced`` on ``device``, through their
+    ``main``: ``launch.train --mode msl-pp --steps 6 --ckpt-every 3`` once
+    straight and once as 4 steps followed by ``--resume``, the final
+    checkpoints' every leaf ``==``; then ``launch.serve``, exit 0.  The
+    counts are set to 0 just before and read just after: the pipelined
+    steps must launch the flash forward and backward kernels."""
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager, flatten_with_path
+    from repro_torch.launch import serve, train
+
+    t0 = time.perf_counter()
+    dev = torch.device(device).type
+    common = ["--arch", LAUNCH_ARCH, "--mode", "msl-pp", "--ckpt-every", "3",
+              "--device", dev]
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            rcs = [train.main(common + ["--steps", "6", "--ckpt-dir",
+                                        f"{tmp}/straight"]),
+                   train.main(common + ["--steps", "4", "--ckpt-dir",
+                                        f"{tmp}/resumed"]),
+                   train.main(common + ["--steps", "6", "--resume",
+                                        "--ckpt-dir", f"{tmp}/resumed"]),
+                   serve.main(["--arch", LAUNCH_ARCH, "--device", dev])]
+            return rcs
+
+        rcs, launches, recorded = _recorded_run(mods, run)
+        if rcs != [0, 0, 0, 0]:
+            raise AssertionError(f"the launchers exited {rcs}")
+        trees = [CheckpointManager(f"{tmp}/{d}").restore()
+                 for d in ("straight", "resumed")]
+    (s1, a), (s2, b) = trees
+    a, b = flatten_with_path(a), flatten_with_path(b)
+    same = s1 == s2 == 5 and [p for p, _ in a] == [p for p, _ in b] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(a, b))
+    if not same:
+        raise AssertionError(f"the resumed run's step-{s2} checkpoint is not "
+                             f"the straight run's step-{s1} one")
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if launches[k] == 0:
+            raise AssertionError(f"the launchers launched no {k} kernel")
+    print(f"launchers (path 7, {LAUNCH_ARCH} --reduced on {dev}): "
+          f"train --mode msl-pp 6 steps straight == 4 steps + --resume, "
+          f"every one of the {len(a)} leaves of the step-5 checkpoint; serve "
+          f"exit 0; launches {launches}; in {time.perf_counter() - t0!r} s")
+    return {"launches": launches, "recorded": recorded}
+
+
 def _flash_bound(key) -> tuple[float, str, int, int]:
     B, Sq, Hq, Skv, Hkv, hd, causal, window, _ = key
     qi = torch.arange(Sq)[:, None]
@@ -3399,21 +3840,39 @@ def main() -> int:
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
             for m in dict.fromkeys(map(_module, KERNELS))}
     mp = mods["minplus"]
-    build_kernels(mods)
-    matmul = check_minplus_matmul(mp, device)
-    generic_new = check_generic(mods, device)
+    walls = {}
 
-    path = run_main_path(C, TS, mp)
-    stack = run_serve_stack_path(C, TS, mp)
-    sweep = run_sweep_path(C, TS, mp, card=card)
+    def phase(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    phase("build", build_kernels, mods)
+    matmul = phase("generic", check_minplus_matmul, mp, device)
+    generic_new = phase("generic +", check_generic, mods, device)
+
+    path = phase("path 1", run_main_path, C, TS, mp)
+    stack = phase("path 5", run_serve_stack_path, C, TS, mp)
+    sweep = phase("path 6", run_sweep_path, C, TS, mp, card=card)
     by_model = {}
+    t_pipe = 0.0
     for name in MODELS:
-        by_model[name] = run_model_path(name, mods, device)
+        by_model[name] = phase(name, run_model_path, name, mods, device)
+        t_pipe += by_model[name]["pipeline"]["seconds"] + (
+            by_model[name]["pipeline train"] or {}).get("seconds", 0.0)
+    launchers = phase("launchers", run_launch_path, mods, device)
+    t_pipe += walls["launchers"]
+    print(f"path 7 (pipeline forward and training, launchers) took "
+          f"{t_pipe!r} s of wall in all")
+    pipe_runs = {f"pipeline/{name}": by_model[name]["pipeline"]
+                 for name in MODELS}
     matmul["launches_by_path"] = {
         "planner": path["matmul_launches"],
         "serve-stack": stack["matmul_launches"],
         "sweep": sweep["matmul_launches"], **{
-            name: by_model[name]["launches"]["minplus"] for name in MODELS}}
+            name: by_model[name]["launches"]["minplus"] for name in MODELS},
+        **{p: run["launches"]["minplus"] for p, run in pipe_runs.items()}}
     matmul["launches"] = sum(matmul["launches_by_path"].values())
     print(f"clocks before the kernel timings (sm, max sm, temperature): "
           f"{_clocks_line()}")
@@ -3421,11 +3880,15 @@ def main() -> int:
     kernels = [check_scan_path(
         mp, device, _merge([path["recorded"], stack["recorded"],
                             sweep["recorded"]] + [
-            by_model[name]["recorded"]["minplus_scan"] for name in MODELS]),
+            by_model[name]["recorded"]["minplus_scan"] for name in MODELS] + [
+            run["recorded"]["minplus_scan"] for run in pipe_runs.values()]),
         {"planner": path["launches"], "serve-stack": stack["launches"],
          "sweep": sweep["launches"], **{
             name: by_model[name]["launches"]["minplus_scan"]
-            for name in MODELS}}, _top_shape(path["recorded"][0])), matmul]
+            for name in MODELS}, **{
+            p: run["launches"]["minplus_scan"]
+            for p, run in pipe_runs.items()}},
+        _top_shape(path["recorded"][0])), matmul]
     print(f"clocks after the minplus_scan timings (sm, max sm, "
           f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru",
@@ -3440,6 +3903,13 @@ def main() -> int:
             if res["train"] is not None and kernel in TRAIN[m].kernels:
                 runs += [(f"{part}/{m}", res["train"][part])
                          for part in ("round trip", "train")]
+            if kernel in spec.kernels:
+                runs.append((f"pipeline/{m}", res["pipeline"]))
+            if res["pipeline train"] is not None \
+                    and kernel in TRAIN[m].kernels:
+                runs.append((f"pipeline train/{m}", res["pipeline train"]))
+        if kernel in ("flash_attention", "flash_attention_bwd"):
+            runs.append(("launchers", launchers))
         kernels.append(check_model_path(
             kernel, mods[_module(kernel)],
             _merge([run["recorded"][kernel] for _, run in runs]),
@@ -3454,8 +3924,11 @@ def main() -> int:
              "fp32_bound_ms", "fp32_bound_by", "fp32_bound_share", "shape",
              "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
              "note", "shapes"]
+    walls["kernel checks and timings"] = time.perf_counter() - t_start - sum(
+        walls.values())
+    walls["generic"] += walls.pop("generic +")
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start!r} s")
+          f"{time.perf_counter() - t_start!r} s; wall by phase (s): {walls}")
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                   for kern in kernels]}))
     print(f"card: {card}")

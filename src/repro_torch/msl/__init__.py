@@ -1,6 +1,16 @@
-"""Plan execution: the planner applied to a model's pattern groups, and the
+"""Plan execution: the planner applied to a model's pattern groups, the
 chain simulator that runs a plan's sub-models stage by stage, forward
-(``run_plan``) or as a training round trip (``round_trip``)."""
+(``run_plan``) or as a training round trip (``round_trip``), and the
+microbatch pipeline runtime (``pipeline_forward``,
+``make_pipeline_train_step``)."""
+from .pipeline import (
+    PipelineMesh,
+    make_pipeline_mesh,
+    make_pipeline_train_step,
+    pipeline_forward,
+    pipeline_loss,
+    stack_for_pipeline,
+)
 from .planner import PipelinePlan, group_profile, plan_pipeline
 from .simulator import (
     ChainResult,
@@ -10,6 +20,9 @@ from .simulator import (
     executed_round_trip_s,
 )
 
-__all__ = ["PipelinePlan", "plan_pipeline", "group_profile", "ChainSimulator",
-           "ChainResult", "StageTrace", "RoundTripResult",
+__all__ = ["PipelinePlan", "plan_pipeline", "group_profile",
+           "make_pipeline_mesh", "make_pipeline_train_step",
+           "pipeline_forward", "pipeline_loss", "stack_for_pipeline",
+           "PipelineMesh",
+           "ChainSimulator", "ChainResult", "StageTrace", "RoundTripResult",
            "executed_round_trip_s"]

@@ -58,8 +58,10 @@ class PipelinePlan:
     n_groups: int
     predicted_latency_s: float
     breakdown: dict
-    plan: Plan  # the solver's plan (segments, placement and paths)
-    problem: ProblemInstance  # what was solved: network, profile, request
+    # the solver's plan (segments, placement and paths) and what was solved
+    # (network, profile, request); None for a plan laid out by hand
+    plan: Plan | None = None
+    problem: ProblemInstance | None = None
 
     @property
     def groups_per_stage(self) -> list[int]:

@@ -5,8 +5,8 @@ package's ``src/repro/optim/compress.py``:
     4x fewer bytes for a data-parallel all-reduce;
   * top-k sparsification with error feedback.
 
-Pure tensor functions on any device; the port's pipeline runtime (ROADMAP
-A7) is to use them.
+Pure tensor functions on any device; the data axis of the port's pipeline
+runtime (ROADMAP A21) is to use them.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ from .steps import (
     loss_fn,
     make_eval_step,
     make_train_step,
+    value_and_grad,
 )
 
 __all__ = ["make_train_step", "make_eval_step", "loss_fn", "chunked_xent",
-           "AUX_LOSS_COEF"]
+           "value_and_grad", "AUX_LOSS_COEF"]

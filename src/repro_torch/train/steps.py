@@ -68,6 +68,27 @@ def loss_fn(params, cfg: ModelConfig, batch, mode: str = "train"):
     return nll + AUX_LOSS_COEF * aux, {"nll": nll, "aux": aux}
 
 
+def value_and_grad(fn, params):
+    """``fn(params)``, a tuple whose first element is the loss, and the
+    loss's gradient with respect to every leaf of ``params`` (the same
+    tree).  Each leaf leaves with the ``requires_grad`` it came with, so a
+    forward outside builds no autograd graph unless the caller asked for
+    one."""
+    leaves = T.tree_leaves(params)
+    flags = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            out = fn(params)
+            grads = torch.autograd.grad(out[0], leaves)
+    finally:
+        for p, flag in zip(leaves, flags):
+            p.requires_grad_(flag)
+    it = iter(grads)
+    return out, T.tree_map(lambda _: next(it), params)
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
                     max_grad_norm: float = 1.0):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -80,19 +101,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     asked for one."""
 
     def train_step(params, opt_state, batch):
-        leaves = T.tree_leaves(params)
-        flags = [p.requires_grad for p in leaves]
-        try:
-            for p in leaves:
-                p.requires_grad_(True)
-            with torch.enable_grad():
-                loss, metrics = loss_fn(params, cfg, batch)
-                grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for p, flag in zip(leaves, flags):
-                p.requires_grad_(flag)
-        it = iter(grads)
-        grads = T.tree_map(lambda _: next(it), params)
+        (loss, metrics), grads = value_and_grad(
+            lambda p: loss_fn(p, cfg, batch), params)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = opt.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}

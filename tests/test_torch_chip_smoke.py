@@ -709,3 +709,161 @@ def test_sweep_gate_rejects_a_wrong_solver(fault, gate, counted_scans,
         cs.run_sweep_path(T, TS, mp, device="cpu", card="cpu", quick=True,
                           fleets=())
     assert len(done) == 1
+
+
+# ------------------------------------------------ path 7: the pipeline ---
+# reduced configs deepened to four groups (recurrentgemma to two full
+# repetitions and its two remainder layers, at S 64 past its window of 32),
+# B 2 in two microbatches
+PIPE_REHEARSAL = {
+    "qwen2-1.5b": (4, cs.PipeTraffic(2, 32)),
+    "mamba2-370m": (4, cs.PipeTraffic(2, 32)),
+    "qwen3-moe-30b-a3b": (4, cs.PipeTraffic(2, 32)),
+    "recurrentgemma-9b": (8, cs.PipeTraffic(2, 64)),
+}
+
+
+def _pipe(name, mods):
+    n_layers, traffic = PIPE_REHEARSAL[name]
+    cfg = ARCHS[name].reduced(n_layers=n_layers)
+    params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    return cfg, params, cs.run_pipeline_path(name, cfg, params, traffic,
+                                             mods, "cpu")
+
+
+@pytest.fixture
+def moe_groups(monkeypatch):
+    """MoE dispatch groups of 16 tokens: a microbatch of 32 is two groups,
+    as one of 2,048 is two of 1,024 on the card, so that its routing is
+    the whole batch's."""
+    monkeypatch.setattr(ML, "MOE_GROUP", 16)
+
+
+@pytest.mark.usefixtures("one_thread", "moe_groups")
+@pytest.mark.parametrize("name", list(PIPE_REHEARSAL))
+def test_pipeline_path_rehearsed_on_the_cpu(name, cpu_launches, capsys):
+    """run_pipeline_path at reduced size in bf16, the plain versions
+    standing in for the kernels: every gate passes (each microbatch
+    ``==`` its forward, the aux ``==``, the whole batch within CHECK_TOL,
+    route-aware for MoE), and the plan's scans and the model's kernel
+    calls are counted and recorded, M calls a layer."""
+    cfg, _, run = _pipe(name, cpu_launches)
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    per_layer = {"flash_attention": ("attn", "local_attn", "moe"),
+                 "ssd": ("ssd",), "rglru": ("rglru",)}
+    for k, kk in per_layer.items():
+        want = cs.PIPE_MICRO * sum(kind in kk for kind in kinds)
+        assert run["launches"][k] == want
+    assert run["launches"]["minplus_scan"] > 0
+    if cfg.n_experts:
+        assert run["launches"]["moe_gmm"] > 0
+    for k in cs.KERNELS:
+        assert sum(run["recorded"][k][0].values()) == run["launches"][k]
+    out = capsys.readouterr().out
+    assert "pipelined forward == T.forward of each microbatch's rows" in out
+    assert run["K"] >= 2 and run["segments"][-1][1] == -(
+        -cfg.n_layers // len(cfg.pattern))
+
+
+def _late_schedule(stack, h_mb, *, cfg, mesh, plan, n_micro):
+    """The GPipe schedule with every hand-off delivered one tick late (a
+    stage first reads zeros, then its predecessor's output of two ticks
+    before)."""
+    from repro_torch.msl import pipeline as MP
+
+    K, M = plan.K, n_micro
+    mb, S = h_mb[0].shape[:2]
+    ctx = ML.Ctx(mode="train", positions=torch.arange(S).expand(mb, S))
+    first = [lo - 1 for lo, _ in plan.segments]
+    zero = torch.zeros(())
+    received = pending = [(torch.zeros_like(h_mb[0]), zero)] * K
+    outs, auxes = [None] * M, [None] * M
+    for t in range(M + K - 1):
+        sent = list(pending)
+        for s in range(K):
+            if not s <= t < s + M:
+                continue
+            x, aux = (h_mb[t], zero) if s == 0 else received[s]
+            y, aux = MP._stage_apply(stack.stages[s], first[s], cfg, x, aux,
+                                     ctx)
+            if s == K - 1:
+                outs[t - (K - 1)], auxes[t - (K - 1)] = y, aux
+            else:
+                sent[s + 1] = (y, aux)
+        received, pending = pending, sent
+    return outs, auxes
+
+
+@pytest.mark.usefixtures("one_thread", "moe_groups")
+@pytest.mark.parametrize("fault", ["late hand-off", "aux over M"])
+def test_pipeline_gate_rejects_a_wrong_schedule(fault, cpu_launches,
+                                                monkeypatch):
+    """A schedule that hands each stage's output on one tick late fails the
+    per-microbatch ``==`` gate; an aux divided by M instead of M + K - 1
+    fails the aux gate (on the MoE model, whose aux is not 0)."""
+    from repro_torch.msl import pipeline as MP
+
+    if fault == "late hand-off":
+        monkeypatch.setattr(MP, "pipelined_apply", _late_schedule)
+        name, match = "qwen2-1.5b", "pipelined hidden state differs"
+    else:
+        forward = MP.pipeline_forward
+
+        def over_m(params, batch, cfg, mesh, plan, n_micro):
+            h, aux = forward(params, batch, cfg, mesh, plan, n_micro)
+            return h, aux * (n_micro + plan.K - 1) / n_micro
+
+        monkeypatch.setattr(MP, "pipeline_forward", over_m)
+        name, match = "qwen3-moe-30b-a3b", "pipelined aux"
+    with pytest.raises(AssertionError, match=match):
+        _pipe(name, cpu_launches)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-370m"])
+def test_pipeline_train_path_rehearsed_on_the_cpu(name, cpu_backward,
+                                                  capsys):
+    """run_pipeline_train_path at reduced size: the pipelined gradients of
+    the first two repetitions against the sequential loss's, then four
+    steps with two forward calls (rematerialised) and one backward a layer
+    and microbatch each, counted and recorded, and the loss falling."""
+    n_layers, traffic = PIPE_REHEARSAL[name]
+    cfg = ARCHS[name].reduced(n_layers=n_layers)
+    sequential = {"losses": [], "step_ms_p50": 1.0, "tokens_per_s": 1.0,
+                  "peak_bytes": 0}
+    run = cs.run_pipeline_train_path(
+        name, cfg, TRAIN_REHEARSAL[name], cpu_backward, "cpu", sequential)
+    fwd, bwd = TRAIN_REHEARSAL[name].kernels
+    assert cs._pipe_train_launches(cfg, fwd, 2) == (16, 8)
+    assert (run["launches"][fwd], run["launches"][bwd]) == (64, 32)
+    for k in cs.KERNELS:
+        assert sum(run["recorded"][k][0].values()) == run["launches"][k]
+    assert run["losses"][2] < run["losses"][0]
+    out = capsys.readouterr().out
+    assert "pipelined vs sequential loss_fn" in out
+    assert "path 4's sequential step on the same weights and tokens" in out
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("fault", [None, "AdamW's step restarted at 0"])
+def test_launch_path_rehearsed_on_the_cpu(fault, cpu_backward, monkeypatch,
+                                          capsys):
+    """run_launch_path on the CPU: the resumed run's final checkpoint ``==``
+    the straight run's, the flash forward and backward counted; a resume
+    that restarts AdamW's step at 0 fails that gate."""
+    if fault:
+        from repro_torch.models import convert
+
+        restore = convert.opt_state_from_jax
+
+        def restart(*args, **kw):
+            return dict(restore(*args, **kw), step=0)
+
+        monkeypatch.setattr(convert, "opt_state_from_jax", restart)
+        with pytest.raises(AssertionError, match="is not the straight run"):
+            cs.run_launch_path(cpu_backward, "cpu")
+        return
+    run = cs.run_launch_path(cpu_backward, "cpu")
+    assert run["launches"]["flash_attention"] > 0
+    assert run["launches"]["flash_attention_bwd"] > 0
+    assert "4 steps + --resume" in capsys.readouterr().out

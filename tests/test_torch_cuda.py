@@ -1005,3 +1005,111 @@ def test_sweep_cli_runs_on_cuda_by_default(cuda, tmp_path, capsys):
                  "--out", str(tmp_path)]) == 0
     assert mp.scan_launch_count > before
     assert "bcd_torch" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------- pipeline --
+PIPE_KERNELS = {"qwen2-1.5b": (fa,), "mamba2-370m": (ssd,),
+                "qwen3-moe-30b-a3b": (fa, moe_gmm),
+                "recurrentgemma-9b": (fa, rglru)}
+
+
+@pytest.mark.parametrize("arch", list(PIPE_KERNELS))
+def test_pipelined_forward_equals_each_microbatch_forward_on_cuda(cuda,
+                                                                  arch):
+    """A reduced model (recurrentgemma with its two remainder layers as a
+    fifth group) through the pipeline on the card over K 3 uneven stages
+    and M 2: each microbatch's hidden state ``==`` ``T.forward`` of its
+    rows, the aux ``==`` their aux over M + K - 1, every kernel of the
+    model launched."""
+    from repro_torch.msl import (
+        PipelinePlan,
+        make_pipeline_mesh,
+        pipeline_forward,
+    )
+
+    plen = len(ARCHS[arch].pattern)
+    n_layers = 4 * plen + (2 if plen == 3 else 0)
+    cfg = ARCHS[arch].reduced(n_layers=n_layers, head_dim=32,
+                              ssm_head_dim=32)
+    R = -(-n_layers // plen)
+    plan = PipelinePlan(K=3, segments=[(1, 1), (2, R - 1), (R, R)],
+                        placement=["a", "b", "c"], n_groups=R,
+                        predicted_latency_s=0.0, breakdown={})
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    B, S, M = 4, 64, 2
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1)).to(
+        cuda)
+    before = [m.launch_count for m in PIPE_KERNELS[arch]]
+    with torch.no_grad():
+        hidden, aux = pipeline_forward(params, {"tokens": tokens}, cfg,
+                                       make_pipeline_mesh(3), plan, M)
+    assert all(m.launch_count > b
+               for m, b in zip(PIPE_KERNELS[arch], before))
+    mb = B // M
+    total = torch.zeros((), device=cuda)
+    for m in range(M):
+        rows = slice(m * mb, (m + 1) * mb)
+        with torch.no_grad():
+            h, _, a = MT.forward(params, cfg, tokens[rows], ML.Ctx(
+                mode="train", positions=torch.arange(
+                    S, device=cuda).expand(mb, S)))
+        assert torch.equal(hidden[rows], h)
+        total = total + a
+    assert torch.equal(aux, total / (M + 3 - 1))
+
+
+def test_pipelined_train_step_on_cuda(cuda):
+    """One pipelined AdamW step of reduced qwen2-1.5b on the card: the
+    flash forward twice (rematerialised) and the backward once a layer
+    and microbatch, a finite loss, every parameter moved or kept finite,
+    and each parameter's ``requires_grad`` as it came."""
+    from repro_torch.msl import (
+        PipelinePlan,
+        make_pipeline_mesh,
+        make_pipeline_train_step,
+    )
+    from repro_torch.optim import make_optimizer
+
+    cfg = ARCHS["qwen2-1.5b"].reduced(n_layers=4, head_dim=32)
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    before = [p.detach().clone() for p in MT.tree_leaves(params)]
+    plan = PipelinePlan(K=2, segments=[(1, 1), (2, 4)], placement=["a", "b"],
+                        n_groups=4, predicted_latency_s=0.0, breakdown={})
+    opt = make_optimizer("adamw", lr=1e-3, warmup=1, total=10)
+    step = make_pipeline_train_step(cfg, make_pipeline_mesh(2), plan, 2, opt)
+    gen = torch.Generator().manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), generator=gen).to(
+        cuda) for k in ("tokens", "targets")}
+    f0, b0 = fa.launch_count, fa.bwd_launch_count
+    params, state, m = step(params, opt.init(params, cfg), batch)
+    assert (fa.launch_count - f0, fa.bwd_launch_count - b0) == (16, 8)
+    assert torch.isfinite(m["loss"]) and state["step"] == 1
+    leaves = MT.tree_leaves(params)
+    assert not any(p.requires_grad for p in leaves)
+    assert all(bool(torch.isfinite(p).all()) for p in leaves)
+    assert any(not torch.equal(a, b) for a, b in zip(leaves, before))
+
+
+def test_checkpoint_of_card_tensors_round_trips_bf16(cuda, tmp_path):
+    """bf16 and float32 tensors on the card, saved without blocking and
+    then changed in place: the restored leaves hold the values of the
+    call, bf16 as ``torch.bfloat16``."""
+    from repro_torch.ckpt import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((64, 48), generator=gen, device=cuda).to(torch.bfloat16)
+    m = torch.randn((64, 48), generator=gen, device=cuda)
+    want = (w.cpu(), m.cpu())
+    ck = CheckpointManager(tmp_path)
+    ck.save(2, {"w": w, "opt": {"m": m, "step": torch.tensor(
+        2, dtype=torch.int32, device=cuda)}}, blocking=False)
+    w.mul_(2)
+    m.zero_()
+    ck.wait()
+    step, tree = ck.restore()
+    assert step == 2 and tree["w"].dtype == torch.bfloat16
+    assert torch.equal(tree["w"], want[0])
+    assert torch.equal(tree["opt"]["m"], want[1])
+    assert tree["opt"]["step"].shape == () and int(tree["opt"]["step"]) == 2
+    assert torch.equal(tree["w"].to(cuda), w / 2)
