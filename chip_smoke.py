@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's seven paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's eight paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -64,7 +64,22 @@ at B 2 x S 4096, its two remainder layers a 13th group); for the models of
 TRAIN right after path 4, PIPE_STEPS steps of
 ``msl.make_pipeline_train_step`` from the seeded weights; after the last
 model, ``repro_torch.launch.train`` (``--mode msl-pp``, straight and
-resumed) and ``repro_torch.launch.serve`` at ``--reduced``.
+resumed) and ``repro_torch.launch.serve`` at ``--reduced`` (the JAX
+package's reduced config, head width 16).
+
+Path 8 is the encoder-decoder and vision families, after path 7 (CROSS):
+whisper-small at its published size (12 encoder and 12 decoder layers,
+d 768; B 8 x 1500 frames of memory, B 8 x 448 tokens) and
+llama-3.2-vision-90b at full width and 30 of its 100 layers (6 repetitions
+of attn x 4, xattn; bf16 weights, 55.5 GB; B 1 x 4096 patches, B 1 x 2048
+tokens), random weights from seed 0 with every cross-attention gate
+``xgate`` opened to CROSS_XGATE (it is 0 at init, which takes out every
+cross output): ``forward(memory=...)`` through the flash kernel (the
+encoder's non-causal blocks, the decoder's self- and cross-attention at
+Sq != Skv), serving (``prefill(memory=...)``, then greedy ``decode_step``s
+over the cross K/V the prefill projected, one flash launch at Sq 1 a cross
+block), and whisper's training (AdamW steps with memory, through the flash
+backward).
 
 Phases, in order; any failure exits non-zero:
 
@@ -165,9 +180,21 @@ Phases, in order; any failure exits non-zero:
    tokens/s and peak printed beside path 4's; the model freed before the
    next; after the last model, the launchers (``run_launch_path``): the
    resumed run's final checkpoint ``==`` the straight run's, the flash
-   forward and backward counted;
+   forward and backward counted; then path 8 (``run_cross_path``), one
+   model after the other: the parameters counted before they are
+   allocated, the forward with the counts set to 0 just before and read
+   just after (one flash launch an encoder layer, a self- and a
+   cross-attention), the first SERVE_CHECK_DEPTH repetitions card
+   (kernels) vs CPU (plain versions) within CHECK_TOL, the gates shown to
+   gate (closed: two memories give ``==`` hidden states; open: they
+   differ), path 3's serving gates over the memory (``generate`` raises,
+   as the JAX package's takes no memory), a decode step ``==`` itself with
+   the cache's memory zeroed (the cross K/V reused), and whisper's
+   gradients at TRAIN_CHECK_DEPTH repetitions card vs CPU within CHECK_TOL
+   (encoder and gates among them), then its 4 AdamW steps counted, the
+   loss falling;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
-   shapes of paths 1-3 and 5-7, on the recorded operands and random ones:
+   shapes of paths 1-3 and 5-8, on the recorded operands and random ones:
    the scan ``==`` its plain version at every shape paths 1, 2 and 5-7
    gave it (recorded, random with +inf holes and an all-+inf tour,
    tie-forcing) and at SCAN_GENERIC (K 1 and 2, S past a warp), then each
@@ -368,8 +395,15 @@ TRAIN_LR = 3e-4
 TRAIN_CHECK_DEPTH = SERVE_CHECK_DEPTH  # repetitions of the card-vs-CPU
 #                                        gradients, as paths 2 and 3 check
 # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap): tests/test_kernels.py's
-# cases, rows that see no key, and randomised GQA shapes
+# cases, rows that see no key, randomised GQA shapes, head width 16 (the
+# reduced configs', 32-byte swizzled rows) causal and with Sq != Skv, and
+# whisper-small's cross-attention (448 queries over 1500 frames, ragged
+# against both tiles)
 FLASH_GENERIC = [
+    (1, 129, 129, 4, 2, 16, True, None, None),
+    (1, 191, 300, 4, 2, 16, False, None, None),
+    (2, 130, 130, 2, 2, 16, True, 40, 30.0),
+    (2, 448, 1500, 12, 12, 64, False, None, None),
     (2, 128, 128, 4, 2, 64, True, None, None),
     (1, 200, 200, 8, 1, 64, True, None, 50.0),
     (2, 256, 256, 4, 4, 128, True, 64, None),
@@ -637,10 +671,16 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     keep the launches queued behind its hold within HELD_LAUNCHES, the
     launches of a call counted from the fullest window.  A ``must_see``
     that matches none of the kernels the windows saw raises, naming those
-    of the last window."""
+    of the last window.  Without ``must_see`` the calls may launch several
+    kernels each, and a window that lost every event of one of them still
+    counts a multiple of ``calls`` (the likely reason an H100 run read
+    ``torch.bmm``, a memset and a GEMM a call, at half its time): such a
+    window is read only
+    when the window before it saw the same events, kernel by kernel."""
     what = must_see or "the plain version"
     matched = any_events = False
     most = 0  # the most events of ``what`` a window saw
+    before = None  # the events by name of the last window, unnamed timings
     for _ in range(PROFILE_WINDOWS):
         _, by_name, count = _device_events(
             lambda: [fn() for _ in range(calls)])
@@ -651,7 +691,13 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
         us = sum(by_name[name] for name in seen)
         events = sum(count[name] for name in seen)
         most = max(most, events)
-        if events and events % calls == 0 and us > 0.0:
+        whole = events and events % calls == 0 and us > 0.0
+        if whole and must_see is None:
+            counts = {name: count[name] for name in seen}
+            whole, before = counts == before, counts
+            if not whole:
+                continue
+        if whole:
             return us / calls / 1e3
         print(f"profiler: {events} device events of {what} over {calls} "
               f"calls, some lost: timed again")
@@ -1231,8 +1277,9 @@ SWEEP_NAMES = {"bcd_torch": "bcd"}
 # as many as fit a budget of SWEEP_BUDGET_S for the whole path on an H100
 # (5 seeds passed it in one run of three); a run past it prints a warning.
 # 3 since path 7 came in, to hold the whole run near its length before it
-# (4 seeds: 54.2-56.7 s for path 6, all phases 478.8-543.3 s)
-SWEEP_SEEDS = 3
+# (4 seeds: 54.2-56.7 s for path 6, all phases 478.8-543.3 s); 2 since path
+# 8 came in (3 seeds: 50.6 s for path 6, all phases 637.7 s)
+SWEEP_SEEDS = 2
 SWEEP_BUDGET_S = 60.0
 SWEEP_FLEETS = ("nsfnet_gateway", "nsfnet_mixed_training")  # quick tiers
 SWEEP_WORKERS = 2  # processes of the pool run
@@ -2477,9 +2524,10 @@ def _row_err(got, want) -> torch.Tensor:
     return (got - want).abs().amax(-1) / want.abs().amax(-1)
 
 
-def _logits_at(params, cfg, tokens, first: int, n: int):
+def _logits_at(params, cfg, tokens, first: int, n: int, memory=None):
     """The cache-free forward's logits at positions first .. first+n-1,
-    (B, n, V) float32, as ``logits_last`` takes them at the last one."""
+    (B, n, V) float32, as ``logits_last`` takes them at the last one; a
+    cross-attention model's over ``memory``."""
     from repro_torch.models import layers as ML
     from repro_torch.models import transformer as MT
 
@@ -2487,7 +2535,8 @@ def _logits_at(params, cfg, tokens, first: int, n: int):
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     with torch.inference_mode():
         hidden, _, _ = MT.forward(params, cfg, tokens,
-                                  ML.Ctx(mode="prefill", positions=pos))
+                                  ML.Ctx(mode="prefill", positions=pos),
+                                  memory=memory)
         W = MT.head_matrix(params, cfg).to(ML.cdt(cfg))
         logits = (hidden[:, first:first + n] @ W).float()
         if cfg.final_softcap:
@@ -2515,17 +2564,20 @@ def plain_kernels():
             setattr(site, name, fn)
 
 
-def serve_loop(params, cfg, toks, traffic: ServeTraffic, device) -> dict:
-    """``prefill`` of the padded prompts, then ``max_new - 1`` greedy
-    ``decode_step``s: the served logits (B, max_new, V), the generated
-    tokens (B, max_new), the last cache and the host times (the host reads
-    each step's tokens once)."""
+def serve_loop(params, cfg, toks, traffic: ServeTraffic, device,
+               memory=None) -> dict:
+    """``prefill`` of the padded prompts (and of ``memory``, for a
+    cross-attention model), then ``max_new - 1`` greedy ``decode_step``s:
+    the served logits (B, max_new, V), the generated tokens (B, max_new),
+    the last cache and the host times (the host reads each step's tokens
+    once)."""
     from repro_torch import serving as SV
 
     B, S = toks.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = SV.prefill(params, cfg, toks, traffic.cache_len)
+    logits, cache = SV.prefill(params, cfg, toks, traffic.cache_len,
+                               memory=memory)
     cur = torch.argmax(logits[:, -1], dim=-1)
     tokens = [cur.tolist()]
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -2543,16 +2595,17 @@ def serve_loop(params, cfg, toks, traffic: ServeTraffic, device) -> dict:
             "cache": cache, "prefill_ms": prefill_ms, "steps_ms": steps_ms}
 
 
-def teacher_forced(params, cfg, toks, run: dict) -> dict:
-    """One cache-free forward over prompt + generated tokens: the served
-    logits' row errors against its logits at positions S-1 .. S+n-2
-    (``err``, (B, n)), and the largest gap, over the greedy tokens that are
-    not its argmax, between its top logit and its logit of the token, over
-    the row's largest |logit| (``worst_gap``, 0 where there is none)."""
+def teacher_forced(params, cfg, toks, run: dict, memory=None) -> dict:
+    """One cache-free forward over prompt + generated tokens (and
+    ``memory``): the served logits' row errors against its logits at
+    positions S-1 .. S+n-2 (``err``, (B, n)), and the largest gap, over the
+    greedy tokens that are not its argmax, between its top logit and its
+    logit of the token, over the row's largest |logit| (``worst_gap``, 0
+    where there is none)."""
     served, generated = run["served"], run["generated"]
     S, n = toks.shape[1], generated.shape[1]
     want = _logits_at(params, cfg, torch.cat([toks, generated], dim=1),
-                      S - 1, n)
+                      S - 1, n, memory)
     if not torch.isfinite(want).all():
         raise AssertionError("the teacher-forced forward's logits are not "
                              "finite")
@@ -2565,7 +2618,7 @@ def teacher_forced(params, cfg, toks, run: dict) -> dict:
 
 
 def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
-                   kernels: tuple, mods: dict, device) -> dict:
+                   kernels: tuple, mods: dict, device, memory=None) -> dict:
     """Path 3 for one model, on the weights path 2 ran: the counts set to
     0, ``serve_loop``, the counts read; then the gates (any failure
     raises), each row held to its own largest |logit|:
@@ -2581,7 +2634,11 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
        bf16 rounding is amplified past CHECK_TOL, within FLOOR_FACTOR of
        the floor (the same forward through the kernels against through the
        plain versions, in this run) and never tighter than CHECK_TOL;
-    4. ``ServingEngine.generate`` returns the loop's tokens;
+    4. ``ServingEngine.generate`` returns the loop's tokens; for a
+       cross-attention model, which serves its ``memory`` through
+       ``prefill`` and ``decode_step`` (every step above, and the
+       forwards, over it), ``generate`` raises naming the memory, as the
+       JAX package's cannot serve one either;
     5. every logit is finite.
 
     Returns the counts, the recorded kernel calls and the numbers."""
@@ -2599,7 +2656,7 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
             importlib.import_module(ks.site[0]), ks.site[1], ks.key))
             for k, ks in KERNELS.items()}
         _zero_counts(mods)
-        run = serve_loop(params, cfg, toks, traffic, device)
+        run = serve_loop(params, cfg, toks, traffic, device, memory)
         launches = _counts(mods)
     for k in kernels:
         if launches[k] == 0:
@@ -2618,16 +2675,16 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
     peak = torch.cuda.max_memory_allocated()
 
     t2 = time.perf_counter()
-    fresh = _logits_at(params, cfg, toks, S - 1, 1)[:, 0]
+    fresh = _logits_at(params, cfg, toks, S - 1, 1, memory)[:, 0]
     err_prefill = float(_row_err(run["served"][:, 0], fresh).max())
     if not err_prefill < CHECK_TOL:
         raise AssertionError(f"{name}: the prefill's logits differ from the "
                              f"cache-free forward's by {err_prefill!r} of "
                              f"the largest (limit {CHECK_TOL})")
-    full = teacher_forced(params, cfg, toks, run)
+    full = teacher_forced(params, cfg, toks, run, memory)
     seq = torch.cat([toks, run["generated"]], dim=1)
     with plain_kernels():
-        plain = _logits_at(params, cfg, seq, S - 1, n_new)
+        plain = _logits_at(params, cfg, seq, S - 1, n_new, memory)
     floor = float(_row_err(full["want"], plain).max())
     limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
     err_full = float(full["err"].max())
@@ -2650,7 +2707,7 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
     cut_params = dict(params, stack={"layers": params["stack"]["layers"][
         :n_cut]})
     cut = teacher_forced(cut_params, cut_cfg, toks, serve_loop(
-        cut_params, cut_cfg, toks, traffic, device))
+        cut_params, cut_cfg, toks, traffic, device, memory), memory)
     err_cut = float(cut["err"].max())
     print(f"{name}: path 3 at {n_cut} layers, teacher-forced: served logits "
           f"vs the cache-free forward {err_cut!r} of each row's largest "
@@ -2668,12 +2725,28 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
                               device=device)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    outs = engine.generate(prompts, n_new)
+    if memory is None:
+        outs = engine.generate(prompts, n_new)
+        if outs != run["generated"].tolist():
+            raise AssertionError(f"{name}: ServingEngine.generate's tokens "
+                                 f"differ from the prefill / decode_step "
+                                 f"loop's")
+        how, same = "ServingEngine.generate", ", the same tokens as the loop"
+    else:
+        try:
+            engine.generate(prompts, n_new)
+        except ValueError as e:
+            if "memory" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: ServingEngine.generate served a "
+                                 f"cross-attention model without its memory")
+        outs = run["generated"].tolist()
+        how, same = ("the prefill / decode_step loop (generate takes no "
+                     "memory)", "")
     torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t3
-    if outs != run["generated"].tolist():
-        raise AssertionError(f"{name}: ServingEngine.generate's tokens "
-                             f"differ from the prefill / decode_step loop's")
+    gen_s = (time.perf_counter() - t3 if memory is None else
+             (run["prefill_ms"] + sum(run["steps_ms"])) * 1e-3)
     n_tok = sum(len(row) for row in outs)
     deciles = statistics.quantiles(run["steps_ms"], n=10, method="inclusive")
     p50, p90 = deciles[4], deciles[8]
@@ -2682,8 +2755,8 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
           f"cache_len {traffic.cache_len}; prefill {run['prefill_ms']!r} ms; "
           f"decode step (one token for each of the {B} rows) p50 {p50!r} "
           f"ms, p90 {p90!r} ms over {len(run['steps_ms'])} steps; "
-          f"ServingEngine.generate {n_tok} tokens in {gen_s!r} s = "
-          f"{n_tok / gen_s!r} tokens/s, the same tokens as the loop; cache "
+          f"{how} {n_tok} tokens in {gen_s!r} s = "
+          f"{n_tok / gen_s!r} tokens/s{same}; cache "
           f"{cache_bytes} B; peak device memory {peak} B; launches "
           f"{launches}; path 3 in {time.perf_counter() - t_path!r} s")
     return {"launches": launches, "recorded": recorded,
@@ -2779,10 +2852,11 @@ def _round_trip_gates(name: str, sim, plan, rt) -> str:
             f"closed) {replays}")
 
 
-def _rel2(out, ref) -> float:
-    """||out - ref|| / ||ref||, in float64."""
+def _rel2(out, ref, scale=None) -> float:
+    """||out - ref|| / ||scale|| (``ref`` unless given), in float64."""
     d = (out.double() - ref.double()).norm()
-    return float(d / ref.double().norm().clamp_min(1e-300))
+    scale = ref if scale is None else scale
+    return float(d / scale.double().norm().clamp_min(1e-300))
 
 
 def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
@@ -3416,6 +3490,467 @@ def run_launch_path(mods: dict, device) -> dict:
     return {"launches": launches, "recorded": recorded}
 
 
+# ------------------------------------------------------------------ path 8 --
+class CrossModel(NamedTuple):
+    """Path 8's work for one cross-attention model: the forward of
+    ``batch`` x ``seq`` tokens over a memory of ``cfg.memory_len`` frames or
+    patches, its serving, and its training where ``train`` is given; its
+    changes from the published config in ``overrides``."""
+    batch: int
+    seq: int
+    serve: ServeTraffic
+    train: TrainTraffic | None = None
+    overrides: dict = {}
+    check_seq: int = CHECK_SEQ  # tokens of the card-vs-CPU checks
+
+
+# path 8, after path 7's launchers: whisper-small at its published size
+# (memory_len 1500 frames, Whisper's max_target_positions 448 tokens) and
+# llama-3.2-vision-90b at full width, 30 of its 100 layers (6 repetitions
+# of attn x 4, xattn) in bf16: 0.856 B parameters a layer, 55.5 GB with its
+# embedding and head; Adafactor's bf16 gradients of 30 layers would not fit
+# beside them, so it does not train.  Its card-vs-CPU check runs at 32
+# tokens: 10 layers of d 8192 on the host (23 s at 64 tokens on an H100's
+# host).
+CROSS = {
+    "whisper-small": CrossModel(
+        8, 448, ServeTraffic(8, 4, 64, 128, 192),
+        TrainTraffic(8, 448, 4, ("flash_attention", "flash_attention_bwd"))),
+    "llama-3.2-vision-90b": CrossModel(
+        1, 2048, ServeTraffic(1, 4, 64, 64, 128), None,
+        {"n_layers": 30, "param_dtype": "bfloat16"}, 32),
+}
+CROSS_XGATE = 0.5  # every xgate opened to this: it is 0 at init
+CROSS_CHECK_ROWS = 2  # batch rows of the card-vs-CPU checks
+
+
+def _cross_attention_calls(cfg) -> int:
+    """Flash launches of one cache-free forward: each encoder layer, and
+    each self- and cross-attention of the decoder."""
+    from repro_torch.models import transformer as MT
+
+    per = {"attn": 1, "local_attn": 1, "xattn": 1, "dec_block": 2}
+    return cfg.enc_layers + sum(per.get(k, 0) for k in MT.layer_kinds(
+        cfg.n_layers, cfg.pattern))
+
+
+def _cross_layers(cfg) -> int:
+    from repro_torch.models import transformer as MT
+
+    return sum(k in MT.CROSS_KINDS
+               for k in MT.layer_kinds(cfg.n_layers, cfg.pattern))
+
+
+def _planned_bytes(cfg, device) -> int:
+    """The parameters' bytes, counted before they are allocated: one block
+    of each kind built at full width on ``device`` and freed, times its
+    layers, with the embedding, the head and the norms."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in MT.tree_leaves(tree))
+
+    kinds = collections.Counter(MT.layer_kinds(cfg.n_layers, cfg.pattern))
+    if cfg.enc_layers:
+        kinds.update({"attn": cfg.enc_layers})
+    total = 0
+    for kind, n in kinds.items():
+        total += n * nbytes(MT.init_block(gen, cfg, kind))
+    V, D = cfg.vocab_size, cfg.d_model
+    size = torch.tensor([], dtype=ML.pdt(cfg)).element_size()
+    total += size * (V * D * (1 if cfg.tie_embeddings else 2)
+                     + D * (2 if cfg.enc_layers else 1))
+    torch.cuda.empty_cache()
+    return total
+
+
+def open_gates(params, value: float = CROSS_XGATE):
+    """Every ``xgate`` set to ``value``, in place: at init each is 0, and
+    tanh(0) takes out every cross-attention output, so the seeded weights
+    could not show a broken cross path."""
+    from repro_torch.models import transformer as MT
+
+    gates = [t for path, t in MT.tree_paths(params) if path[-1] == "xgate"]
+    with torch.no_grad():
+        for t in gates:
+            t.fill_(value)
+    return len(gates)
+
+
+def _cross_sub(params, cfg, reps: int):
+    """The first ``reps`` pattern repetitions of the decoder (and as many
+    encoder layers), with the embedding, the norms and the head: a model of
+    its own, and its config."""
+    n = min(cfg.n_layers, reps * len(cfg.pattern))
+    n_enc = min(cfg.enc_layers, reps)
+    sub = dict(params, stack={"layers": params["stack"]["layers"][:n]})
+    if cfg.enc_layers:
+        sub["encoder"] = {"layers": params["encoder"]["layers"][:n_enc]}
+    return sub, dataclasses.replace(cfg, n_layers=n, enc_layers=n_enc)
+
+
+def _cross_check_on_cpu(name, cfg, params, tokens, memory) -> str:
+    """``forward(memory=...)`` of the first SERVE_CHECK_DEPTH repetitions on
+    the card (kernels) against the same on the CPU (plain versions), on
+    CROSS_CHECK_ROWS rows of the batch: within CHECK_TOL of the largest
+    magnitude, or within FLOOR_FACTOR of the floor where that is larger:
+    the same forward through the plain versions on the card against the
+    CPU, two bf16 evaluations apart (llama-vision's 10 layers of d 8192
+    with bf16 weights read 0.0197 of the limit's 0.02 on an H100, PR 26's
+    call 3).  Raises on a failure, else returns the reading."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    t0 = time.perf_counter()
+    sub, sub_cfg = _cross_sub(params, cfg, SERVE_CHECK_DEPTH)
+    cpu_sub = MT.tree_map(lambda t: t.cpu(), sub)
+    toks, mem = tokens[:CROSS_CHECK_ROWS], memory[:CROSS_CHECK_ROWS]
+    B, S = toks.shape
+    pos = torch.arange(S).expand(B, S)
+    ctx = ML.Ctx(mode="prefill", positions=pos.to(toks.device))
+    with torch.no_grad():
+        card = MT.forward(sub, sub_cfg, toks, ctx, memory=mem)[0]
+        with plain_kernels():
+            plain = MT.forward(sub, sub_cfg, toks, ctx, memory=mem)[0]
+        cpu = MT.forward(cpu_sub, sub_cfg, toks.cpu(), ML.Ctx(
+            mode="prefill", positions=pos), memory=mem.cpu())[0]
+    err = _rel(card.float().cpu(), cpu.float())
+    floor = _rel(plain.float().cpu(), cpu.float())
+    limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
+    line = (f"{sub_cfg.n_layers} decoder and {sub_cfg.enc_layers} encoder "
+            f"layers at B {B} x S {S} over {mem.shape[1]} memory positions, "
+            f"card (kernels) vs CPU (plain versions) in {cfg.compute_dtype}: "
+            f"{err!r} of the largest magnitude (the floor, the plain versions "
+            f"on the card, {floor!r}; limit {FLOOR_FACTOR} x floor, at least "
+            f"{CHECK_TOL}: {limit!r}), in {time.perf_counter() - t0!r} s")
+    if not err < limit:
+        raise AssertionError(f"{name}: path 8's forward on the card differs "
+                             f"from the CPU's; {line}")
+    return line
+
+
+def _gates_check(name, cfg, params, tokens, memory) -> str:
+    """The gates work: on the first SERVE_CHECK_DEPTH repetitions on the
+    card, with every gate closed (0, as at init) the hidden state of two
+    different memories (the memory and its negation: a vision memory has
+    no positions, so a permutation of it is the same memory) is ``==``,
+    and with the gates open at CROSS_XGATE it is not.  A cross block that
+    ignored its gate, or one that ignored the memory, fails this.  Raises
+    on a failure, else returns the reading."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    sub, sub_cfg = _cross_sub(params, cfg, SERVE_CHECK_DEPTH)
+    B, S = tokens.shape
+    ctx = ML.Ctx(mode="prefill", positions=torch.arange(
+        S, device=tokens.device).expand(B, S))
+
+    def two():
+        with torch.no_grad():
+            return [MT.forward(sub, sub_cfg, tokens, ctx, memory=m)[0]
+                    for m in (memory, -memory)]
+
+    open_gates(sub, 0.0)
+    try:
+        closed = two()
+    finally:
+        open_gates(sub)
+    opened = two()
+    moved = float((opened[0].float() - opened[1].float()).abs().max())
+    line = (f"gates closed: the hidden states of two memories == "
+            f"{torch.equal(*closed)}; open ({CROSS_XGATE}): they differ by "
+            f"up to {moved!r}")
+    if not torch.equal(*closed) or moved == 0.0:
+        raise AssertionError(f"{name}: the cross blocks' gates do not gate "
+                             f"the memory; {line}")
+    return line
+
+
+def _cross_grads(sub, sub_cfg, toks, mem, cot):
+    """The gradient of every leaf of ``sub`` (decoder, encoder, the gates)
+    for the cotangent ``cot`` of ``forward(memory=...)``'s hidden state, in
+    train mode (rematerialised)."""
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    leaves = [t.detach().requires_grad_() for t in MT.tree_leaves(sub)]
+    it = iter(leaves)
+    tree = MT.tree_map(lambda _: next(it), sub)
+    B, S = toks.shape
+    pos = torch.arange(S, device=toks.device).expand(B, S)
+    with torch.enable_grad():
+        out, _, _ = MT.forward(tree, sub_cfg, toks, ML.Ctx(
+            mode="train", positions=pos), memory=mem)
+        loss = (out.float() * cot.to(out.device)).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def _cross_train_check_on_cpu(name, cfg, params, tokens, memory) -> str:
+    """Path 4's gradient gate for a cross-attention model: every leaf's
+    gradient of the first TRAIN_CHECK_DEPTH repetitions (and as many
+    encoder layers, ``enc_norm`` and the gates among them), for a fixed
+    random cotangent of the hidden state, card (kernels) against CPU (plain
+    versions), each within CHECK_TOL in 2-norm (a cross block's key bias,
+    whose gradient is 0 but for rounding, over its value bias's norm); the
+    same through the plain versions on the card printed beside (the
+    floor).  Raises on a failure,
+    else returns the readings."""
+    from repro_torch.models import transformer as MT
+
+    t0 = time.perf_counter()
+    sub, sub_cfg = _cross_sub(params, cfg, TRAIN_CHECK_DEPTH)
+    sub = {k: v for k, v in sub.items() if k != "head"}
+    cpu_sub = MT.tree_map(lambda t: t.detach().cpu(), sub)
+    toks, mem = tokens[:CROSS_CHECK_ROWS], memory[:CROSS_CHECK_ROWS]
+    B, S = toks.shape
+    cot = torch.randn((B, S, cfg.d_model),
+                      generator=torch.Generator().manual_seed(5))
+    cpu = [g.float() for g in _cross_grads(cpu_sub, sub_cfg, toks.cpu(),
+                                           mem.cpu(), cot)]
+    card = [g.float().cpu() for g in _cross_grads(sub, sub_cfg, toks, mem,
+                                                  cot)]
+    with plain_kernels():
+        floor = [g.float().cpu() for g in _cross_grads(sub, sub_cfg, toks,
+                                                       mem, cot)]
+    paths = [path for path, _ in MT.tree_paths(sub)]
+    names = [".".join(map(str, path)) for path in paths]
+    # a cross block's key bias shifts every score of a query alike, which
+    # the softmax ignores: its gradient is 0 but for rounding, so its error
+    # is taken over the norm of its block's value-bias gradient
+    scale = [cpu[paths.index(p[:-1] + ("bv",))] if p[-1] == "bk" and
+             p[:-1] + ("xgate",) in paths else c for p, c in zip(paths, cpu)]
+    errs = [_rel2(a, b, w) for a, b, w in zip(card, cpu, scale)]
+    floors = [_rel2(a, b, w) for a, b, w in zip(floor, cpu, scale)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    gates = [n for n in names if n.endswith("xgate")]
+    enc = [e for n, e in zip(names, errs) if n.startswith("encoder")]
+    line = (f"{sub_cfg.n_layers} decoder and {sub_cfg.enc_layers} encoder "
+            f"layers at B {B} x S {S}, card (kernels) vs CPU (plain "
+            f"versions): the {len(errs)} parameter gradients up to "
+            f"{errs[worst]!r} ({names[worst]}) in 2-norm (limit {CHECK_TOL}; "
+            f"the plain versions on the card up to {max(floors)!r}); the "
+            f"encoder's up to {max(enc, default=0.0)!r}, the gates' "
+            f"({len(gates)}) up to "
+            f"{max(e for n, e in zip(names, errs) if n in gates)!r}; in "
+            f"{time.perf_counter() - t0!r} s")
+    if not errs[worst] < CHECK_TOL:
+        raise AssertionError(f"{name}: path 8's gradients on the card differ "
+                             f"from the CPU's past the limit; {line}; every "
+                             f"leaf: {dict(zip(names, errs))}")
+    if not all(float(g.abs().max()) > 0 for n, g in zip(names, card)
+               if n.startswith("encoder") or n in gates):
+        raise AssertionError(f"{name}: an encoder or gate gradient is 0 with "
+                             f"the gates open")
+    return line
+
+
+def _cross_cache_check(name, cfg, params, memory) -> str:
+    """A decode step reuses the cross K/V its prefill projected: after a
+    prefill of 4 tokens, the same decode step with the cache's
+    ``enc_memory`` as it is and with it zeroed gives ``==`` logits (the
+    step writes the same self-attention slots both times).  A decode that
+    projected the memory again at every step fails this.  Raises on a
+    failure, else returns the reading."""
+    from repro_torch import serving as SV
+
+    B = memory.shape[0]
+    toks = torch.randint(1, cfg.vocab_size, (B, 4),
+                         generator=torch.Generator().manual_seed(7)).to(
+        memory.device)
+    _, cache = SV.prefill(params, cfg, toks, 8, memory=memory)
+    pos = torch.full((B, 1), 4, device=memory.device)
+    first, _ = SV.decode_step(params, cfg, dict(cache), toks[:, :1], pos)
+    blank = dict(cache, enc_memory=torch.zeros_like(cache["enc_memory"]))
+    second, _ = SV.decode_step(params, cfg, blank, toks[:, :1], pos)
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: a decode step read the memory instead "
+                             f"of the cross K/V its prefill projected")
+    return ("a decode step with the cache's enc_memory zeroed == with it: "
+            "the cross K/V come from the prefill")
+
+
+def run_cross_train(name, cfg, params, traffic: TrainTraffic, mods: dict,
+                    device, memory_len: int) -> dict:
+    """Path 8's training: the gradient gate (``_cross_train_check_on_cpu``)
+    on the seeded weights, then ``traffic.steps`` AdamW steps of
+    ``make_train_step`` at TRAIN_LR on ``SyntheticLM`` batches with memory,
+    ``batch_at(i % 2)``, counted (two forward launches an attention under
+    remat, the encoder's too, and one backward): every loss and grad norm
+    finite, the loss on ``batch_at(0)`` lower at step 3 than at step 1, the
+    step's p50, tokens/s and peak memory printed."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    B, S = traffic.batch, traffic.seq
+    fwd, bwd = traffic.kernels
+    stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size, memory_len,
+                                   cfg.d_model), seed=0)
+    batches = [shard_batch(stream.batch_at(i), device) for i in range(2)]
+    print(f"{name}: path 8 "
+          f"{_cross_train_check_on_cpu(name, cfg, params, batches[0]['tokens'], batches[0]['memory'])}")
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup=1, total=50)
+    state = opt.init(params, cfg)
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps():
+        nonlocal state
+        losses, norms, ms = [], [], []
+        for i in range(traffic.steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = step(params, state, batches[i % 2])
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, norms, ms
+
+    (losses, norms, step_ms), launches, recorded = _recorded_run(mods, steps)
+    peak = torch.cuda.max_memory_allocated()
+    calls = _cross_attention_calls(cfg)
+    want = (traffic.steps * 2 * calls if cfg.remat else
+            traffic.steps * calls, traffic.steps * calls)
+    if (launches[fwd], launches[bwd]) != want:
+        raise AssertionError(f"{name}: {traffic.steps} train steps launched "
+                             f"{launches[fwd]} {fwd} and {launches[bwd]} "
+                             f"{bwd} kernels, not {want}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"{name}: losses {losses}, grad norms {norms} "
+                             f"are not all finite")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"{name}: the loss on batch_at(0) did not fall "
+                             f"from step 1 to step 3: {losses}")
+    p50 = statistics.median(step_ms[1:])
+    print(f"{name}: path 8 training on {_card_line()}: {traffic.steps} "
+          f"steps ({cfg.optimizer}, lr {TRAIN_LR}, remat {cfg.remat}) at B "
+          f"{B} x S {S} over {memory_len} memory positions: losses {losses}, "
+          f"grad norms {norms}; step ms {step_ms}, p50 over steps "
+          f"2-{traffic.steps} {p50!r} ms = {B * S / (p50 * 1e-3)!r} "
+          f"tokens/s; peak device memory {peak} B; launches {launches}")
+    del state, opt, step, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "recorded": recorded, "losses": losses,
+            "step_ms_p50": p50, "tokens_per_s": B * S / (p50 * 1e-3),
+            "peak_bytes": peak}
+
+
+def run_cross_path(name: str, mods: dict, device) -> dict:
+    """Path 8 for one cross-attention model (CROSS), after path 7:
+
+    1. its parameters counted before they are allocated (they must fit the
+       card's free memory), then drawn from seed 0, every gate opened to
+       CROSS_XGATE;
+    2. ``forward(memory=...)`` of the batch, the counts set to 0 just before
+       and read just after: one flash launch an encoder layer and a self-
+       and cross-attention (``_cross_attention_calls``); the hidden state
+       finite; the first SERVE_CHECK_DEPTH repetitions within CHECK_TOL of
+       the CPU (``_cross_check_on_cpu``); one more forward under the
+       profiler (busy time and the top kernels);
+    3. serving (``run_serve_path`` with the memory): ``prefill(memory=...)``
+       and greedy ``decode_step``s over the cross K/V the prefill
+       projected, teacher-forced against the cache-free forward over the
+       memory, at full depth within FLOOR_FACTOR of the floor; each decode
+       step one flash launch a cross block (the cached K/V);
+    4. training where the model has it (``run_cross_train``).
+
+    Returns each part's counts and recorded kernel calls, and the
+    numbers."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    spec = CROSS[name]
+    cfg = dataclasses.replace(ARCHS[name], **spec.overrides)
+    B, S = spec.batch, spec.seq
+    t_path = time.perf_counter()
+    planned = _planned_bytes(cfg, device)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{name}: {cfg.n_layers} decoder and {cfg.enc_layers} encoder "
+          f"layers, d_model {cfg.d_model}, {planned} B of parameters "
+          f"({cfg.param_dtype}; changed from the published config: "
+          f"{spec.overrides or 'nothing'}) planned against {free} B free of "
+          f"{total} B ({torch.cuda.memory_allocated()} B allocated)")
+    if planned > 0.9 * free:
+        raise AssertionError(f"{name}: {planned} B of parameters would not "
+                             f"fit beside the work in {free} B free")
+    torch.cuda.reset_peak_memory_stats()
+    params = MT.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in MT.tree_leaves(params))
+    if n_bytes != planned:
+        raise AssertionError(f"{name}: {n_bytes} B allocated, {planned} B "
+                             f"planned")
+    n_gates = open_gates(params)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    memory = torch.randn((B, cfg.memory_len, cfg.d_model),
+                         generator=torch.Generator().manual_seed(6)
+                         ).to(device)
+    pos = torch.arange(S, device=device).expand(B, S)
+    ctx = ML.Ctx(mode="prefill", positions=pos)
+    torch.cuda.synchronize()
+    print(f"{name}: {sum(t.numel() for t in MT.tree_leaves(params))} "
+          f"parameters on the card in {time.perf_counter() - t_path!r} s, "
+          f"{n_gates} gates opened to {CROSS_XGATE}; tokens B {B} x S {S}, "
+          f"memory B {B} x {cfg.memory_len} x {cfg.d_model}")
+
+    def forward():
+        with torch.no_grad():
+            return MT.forward(params, cfg, tokens, ctx, memory=memory)[0]
+
+    t1 = time.perf_counter()
+    hidden, launches, recorded = _recorded_run(mods, forward)
+    t_fwd = time.perf_counter() - t1
+    calls = _cross_attention_calls(cfg)
+    if launches["flash_attention"] != calls:
+        raise AssertionError(f"{name}: the forward launched "
+                             f"{launches['flash_attention']} flash kernels, "
+                             f"not {calls}")
+    if hidden.shape != (B, S, cfg.d_model) or not torch.isfinite(
+            hidden).all():
+        raise AssertionError(f"{name}: hidden state {tuple(hidden.shape)} "
+                             f"is not finite of shape {(B, S, cfg.d_model)}")
+    del hidden
+    wall, busy, by_name = _device_us(forward)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{name}: path 8 forward in {t_fwd!r} s (the first), launches "
+          f"{launches}; warm under the profiler: wall {wall!r} us, device "
+          f"busy {busy!r} us (share {busy / wall!r}); top device time: {top}; "
+          f"peak device memory {torch.cuda.max_memory_allocated()} B")
+    check = tokens[:CROSS_CHECK_ROWS, :spec.check_seq]
+    print(f"{name}: path 8 "
+          f"{_cross_check_on_cpu(name, cfg, params, check, memory)}; "
+          f"{_gates_check(name, cfg, params, check, memory[:len(check)])}")
+    serve = run_serve_path(name, cfg, params, spec.serve, ("flash_attention",),
+                           mods, device, memory[:spec.serve.batch])
+    steps = spec.serve.max_new - 1
+    want = calls + steps * _cross_layers(cfg)
+    if serve["launches"]["flash_attention"] != want:
+        raise AssertionError(f"{name}: path 8's serving launched "
+                             f"{serve['launches']['flash_attention']} flash "
+                             f"kernels, not {want} (the prefill {calls}, "
+                             f"then one a cross block and step)")
+    print(f"{name}: path 8 {_cross_cache_check(name, cfg, params, memory)}")
+    train = None
+    if spec.train is not None:
+        train = run_cross_train(name, cfg, params, spec.train, mods, device,
+                                cfg.memory_len)
+    del params, memory, tokens
+    torch.cuda.empty_cache()
+    print(f"{name}: path 8 in {time.perf_counter() - t_path!r} s")
+    return {"forward": {"launches": launches, "recorded": recorded,
+                        "busy_us": busy, "wall_us": wall},
+            "serve": serve, "train": train}
+
+
 def _flash_bound(key) -> tuple[float, str, int, int]:
     B, Sq, Hq, Skv, Hkv, hd, causal, window, _ = key
     qi = torch.arange(Sq)[:, None]
@@ -3592,16 +4127,17 @@ def _ssd_bwd_path_check(ssd, recorded, random) -> float:
 
 def _flash_library(args, kw):
     """One ``scaled_dot_product_attention`` call on the same operands, the
-    library yardstick (never called by the port): causal, or with the
-    causal window as a boolean mask; None where the options have no such
-    call (a softcap, or no causal mask)."""
-    if not kw.get("causal", True) or kw.get("softcap"):
+    library yardstick (never called by the port): causal or not (the
+    cross-attention's), or with the causal window as a boolean mask; None
+    where the options have no such call (a softcap, or a window without the
+    causal mask)."""
+    causal, window = kw.get("causal", True), kw.get("window")
+    if kw.get("softcap") or (window is not None and not causal):
         return None
     qt, kt, vt = (t.transpose(1, 2) for t in args)
-    window = kw.get("window")
     if window is None:
         return lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+            qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
     qi = torch.arange(qt.shape[2], device=qt.device)[:, None]
     ki = torch.arange(kt.shape[2], device=qt.device)[None, :]
     mask = (qi >= ki) & (qi - ki < window)
@@ -3820,6 +4356,35 @@ def _merge(recorded: list) -> tuple:
     return shapes, operands
 
 
+def _operands_to(recorded, device) -> tuple:
+    """One kernel's recorded calls (``(shapes, operands)``, as
+    ``record_calls`` yields them) with their operands moved to ``device``,
+    in place; returns the record."""
+    _, operands = recorded
+    for key, calls in operands.items():
+        operands[key] = [(tuple(a.to(device) if torch.is_tensor(a) else a
+                                for a in args), kw) for args, kw in calls]
+    return recorded
+
+
+def park(run, device="cpu") -> None:
+    """Every recorded kernel call in a path's result (nested dicts) with its
+    operands moved to ``device``, in place: between the paths the host
+    keeps them, so that the card holds none (the recorded expert-matmul
+    operands alone take about 10 GB, and path 8's llama-vision needs 55.5
+    GB of the card's 80)."""
+    if not isinstance(run, dict):
+        return
+    for key, value in run.items():
+        if key != "recorded":
+            park(value, device)
+        elif isinstance(value, dict):
+            for rec in value.values():
+                _operands_to(rec, device)
+        else:
+            _operands_to(value, device)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -3857,14 +4422,22 @@ def main() -> int:
     sweep = phase("path 6", run_sweep_path, C, TS, mp, card=card)
     by_model = {}
     t_pipe = 0.0
+    for run in (path, stack, sweep):
+        park(run)
     for name in MODELS:
         by_model[name] = phase(name, run_model_path, name, mods, device)
+        park(by_model[name])
         t_pipe += by_model[name]["pipeline"]["seconds"] + (
             by_model[name]["pipeline train"] or {}).get("seconds", 0.0)
     launchers = phase("launchers", run_launch_path, mods, device)
+    park(launchers)
     t_pipe += walls["launchers"]
     print(f"path 7 (pipeline forward and training, launchers) took "
           f"{t_pipe!r} s of wall in all")
+    cross = {}
+    for name in CROSS:
+        cross[name] = phase(name, run_cross_path, name, mods, device)
+        park(cross[name])
     pipe_runs = {f"pipeline/{name}": by_model[name]["pipeline"]
                  for name in MODELS}
     matmul["launches_by_path"] = {
@@ -3878,10 +4451,11 @@ def main() -> int:
           f"{_clocks_line()}")
     time_minplus_matmul(mp, device, matmul)
     kernels = [check_scan_path(
-        mp, device, _merge([path["recorded"], stack["recorded"],
+        mp, device, _operands_to(_merge([path["recorded"], stack["recorded"],
                             sweep["recorded"]] + [
             by_model[name]["recorded"]["minplus_scan"] for name in MODELS] + [
             run["recorded"]["minplus_scan"] for run in pipe_runs.values()]),
+            device),
         {"planner": path["launches"], "serve-stack": stack["launches"],
          "sweep": sweep["launches"], **{
             name: by_model[name]["launches"]["minplus_scan"]
@@ -3893,6 +4467,7 @@ def main() -> int:
           f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru",
                    "flash_attention_bwd", "ssd_bwd"):
+        t_kernel = time.perf_counter()
         runs = []
         for m, spec in MODELS.items():
             res = by_model[m]
@@ -3910,13 +4485,21 @@ def main() -> int:
                 runs.append((f"pipeline train/{m}", res["pipeline train"]))
         if kernel in ("flash_attention", "flash_attention_bwd"):
             runs.append(("launchers", launchers))
+        for m, res in cross.items():
+            if kernel == "flash_attention":
+                runs += [(f"cross/{m}", res["forward"]),
+                         (f"cross serve/{m}", res["serve"])]
+            if res["train"] is not None and kernel in CROSS[m].train.kernels:
+                runs.append((f"cross train/{m}", res["train"]))
         kernels.append(check_model_path(
             kernel, mods[_module(kernel)],
-            _merge([run["recorded"][kernel] for _, run in runs]),
+            _operands_to(_merge([run["recorded"][kernel] for _, run in runs]),
+                         device),
             {path: run["launches"][kernel] for path, run in runs},
             generic_new[kernel], device))
         print(f"clocks after the {kernel} timings (sm, max sm, "
-              f"temperature): {_clocks_line()}")
+              f"temperature): {_clocks_line()}; its checks and timings in "
+              f"{time.perf_counter() - t_kernel!r} s")
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

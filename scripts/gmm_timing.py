@@ -3,7 +3,11 @@
 against its plain version at a few shapes (one 64 x 64 tile, ragged and
 padded shapes, the MoE path's two), then its time per launch at the path's
 three launches beside ``torch.bmm`` (with the activation) on the same
-operands, by CUDA events.
+operands, by CUDA events, three ways: back-to-back launches, a held stream
+(``chip_smoke._held_queue_ms``: the host's enqueueing kept out) and the
+profiler's device time (``chip_smoke._kernel_device_ms``, the way
+chip_smoke.py times its ``library_ms``), with the device kernels each
+``torch.bmm`` call launches, as the profiler counts them in three windows.
 
     PYTHONPATH=src python3 scripts/gmm_timing.py      # needs one CUDA card
 
@@ -20,13 +24,19 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import moe_gmm
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
+from repro_torch.kernels import moe_gmm  # noqa: E402
 
 TOL = 2.0 ** -7  # chip_smoke.py's GMM_TOL
 BOUND_MS = 0.1891  # 633.3 MB at 3.35 TB/s (chip_smoke.py's _gmm_bound)
+CALLS = 20  # calls of a held-stream or profiler timing
 CHECKS = [(1, 64, 64, 64), (1, 128, 64, 256), (2, 128, 256, 256),
           (1, 1, 8, 8), (3, 70, 50, 33), (3, 320, 40, 264),
           (128, 320, 2048, 768), (128, 320, 768, 2048)]
@@ -88,6 +98,18 @@ def main() -> int:
               f"ms, torch.bmm {library!r} ms, kernel / library "
               f"{kernel / library!r}, share of the {BOUND_MS} ms bound "
               f"{BOUND_MS / kernel!r}")
+        for what, fn, name in (
+                ("kernel", lambda: moe_gmm.expert_matmul(x, w, act),
+                 "expert_matmul_kernel"),
+                ("torch.bmm", lambda: ACT[act](torch.bmm(x, w)), None)):
+            held = cs._held_queue_ms(fn, CALLS)
+            prof = cs._kernel_device_ms(fn, CALLS, name)
+            windows = [cs._device_events(lambda: [fn() for _ in range(CALLS)])
+                       for _ in range(3)]
+            print(f"  {what}: held stream {held!r} ms, profiler "
+                  f"{prof!r} ms a call; device kernels of {CALLS} calls in "
+                  f"three profiler windows: "
+                  f"{[dict(count) for _, _, count in windows]}")
     return 1 if failures else 0
 
 

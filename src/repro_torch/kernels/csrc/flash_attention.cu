@@ -8,7 +8,7 @@
 //
 // Semantics (those of the TPU kernel and of its oracle):
 //   q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd), bf16, contiguous, hd in
-//   {32, 64, 128, 256}; query head h reads kv head h / (Hq / Hkv).
+//   {16, 32, 64, 128, 256}; query head h reads kv head h / (Hq / Hkv).
 //   s = (q . k) * scale, then softcap * tanh(s / softcap) when softcap > 0,
 //   then every (i, j) that the causal mask (i >= j, top-left aligned) or the
 //   window (i - j < window) excludes is set to the finite -1e30, as on the
@@ -53,11 +53,12 @@
 //     (B, S, H, hd) layout with the kv head from the GQA map; TMA zero-fills
 //     rows past Sq or Skv and clips the output's rows past Sq.
 //   - Tiles live in shared memory as TMA wrote them: 128-byte swizzled rows
-//     of 64 columns (64-byte swizzle and 32 columns at hd 32), a tile wider
-//     than one swizzle atom split into column blocks.  The wgmma
-//     descriptors read that layout directly.
+//     of 64 columns (64-byte swizzle and 32 columns at hd 32, 32-byte and 16
+//     at hd 16, the JAX package's reduced width), a tile wider than one
+//     swizzle atom split into column blocks.  The wgmma descriptors read
+//     that layout directly.
 //   - S = Q.K^T by `wgmma` m64n64k16, both operands K-major from shared
-//     memory, hd / 16 steps.
+//     memory, hd / 16 steps (a single one at hd 16).
 //   - Softmax in registers: scale * log2(e) folded into one multiply and
 //     exp2f; each row's max and sum over the four threads that hold it in
 //     the accumulator layout; the mask built only on tiles that cut the
@@ -95,14 +96,14 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // swizzle span = row pitch, bytes
+  static constexpr int SW = HD >= 64 ? 128 : HD * 2;  // swizzle span = row pitch, bytes
   static constexpr int AW = SW / 2;               // columns of one swizzle atom
   static constexpr int NCB = HD / AW;             // column blocks of a tile
   static constexpr int SPA = SW / 32;             // k16 steps in one atom row
   static constexpr int NS = HD == 256 ? 2 : 4;    // ring stages
   static constexpr uint32_t Q_BYTES = BQ * HD * 2;
   static constexpr uint32_t KV_BYTES = BK * HD * 2;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: B128 or B64
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma: B128, B64, B32
   // tiles, 1024 bytes of alignment slack, then the barriers
   static constexpr size_t SMEM = Q_BYTES + 2 * NS * KV_BYTES + 1024 + 8 * (1 + 3 * NS);
 };
@@ -212,6 +213,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 16, fp32) += A (64 x 16, bf16 registers) . B (16 x 16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D (64 x 32, fp32) += A (64 x 16, bf16 registers) . B (16 x 32, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -297,7 +309,9 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t b) {
-  if constexpr (HD == 32) {
+  if constexpr (HD == 16) {
+    wgmma_rs_n16(o, a, b);
+  } else if constexpr (HD == 32) {
     wgmma_rs_n32(o, a, b);
   } else if constexpr (HD == 64) {
     wgmma_rs_n64(o, a, b);
@@ -526,7 +540,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     named_barrier(1 + wg, 128);  // the warpgroup's products no longer read Q
     const uint32_t ob = sq + wg * 64 * C::SW;
     const int r = warp * 16 + lane / 4;  // and r + 8: the same swizzle
-    const uint32_t swz = C::SW == 128 ? (r & 7) : ((r >> 1) & 3);
+    // the 16-byte chunk XOR the address's bits 7.. (1, 2 or 3 of them)
+    const uint32_t swz = C::SW == 128 ? (r & 7) : C::SW == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const uint32_t chunk = j % (C::AW / 8);
@@ -583,7 +598,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                 dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -614,7 +631,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 when it was accepted).  window <= 0
-// and softcap <= 0 mean none; hd must be 32, 64, 128 or 256, and every
+// and softcap <= 0 mean none; hd must be 16, 32, 64, 128 or 256, and every
 // pointer 16-byte aligned (the TMA's rule).  lse, when not null, receives
 // each row's log-sum-exp of the scores, fp32 (B, Hq, Sq): the backward's.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -625,6 +642,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   switch (hd) {
+    case 16:
+      return launch<16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     case 32:
       return launch<32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal, window, softcap, lse, s);
     case 64:

@@ -24,7 +24,7 @@
 //   dV_j  = sum_i p_ij dO_i             (over the G query heads of kv head j)
 //   dS_ij = p_ij (dO_i . v_j - D_i) (1 - tanh^2) where seen, else 0
 //   dQ_i  = scale sum_j dS_ij k_j,  dK_j = scale sum_i dS_ij q_i (over G too)
-// q, k, v and dO are bf16 (B, S, H, hd), hd in {32, 64, 128, 256}, 16-byte
+// q, k, v and dO are bf16 (B, S, H, hd), hd in {16, 32, 64, 128, 256}, 16-byte
 // aligned (TMA); dQ, dK and dV come out in bf16, every sum fp32.  D is
 // summed from the fp32 p and dP by a walk of its own, not taken as dO . O
 // from the bf16 output as FlashAttention-2 does: on qwen2-1.5b's recorded
@@ -64,7 +64,8 @@
 // produces (40): TMA loads of 64-row tiles into a ring of stages with full
 // and empty mbarriers, so the next tile's loads overlap this tile's
 // products.  Tiles live in shared memory as TMA wrote them, 128-byte
-// swizzled rows of 64 columns (64-byte and 32 at hd 32), as in
+// swizzled rows of 64 columns (64-byte and 32 at hd 32, 32-byte and 16 at
+// hd 16), as in
 // csrc/flash_attention.cu, and every product is a `wgmma` read from there.
 //   1. flash_bwd_dq_kernel, a block per 128 query rows (64 a consumer) of one
 //      (batch, head), the longest causal tiles first.  Q and dO are loaded
@@ -110,13 +111,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // swizzle span = row pitch, bytes
+  static constexpr int SW = HD >= 64 ? 128 : HD * 2;  // swizzle span = row pitch, bytes
   static constexpr int AW = SW / 2;               // columns of one swizzle atom
   static constexpr int NCB = HD / AW;             // column blocks of a tile
   static constexpr int SPA = SW / 32;             // k16 steps in one atom row
   static constexpr int DN = HD > 128 ? 128 : HD;  // gradient columns a block writes
   static constexpr int NSPLIT = HD / DN;          // blocks sharing a tile's columns
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: B128 or B64
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma: B128, B64, B32
   static constexpr uint32_t T_BYTES = BT * HD * 2;       // a 64-row tile
   // dQ kernel: Q and dO of 128 rows, then a ring of NSQ stages of K and V
   static constexpr int NSQ = HD == 256 ? 1 : 4;
@@ -236,6 +237,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D (64 x 16, fp32) += A (64 x 16, bf16 registers) . B (16 x 16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D (64 x 32, fp32) += A (64 x 16, bf16 registers) . B (16 x 32, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -287,7 +299,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // D (64 x DN) += A (64 x 16, registers) . B (16 x DN, shared, MN-major).
 template <int DN>
 __device__ __forceinline__ void wgmma_rs(float (&d)[DN / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (DN == 32) {
+  if constexpr (DN == 16) {
+    wgmma_rs_n16(d, a, b);
+  } else if constexpr (DN == 32) {
     wgmma_rs_n32(d, a, b);
   } else if constexpr (DN == 64) {
     wgmma_rs_n64(d, a, b);
@@ -814,7 +828,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                 dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -859,7 +875,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Returns the CUDA error of the launches (0 when both were accepted).
-// window <= 0 and softcap <= 0 mean none; hd must be 32, 64, 128 or 256, and
+// window <= 0 and softcap <= 0 mean none; hd must be 16, 32, 64, 128 or 256, and
 // q, k, v and dout 16-byte aligned (the TMA's rule).  lse (B, Hq, Sq) fp32 is
 // the forward's; dsum (B, Hq, Sq) fp32 is scratch.
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
@@ -876,6 +892,9 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
   const bool cap = softcap > 0.f;
   decltype(&launch<32, true>) fn = nullptr;
   switch (hd) {
+    case 16:
+      fn = cap ? launch<16, true> : launch<16, false>;
+      break;
     case 32:
       fn = cap ? launch<32, true> : launch<32, false>;
       break;

@@ -47,7 +47,7 @@ BWD_LIBRARY = _build.KernelLibrary("flash_attention_bwd", {
     "flash_attention_bwd_bf16": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p]})
-HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernels are built for
 MASKED = -1e30
 
 # Kernel launches made by flash_attention since the count was last set to 0

@@ -5,8 +5,10 @@ prompts, as the JAX package's ``repro.launch.serve``.
       --requests 8 [--device cuda|cpu]
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-exits 2.  MoE configs raise: their decode is ROADMAP A17.  ``--reduced``
-is ``launch.reduced_config``, as the training launcher's.
+exits 2.  MoE configs raise: their decode is ROADMAP A17.  So do configs
+with cross-attention: ``ServingEngine.generate`` passes no memory, as the
+JAX package's does not.  ``--reduced`` is ``cfg.reduced()``, as the
+training launcher's.
 """
 from __future__ import annotations
 
@@ -30,7 +32,6 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     from ..configs import get_config
-    from . import reduced_config
     from ..core.torch_solvers import resolve_device
     from ..models import layers as L
     from ..models import transformer as T
@@ -42,9 +43,13 @@ def main(argv: list[str] | None = None) -> int:
         ap.error(f"{exc} (--device cpu)")
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = reduced_config(cfg)
+        cfg = cfg.reduced()
     if cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: {L.MOE_CACHE_ITEM}")
+    if T.has_cross(cfg):
+        raise ValueError(f"{cfg.name} attends to a memory, which "
+                         f"ServingEngine.generate does not take, as the JAX "
+                         f"package's does not")
     params = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
                            device=device)
     engine = ServingEngine(cfg, params, batch_size=args.batch,

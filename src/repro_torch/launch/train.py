@@ -12,8 +12,11 @@ exits 2.  ``dp`` is ``train.make_train_step``; ``msl-pp`` is
 pattern groups, ``[(1, R // 2), (R // 2 + 1, R)]``, both stages on the one
 device.  Checkpoints are the JAX package's format (``repro_torch.ckpt``),
 so ``--resume`` takes one written by either package for the same config.
-``--reduced`` is the JAX package's reduced config at the head width of 32
-that the card's attention kernel takes (``launch.reduced_config``).
+``--reduced`` is the JAX package's reduced config (``cfg.reduced()``, head
+width 16), so either package's checkpoint restores into the other's run.
+A config with cross-attention trains on ``SyntheticLM``'s memory of
+``memory_len`` frames or patches in ``dp`` mode; ``msl-pp`` carries no
+memory, as the JAX package's pipeline carries none, and raises.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..ckpt import CheckpointManager
     from ..configs import get_config
-    from . import reduced_config
     from ..core.torch_solvers import resolve_device
     from ..data import BatchSpec, Prefetcher, SyntheticLM, shard_batch
     from ..models import transformer as T
@@ -64,7 +66,7 @@ def main(argv: list[str] | None = None) -> int:
         ap.error(f"{exc} (--device cpu)")
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = reduced_config(cfg)
+        cfg = cfg.reduced()
     params = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
                            device=device)
     opt = make_optimizer(cfg.optimizer, lr=args.lr, warmup=5,

@@ -9,7 +9,11 @@ axis = repetition) plus an unrolled remainder (``rem``); the port keeps one
 dict per layer in layer order, so layer ``r * len(pattern) + i`` is
 repetition ``r`` of slot ``i``.  A serving cache (``{"stack": {"groups",
 "rem"}}`` in the JAX package, ``{"stack": {"layers"}}`` in the port) is
-laid out the same way; its ``pos`` leaves are int32 there and int64 here.
+laid out the same way; its ``pos`` leaves are int32 there and int64 here,
+and a ``dec_block``'s cache nests ``{"self", "cross"}`` in both.  An
+encoder (``params["encoder"]``, one ``attn`` slot stacked over
+``cfg.enc_layers``) crosses as the decoder's stack does, and a cache's
+``enc_memory`` as it is.
 
 The optimizer states cross likewise: AdamW's ``m`` and ``v`` mirror the
 parameters in either layout; Adafactor's ``f`` mirrors the JAX parameter
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .transformer import tree_map, tree_paths
+from .transformer import ENC_PATTERN, tree_paths
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -46,60 +50,72 @@ def _row(a, r):
     return a[r] if isinstance(a, torch.Tensor) else np.asarray(a)[r]
 
 
-def params_from_jax(tree, cfg: ModelConfig, device) -> dict:
-    """The port's parameters from a JAX parameter pytree (numpy leaves)."""
+def _named_map(fn, tree, name=None):
+    """``fn(key, leaf)`` over nested dicts, ``key`` the leaf's own name."""
+    if isinstance(tree, dict):
+        return {k: _named_map(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def _stacks(cfg: ModelConfig) -> dict:
+    """Each stack of the model: its name in the tree -> (pattern, layers)."""
+    out = {"stack": (cfg.pattern, cfg.n_layers)}
     if cfg.enc_layers:
-        raise NotImplementedError("encoder stacks are not ported yet")
-    plen = len(cfg.pattern)
-    full_reps = cfg.n_layers // plen
-    stack = tree["stack"]
-    layers = []
-    for r in range(full_reps):
-        for i in range(plen):
-            layers.append(tree_map(lambda a: _tensor(_row(a, r), device),
-                               stack["groups"][i]))
-    # a restored checkpoint has no "rem" where it held no leaf
-    for rem in stack.get("rem", []):
-        layers.append(tree_map(lambda a: _tensor(a, device), rem))
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, {cfg.n_layers} "
-                         f"in the config")
-    out = {"embed": _tensor(tree["embed"], device),
-           "final_norm": _tensor(tree["final_norm"], device),
-           "stack": {"layers": layers}}
-    if "head" in tree:
-        out["head"] = _tensor(tree["head"], device)
+        out["encoder"] = (ENC_PATTERN, cfg.enc_layers)
     return out
 
 
-def _unstack(stack, cfg: ModelConfig, leaf) -> list:
+def _unstack(stack, pattern, n_layers: int, leaf) -> list:
     """The layers of a JAX stack (``groups`` stacked over the pattern's full
     repetitions, then ``rem``) in layer order, each leaf through
-    ``leaf(name, array)``."""
-    plen = len(cfg.pattern)
-    layers = [{k: leaf(k, np.asarray(a)[r])
-               for k, a in stack["groups"][i].items()}
-              for r in range(cfg.n_layers // plen) for i in range(plen)]
-    layers += [{k: leaf(k, a) for k, a in rem.items()}
-               for rem in stack["rem"]]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, {cfg.n_layers} "
-                         f"in the config")
+    ``leaf(name, array)``; a restored checkpoint has no ``rem`` where it
+    held no leaf."""
+    plen = len(pattern)
+    layers = [_named_map(lambda k, a: leaf(k, _row(a, r)), stack["groups"][i])
+              for r in range(n_layers // plen) for i in range(plen)]
+    layers += [_named_map(leaf, rem) for rem in stack.get("rem", [])]
+    if len(layers) != n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, {n_layers} in "
+                         f"the config")
     return layers
+
+
+def params_from_jax(tree, cfg: ModelConfig, device) -> dict:
+    """The port's parameters from a JAX parameter pytree (numpy leaves)."""
+    def stack(name):
+        pattern, n = _stacks(cfg)[name]
+        return {"layers": _unstack(tree[name], pattern, n,
+                                   lambda _, a: _tensor(a, device))}
+
+    # the keys in ``transformer.init_params``'s order
+    out = {"embed": _tensor(tree["embed"], device),
+           "final_norm": _tensor(tree["final_norm"], device),
+           "stack": stack("stack")}
+    if "head" in tree:
+        out["head"] = _tensor(tree["head"], device)
+    if cfg.enc_layers:
+        out["encoder"] = stack("encoder")
+        out["enc_norm"] = _tensor(tree["enc_norm"], device)
+    return out
 
 
 def cache_from_jax(tree, cfg: ModelConfig, device) -> dict:
     """The port's serving cache from the JAX package's (numpy leaves): one
-    block cache per layer, ``pos`` as int64."""
-    if set(tree) != {"stack"}:
-        raise NotImplementedError(f"cache entries {sorted(set(tree))}: only "
-                                  f"the stack's caches are ported")
+    block cache per layer, ``pos`` as int64, and ``enc_memory`` where the
+    prefill kept one."""
+    if not set(tree) <= {"stack", "enc_memory"}:
+        raise ValueError(f"cache entries {sorted(set(tree))}: a serving "
+                         f"cache holds the stack's and the encoded memory")
 
     def leaf(name, a):
         t = _tensor(a, device)
         return t.long() if name == "pos" else t
 
-    return {"stack": {"layers": _unstack(tree["stack"], cfg, leaf)}}
+    out = {"stack": {"layers": _unstack(tree["stack"], cfg.pattern,
+                                        cfg.n_layers, leaf)}}
+    if "enc_memory" in tree:
+        out["enc_memory"] = _tensor(tree["enc_memory"], device)
+    return out
 
 
 def cache_to_jax_layout(cache, cfg: ModelConfig) -> dict:
@@ -119,38 +135,47 @@ def cache_to_jax_layout(cache, cfg: ModelConfig) -> dict:
             return t.to(torch.int32).numpy()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
+    def stacked(ts, name=None):
+        if isinstance(ts[0], dict):
+            return {k: stacked([t[k] for t in ts], k) for k in ts[0]}
+        return np.stack([leaf(name, t) for t in ts])
+
     plen = len(cfg.pattern)
     full = cfg.n_layers // plen * plen
-    groups = [{k: np.stack([leaf(k, layers[j][k])
-                            for j in range(i, full, plen)])
-               for k in layers[i]} for i in range(plen)] if full else []
-    rem = [{k: leaf(k, t) for k, t in c.items()} for c in layers[full:]]
-    return {"stack": {"groups": groups, "rem": rem}}
+    groups = [stacked(layers[i:full:plen]) for i in range(plen)] \
+        if full else []
+    rem = [_named_map(leaf, c) for c in layers[full:]]
+    out = {"stack": {"groups": groups, "rem": rem}}
+    if "enc_memory" in cache:
+        out["enc_memory"] = leaf("enc_memory", cache["enc_memory"])
+    return out
 
 
 # ------------------------------------------------- the port's, to the JAX --
 def _jax_path(path: tuple, cfg: ModelConfig) -> tuple:
     """The key path in the JAX layout of the port's parameter leaf at
-    ``path``: layer ``j`` of the stack is repetition ``j // len(pattern)``
-    of ``groups[j % len(pattern)]`` while the repetitions are whole, then
-    ``rem[j - full]``."""
-    if path[:2] != ("stack", "layers"):
+    ``path``: layer ``j`` of a stack (the decoder's or the encoder's) is
+    repetition ``j // len(pattern)`` of ``groups[j % len(pattern)]`` while
+    the repetitions are whole, then ``rem[j - full]``."""
+    stacks = _stacks(cfg)
+    if path[0] not in stacks or path[1:2] != ("layers",):
         return path
-    plen = len(cfg.pattern)
-    full = cfg.n_layers // plen * plen
+    pattern, n_layers = stacks[path[0]]
+    plen = len(pattern)
+    full = n_layers // plen * plen
     j = path[2]
     if j < full:
-        return ("stack", "groups", j % plen) + path[3:]
-    return ("stack", "rem", j - full) + path[3:]
+        return (path[0], "groups", j % plen) + path[3:]
+    return (path[0], "rem", j - full) + path[3:]
 
 
 def _assemble(items, cfg: ModelConfig) -> dict:
     """Nested dicts and lists from (key path, value) pairs, with the JAX
     stack's ``groups`` (None per pattern slot without a full repetition,
     as ``init_stack`` leaves them) and ``rem``."""
-    plen = len(cfg.pattern)
-    root: dict = {"stack": {"groups": [] if cfg.n_layers >= plen
-                            else [None] * plen, "rem": []}}
+    root: dict = {name: {"groups": [] if n >= len(pattern)
+                         else [None] * len(pattern), "rem": []}
+                  for name, (pattern, n) in _stacks(cfg).items()}
     for path, value in items:
         cur = root
         for key, nxt in zip(path[:-1], path[1:]):
@@ -175,13 +200,14 @@ def params_to_jax_layout(params, cfg: ModelConfig) -> dict:
     and the remainder layers unrolled (``rem``), its leaves detached CPU
     tensors of the parameters' own dtypes (a leaf that is not stacked and
     already lives on the CPU is the parameter itself)."""
-    if len(params["stack"]["layers"]) != cfg.n_layers:
-        raise ValueError(f"{len(params['stack']['layers'])} layers of "
-                         f"parameters, {cfg.n_layers} in the config")
+    for name, (_, n) in _stacks(cfg).items():
+        if len(params[name]["layers"]) != n:
+            raise ValueError(f"{len(params[name]['layers'])} layers of "
+                             f"parameters in {name}, {n} in the config")
     by: dict = {}
     for path, t in tree_paths(params):
         by.setdefault(_jax_path(path, cfg), []).append(t.detach())
-    return _assemble([(jp, (torch.stack(ts) if jp[:2] == ("stack", "groups")
+    return _assemble([(jp, (torch.stack(ts) if jp[1:2] == ("groups",)
                             else ts[0]).cpu()) for jp, ts in by.items()],
                      cfg)
 

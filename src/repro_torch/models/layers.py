@@ -16,11 +16,14 @@ products through the expert-matmul kernel, the RG-LRU recurrence through
 the RG-LRU kernel and the SSD scan through the SSD kernel
 (``repro_torch.kernels``); each takes its plain version on the CPU.  A
 prefill goes through the same kernels; a decode step is plain PyTorch, as
-the JAX package's is plain ``jnp``.  The caches: a KV ring buffer of
-``attn`` and ``local_attn``, written in place; the RG-LRU's and SSD's
-float32 state with the conv's trailing inputs, replaced at every call.  MoE
-with a cache and cross-attention are not ported and raise
-``NotImplementedError`` naming their ROADMAP item.
+the JAX package's is plain ``jnp``, except cross-attention, which attends
+over the whole memory through the flash kernel in every mode, as the JAX
+package runs its ``blocked_attention`` there.  The caches: a KV ring buffer
+of ``attn`` and ``local_attn``, written in place; the cross K/V of
+``xattn`` and ``dec_block``, projected from the memory once at prefill; the
+RG-LRU's and SSD's float32 state with the conv's trailing inputs, replaced
+at every call.  MoE with a cache is not ported and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,8 +45,6 @@ Params = dict
 # ROADMAP items of what is not ported yet, named by the errors that say so.
 MOE_CACHE_ITEM = ("ROADMAP A17: MoE decode (the capacity is taken over a "
                   "call's own tokens)")
-CROSS_ITEM = ("ROADMAP A, later 9: the encoder-decoder and vision families "
-              "(cross-attention)")
 
 
 @dataclasses.dataclass
@@ -52,6 +53,7 @@ class Ctx:
 
     mode: str  # "train" | "prefill" | "decode"
     positions: torch.Tensor  # (B, S) absolute positions
+    memory: torch.Tensor | None = None  # (B, M, D) modality / encoder memory
     cache_len: int = 0  # allocated cache length (decode)
     causal: bool = True
 
@@ -113,7 +115,8 @@ def gelu_tanh(x):
 
 
 # =============================================================== attention ====
-def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> Params:
     D, hd = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, max(1, cfg.n_kv_heads)
     dt = pdt(cfg)
@@ -130,6 +133,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = _zeros(gen, (hd,), dt)
         p["k_norm"] = _zeros(gen, (hd,), dt)
+    if cross:
+        p["xgate"] = _zeros(gen, (), dt)  # llama-vision gated cross-attention
     return p
 
 
@@ -211,36 +216,84 @@ def _cache_write(cache, k_new, v_new, positions) -> dict:
     return cache
 
 
+def _cross_kv(p, cfg: ModelConfig, mem):
+    """The cross-attention keys and values of the memory (B, M, D): its
+    projections with their biases and the keys' qk-norm, no rope, in the
+    compute type (``layers.py:302-311`` of the JAX package)."""
+    dt = cdt(cfg)
+    hd, Hkv = cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
+    k = (mem @ p["wk"].to(dt)).reshape(mem.shape[0], -1, Hkv, hd)
+    v = (mem @ p["wv"].to(dt)).reshape(mem.shape[0], -1, Hkv, hd)
+    if "bk" in p:
+        k = k + p["bk"].to(dt).reshape(Hkv, hd)
+        v = v + p["bv"].to(dt).reshape(Hkv, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return k.to(dt), v.to(dt)
+
+
+def _cross_attention(p, cfg: ModelConfig, x, ctx: Ctx, cache):
+    """Cross-attention of x over the memory, ``layers.py:285-313`` of the
+    JAX package: every query sees every memory position (the flash kernel,
+    non-causal, Sq != Skv).  The keys and values come from ``ctx.memory``
+    without a cache and in a prefill, which stores them in the cache; a
+    decode step reuses the cached ones and never reads the memory."""
+    dt = cdt(cfg)
+    hd, Hq = cfg.resolved_head_dim, cfg.n_heads
+    q = x @ p["wq"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    q = q.reshape(x.shape[0], x.shape[1], Hq, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if cache is not None and ctx.decoding:
+        k, v = cache["k"], cache["v"]
+    else:
+        if ctx.memory is None:
+            raise ValueError("cross-attention needs the memory (ctx.memory) "
+                             "outside a decode step")
+        k, v = _cross_kv(p, cfg, ctx.memory)
+        if cache is not None:
+            cache = {"k": k, "v": v}
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=False, softcap=cfg.attn_softcap)
+    return out, cache
+
+
 def attention_block(p, cfg: ModelConfig, x, ctx: Ctx, cache, window=None,
                     cross=False):
-    """Self-attention sublayer (no residual or norm: the caller wraps it),
-    ``layers.py:314-330`` of the JAX package.
+    """Self- or cross-attention sublayer (no residual or norm: the caller
+    wraps it), ``layers.py:285-340`` of the JAX package.
 
-    Without a cache, and in a prefill, the flash kernel attends over the
-    call's own K/V.  It masks by index (query i sees key j <= i), which is
-    the JAX package's mask by position for the consecutive positions of
-    such a call.  A prefill then writes the last ``min(L, S)`` tokens into
-    the ring of L slots; a decode step writes its token and attends over
-    the whole cache (:func:`_decode_attention`)."""
+    Self-attention without a cache, and in a prefill, runs the flash kernel
+    over the call's own K/V.  It masks by index (query i sees key j <= i),
+    which is the JAX package's mask by position for the consecutive
+    positions of such a call.  A prefill then writes the last ``min(L, S)``
+    tokens into the ring of L slots; a decode step writes its token and
+    attends over the whole cache (:func:`_decode_attention`).
+    Cross-attention is :func:`_cross_attention`, its output scaled by
+    ``tanh(xgate)`` where the block has the gate."""
     if cross:
-        raise NotImplementedError(f"cross-attention is not ported yet: "
-                                  f"{CROSS_ITEM}")
-    q, k, v = _project_qkv(p, cfg, x, x, ctx.positions, ctx.positions)
-    if cache is not None and ctx.decoding:
-        cache = _cache_write(cache, k, v, ctx.positions)
-        out = _decode_attention(cfg, q, cache["k"], cache["v"],
-                                ctx.positions, cache["pos"], window)
+        out, cache = _cross_attention(p, cfg, x, ctx, cache)
     else:
-        causal = True if cache is not None else ctx.causal
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
-        if cache is not None:
-            tail = min(cache["k"].shape[1], k.shape[1])
-            cache = _cache_write(cache, k[:, -tail:], v[:, -tail:],
-                                 ctx.positions[:, -tail:])
+        q, k, v = _project_qkv(p, cfg, x, x, ctx.positions, ctx.positions)
+        if cache is not None and ctx.decoding:
+            cache = _cache_write(cache, k, v, ctx.positions)
+            out = _decode_attention(cfg, q, cache["k"], cache["v"],
+                                    ctx.positions, cache["pos"], window)
+        else:
+            causal = True if cache is not None else ctx.causal
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window, softcap=cfg.attn_softcap)
+            if cache is not None:
+                tail = min(cache["k"].shape[1], k.shape[1])
+                cache = _cache_write(cache, k[:, -tail:], v[:, -tail:],
+                                     ctx.positions[:, -tail:])
     B, S = x.shape[:2]
     out = out.reshape(B, S, -1) @ p["wo"].to(cdt(cfg))
+    if cross and "xgate" in p:
+        out = torch.tanh(p["xgate"].float()).to(out.dtype) * out
     return out, cache
 
 

@@ -1,6 +1,8 @@
 """Model assembly: embedding + the block pattern repeated over the layers +
-head, for the block kinds the port runs so far (``attn``, ``local_attn``,
-``moe``, ``moe_dense``, ``rglru``, ``ssd``), with the caches of serving.
+head, for every block kind of the JAX package (``attn``, ``local_attn``,
+``xattn``, ``dec_block``, ``moe``, ``moe_dense``, ``rglru``, ``ssd``), with
+the caches of serving; Whisper-style encoders are a second, non-causal
+stack of ``attn`` blocks over the modality memory (``params["encoder"]``).
 
 Parameters are plain dicts of tensors.  Where the JAX package stacks each
 pattern slot's parameters over repetitions for one ``lax.scan``, the port
@@ -14,6 +16,8 @@ backward (:func:`apply_stack`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -23,20 +27,20 @@ from . import layers as L
 from .layers import Ctx
 
 # block kinds the port runs
-KINDS = ("attn", "local_attn", "moe", "moe_dense", "rglru", "ssd")
-# ROADMAP items of the block kinds that are not ported yet.
-PENDING_KINDS = {
-    "xattn": L.CROSS_ITEM,
-    "dec_block": L.CROSS_ITEM,
-}
+KINDS = ("attn", "local_attn", "xattn", "dec_block", "moe", "moe_dense",
+         "rglru", "ssd")
+CROSS_KINDS = ("xattn", "dec_block")  # the kinds that attend to a memory
+ENC_PATTERN = ("attn",)  # the encoder stack's pattern
 
 
 def _check_kind(kind: str) -> None:
-    if kind in PENDING_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                  f"{PENDING_KINDS[kind]}")
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind}")
+
+
+def has_cross(cfg: ModelConfig) -> bool:
+    """The config's decoder attends to a modality or encoder memory."""
+    return any(kind in CROSS_KINDS for kind in cfg.pattern)
 
 
 # ------------------------------------------------------------------- params --
@@ -55,6 +59,16 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
         p["moe"] = L.init_moe(gen, cfg)
         if kind == "moe_dense":
             p["mlp"] = L.init_mlp(gen, cfg)
+    elif kind == "xattn":
+        p["attn"] = L.init_attention(gen, cfg, cross=True)
+        p["ln2"] = L._zeros(gen, (D,), dt)
+        p["mlp"] = L.init_mlp(gen, cfg)
+    elif kind == "dec_block":
+        p["attn"] = L.init_attention(gen, cfg)
+        p["ln2"] = L._zeros(gen, (D,), dt)
+        p["xattn"] = L.init_attention(gen, cfg, cross=True)
+        p["ln3"] = L._zeros(gen, (D,), dt)
+        p["mlp"] = L.init_mlp(gen, cfg)
     elif kind == "rglru":
         p["rglru"] = L.init_rglru(gen, cfg)
         p["ln2"] = L._zeros(gen, (D,), dt)
@@ -94,6 +108,24 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
         else:
             y = L.mlp(p["mlp"], cfg, hin)
         x = x + y
+    elif kind == "xattn":
+        h, cache = L.attention_block(
+            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx, cache,
+            cross=True)
+        x = x + h
+        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    elif kind == "dec_block":
+        h, c_self = L.attention_block(
+            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
+            cache["self"] if cache is not None else None)
+        x = x + h
+        h, c_cross = L.attention_block(
+            p["xattn"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps), ctx,
+            cache["cross"] if cache is not None else None, cross=True)
+        x = x + h
+        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln3"], cfg.norm_eps))
+        if cache is not None:
+            cache = {"self": c_self, "cross": c_cross}
     elif kind == "rglru":
         h, cache = L.rglru_block(p["rglru"], cfg,
                                  L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
@@ -118,15 +150,31 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
                        for kind in layer_kinds(n_layers, pattern)]}
 
 
+def init_cross_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
+    """The cross K/V of the memory, (B, memory_len, Hkv, hd) each in the
+    compute type, filled by the prefill; there is no ``pos``: every query
+    sees every memory position."""
+    hd, Hkv = cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
+    shape = (batch, cfg.memory_len, Hkv, hd)
+    return {"k": torch.zeros(shape, dtype=L.cdt(cfg), device=device),
+            "v": torch.zeros(shape, dtype=L.cdt(cfg), device=device)}
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
                      *, device) -> dict:
     """An empty cache of one block for ``length`` tokens: a KV ring of
-    ``length`` slots (``min(length, window)`` for ``local_attn``), or the
-    RG-LRU's or SSD's state."""
+    ``length`` slots (``min(length, window)`` for ``local_attn``), the
+    cross K/V (``xattn``; ``dec_block`` has both, ``{"self", "cross"}``),
+    or the RG-LRU's or SSD's state."""
     _check_kind(kind)
     _check_cache_kind(kind)
     if kind == "attn":
         return L.init_kv_cache(cfg, batch, length, device=device)
+    if kind == "xattn":
+        return init_cross_cache(cfg, batch, device=device)
+    if kind == "dec_block":
+        return {"self": L.init_kv_cache(cfg, batch, length, device=device),
+                "cross": init_cross_cache(cfg, batch, device=device)}
     if kind == "local_attn":
         return L.init_kv_cache(cfg, batch, min(length, cfg.window or length),
                                device=device)
@@ -236,9 +284,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if gen.device.type != dev.type:
         raise ValueError(f"the generator lives on {gen.device}, the "
                          f"parameters are asked for on {dev}")
-    if cfg.enc_layers:
-        raise NotImplementedError(f"encoder stacks are not ported yet: "
-                                  f"{L.CROSS_ITEM}")
     dt = L.pdt(cfg)
     V, D = cfg.vocab_size, cfg.d_model
     params = {
@@ -250,6 +295,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["head"] = (torch.randn((D, V), generator=gen,
                                       device=gen.device) / D ** 0.5).to(dt)
+    if cfg.enc_layers:
+        params["encoder"] = init_stack(gen, cfg, cfg.enc_layers, ENC_PATTERN)
+        params["enc_norm"] = L._zeros(gen, (D,), dt)
     return params
 
 
@@ -265,13 +313,32 @@ def head_matrix(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
+def encode_memory(params, cfg: ModelConfig, memory):
+    """The memory the cross-attention blocks read, ``transformer.py:266-276``
+    of the JAX package: a Whisper-style encoder (``cfg.enc_layers``
+    non-causal ``attn`` blocks, rope on the frames' positions, then
+    ``enc_norm``) over the frame embeddings (B, M, D); without an encoder
+    (vision) the patch embeddings themselves, in the compute type."""
+    x = memory.to(L.cdt(cfg))
+    if not cfg.enc_layers:
+        return x
+    B, M, _ = memory.shape
+    pos = torch.arange(M, device=memory.device).expand(B, M)
+    ctx = Ctx(mode="train", positions=pos, causal=False)
+    x, _, _ = apply_stack(params["encoder"], cfg, cfg.enc_layers, ENC_PATTERN,
+                          x, ctx, None)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def forward(params, cfg: ModelConfig, tokens, ctx: Ctx, cache=None,
             memory=None):
     """tokens (B, S) -> (hidden (B, S, D), new_cache, aux); ``cache`` is
-    the stack's (:func:`init_cache`), and the new one is returned."""
+    the stack's (:func:`init_cache`), and the new one is returned.  A
+    ``memory`` (B, M, D) is encoded (:func:`encode_memory`) into
+    ``ctx.memory`` first."""
     if memory is not None:
-        raise NotImplementedError(f"modality memory is not ported yet: "
-                                  f"{L.CROSS_ITEM}")
+        ctx = dataclasses.replace(ctx, memory=encode_memory(params, cfg,
+                                                            memory))
     x = embed_tokens(params, cfg, tokens)
     x, new_cache, aux = apply_stack(params["stack"], cfg, cfg.n_layers,
                                     cfg.pattern, x, ctx, cache)

@@ -188,6 +188,10 @@ def pipeline_forward(params, batch, cfg: ModelConfig, mesh: PipelineMesh,
     """Embed -> pipelined blocks -> final hidden states (B, S, D) on the
     last stage's device, and the aux loss: summed over stages and active
     ticks, then divided by the M + K - 1 ticks, as the reference's."""
+    if T.has_cross(cfg):
+        raise ValueError(f"{cfg.name} attends to a memory, which the "
+                         f"pipeline does not carry (nor does the JAX "
+                         f"package's)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     if B % n_micro:

@@ -4,9 +4,8 @@
     PYTHONPATH=src python -m repro_torch.msl.pipeline_check qwen3-14b \\
         [--device cpu]
 
-A reduced config (``launch.reduced_config``: the JAX package's at the
-head width the card's attention kernel takes) at B 4 x S 16 through K 2
-stages and M 2 microbatches:
+The JAX package's reduced config (``cfg.reduced()``) at B 4 x S 16
+through K 2 stages and M 2 microbatches:
 the pipelined hidden state within 5e-2 of the sequential forward's (bf16
 residual accumulation), then one pipelined train step with a finite loss
 that moves the parameters.  It runs on the card unless ``--device cpu``
@@ -30,7 +29,6 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..configs import ARCHS
     from ..core.torch_solvers import resolve_device
-    from ..launch import reduced_config
     from ..models import transformer as T
     from ..models.layers import Ctx
     from ..optim import make_optimizer
@@ -45,7 +43,7 @@ def main(argv: list[str] | None = None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as exc:
         ap.error(f"{exc} (--device cpu)")
-    cfg = reduced_config(ARCHS[args.arch])
+    cfg = ARCHS[args.arch].reduced()
     if cfg.n_layers % len(cfg.pattern):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
                          f"repetitions of the pattern")

@@ -96,6 +96,10 @@ class ChainSimulator:
 
     def __init__(self, cfg: ModelConfig, params, net, profile,
                  request: ServiceChainRequest):
+        if T.has_cross(cfg):
+            raise ValueError(f"{cfg.name} attends to a memory, which the "
+                             f"chain does not carry (nor does the JAX "
+                             f"package's ChainSimulator)")
         plen = len(cfg.pattern)
         n_groups = -(-cfg.n_layers // plen)
         if profile.L != n_groups:

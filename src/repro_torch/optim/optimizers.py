@@ -70,24 +70,29 @@ def clip_by_global_norm(grads, max_norm: float):
 def stacked_groups(params, cfg=None) -> list[tuple[tuple[int, ...], bool]]:
     """The leaves (indices into ``tree_leaves(params)``) that the JAX package
     holds as one leaf: each pattern slot's leaf over the full repetitions,
-    in repetition order, stacked (True); every other leaf alone (False).
-    Without ``cfg`` every leaf is alone; a tree with a model stack needs
-    the config that laid it out."""
+    in repetition order, stacked (True), in the decoder's stack and in the
+    encoder's (one ``attn`` slot over ``cfg.enc_layers``); every other leaf
+    alone (False).  Without ``cfg`` every leaf is alone; a tree with a
+    model stack needs the config that laid it out."""
     paths = [p for p, _ in tree_paths(params)]
+    in_stack = [p[0] in ("stack", "encoder") and p[1:2] == ("layers",)
+                for p in paths]
     if cfg is None:
-        if any(p[:2] == ("stack", "layers") for p in paths):
+        if any(in_stack):
             raise ValueError("the parameters hold a model stack: pass the "
                              "config that laid it out, so that the updates "
                              "group its layers as the JAX package stacks "
                              "them")
         return [((i,), False) for i in range(len(paths))]
-    plen = len(cfg.pattern)
-    full = cfg.n_layers // plen * plen
+    # each stack's pattern length and its layers in full repetitions
+    plens = {"stack": len(cfg.pattern), "encoder": 1}
+    full = {"stack": cfg.n_layers // len(cfg.pattern) * len(cfg.pattern),
+            "encoder": cfg.enc_layers}
     groups: dict = {}
     order = []
     for i, p in enumerate(paths):
-        if p[:2] == ("stack", "layers") and p[2] < full:
-            key = (p[2] % plen,) + p[3:]
+        if in_stack[i] and p[2] < full[p[0]]:
+            key = (p[0], p[2] % plens[p[0]]) + p[3:]
         else:
             key = ("alone", i)
         if key not in groups:

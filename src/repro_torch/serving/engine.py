@@ -4,8 +4,11 @@
 ``prefill`` runs the prompt through the model from empty caches (attention
 through the flash kernel, the SSD and RG-LRU scans through theirs) and
 returns the next-token logits with the caches; ``decode_step`` takes one
-token per sequence against them, in plain PyTorch.  ``ServingEngine`` is the
-host loop: it packs requests into the fixed batch, left-pads them with 0,
+token per sequence against them, in plain PyTorch (cross-attention
+through the flash kernel over the cross K/V the prefill projected).  A
+config with cross-attention takes its memory (B, M, D) at ``prefill``,
+which encodes it once and keeps it in the cache (``enc_memory``).
+``ServingEngine`` is the host loop: it packs requests into the fixed batch, left-pads them with 0,
 and decodes greedily until ``max_new`` tokens or ``eos_id``.  Everything
 runs eagerly under ``torch.inference_mode()``; the caches' KV rings are
 written in place.
@@ -20,30 +23,34 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.torch_solvers import resolve_device
 from ..models import transformer as T
-from ..models.layers import CROSS_ITEM, Ctx
+from ..models.layers import Ctx
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, memory=None):
     """tokens (B, S) -> (next-token logits (B, 1, V) float32, cache), on
-    the tokens' device.  Positions are ``0 .. S-1`` for every row."""
-    if memory is not None:
-        raise NotImplementedError(f"modality memory is not ported yet: "
-                                  f"{CROSS_ITEM}")
+    the tokens' device.  Positions are ``0 .. S-1`` for every row.  A
+    ``memory`` (B, M, D) is encoded once (``encode_memory``) and kept in
+    the cache as ``enc_memory``."""
     B, S = tokens.shape
     cache = T.init_cache(cfg, B, cache_len, device=tokens.device)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
+    enc = (T.encode_memory(params, cfg, memory) if memory is not None
+           else None)
     hidden, cache, _ = T.forward(params, cfg, tokens,
-                                 Ctx(mode="prefill", positions=pos),
+                                 Ctx(mode="prefill", positions=pos,
+                                     memory=enc),
                                  cache=cache)
-    return T.logits_last(params, cfg, hidden), {"stack": cache}
+    extras = {"enc_memory": enc} if enc is not None else {}
+    return T.logits_last(params, cfg, hidden), {"stack": cache, **extras}
 
 
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, cache, tokens, positions):
     """One token per sequence: tokens (B, 1), positions (B, 1) absolute.
     Returns (logits (B, 1, V) float32, the new cache)."""
-    ctx = Ctx(mode="decode", positions=positions)
+    ctx = Ctx(mode="decode", positions=positions,
+              memory=cache.get("enc_memory"))
     hidden, stack_cache, _ = T.forward(params, cfg, tokens, ctx,
                                        cache=cache["stack"])
     return T.logits_last(params, cfg, hidden), dict(cache, stack=stack_cache)
@@ -98,6 +105,15 @@ class ServingEngine:
 
     def generate(self, prompts: list[np.ndarray],
                  max_new: int) -> list[list[int]]:
+        """Greedy tokens of each prompt.  As the JAX package's, it passes
+        no memory, so a config with cross-attention cannot be served here
+        and raises (ROADMAP §C); ``prefill(memory=...)`` and
+        ``decode_step`` serve one."""
+        if T.has_cross(self.cfg):
+            raise ValueError(f"{self.cfg.name} attends to a memory, which "
+                             f"ServingEngine.generate does not take (nor "
+                             f"does the JAX package's): call "
+                             f"prefill(memory=...) and decode_step")
         outs: list[list[int]] = []
         for start in range(0, len(prompts), self.B):
             group = prompts[start : start + self.B]

@@ -51,10 +51,17 @@ def _window(us_each: float, events: int, other: int = 0):
     ([_window(2.0, 0)] * cs.PROFILE_WINDOWS, None, "held"),
     ([_window(2.0, CALLS - 1, other=CALLS)] * cs.PROFILE_WINDOWS, None,
      "held"),
+    ([_window(2.0, CALLS, other=CALLS)] * 2, None, 3.0e-3),
+    ([_window(2.0, 0, other=CALLS)] + [_window(2.0, CALLS, other=CALLS)] * 2,
+     None, 3.0e-3),
 ], ids=["whole", "lost-then-whole", "empty-then-whole", "all-lost",
-        "all-empty", "all-empty-plain", "all-lost-plain"])
+        "all-empty", "all-empty-plain", "all-lost-plain", "whole-plain",
+        "lost-a-kernel-plain"])
 def test_a_lossy_window_is_never_read(monkeypatch, capsys, windows,
                                       must_see, want):
+    """A window that lost events is never read; without a kernel's name
+    (a plain version or a library call, which may launch several kernels a
+    call) a window is read only after one that saw the same events."""
     left = list(windows)
     monkeypatch.setattr(cs, "_device_events", lambda fn: left.pop(0))
     monkeypatch.setattr(cs, "_held_queue_ms", lambda fn, calls: 7.5)
@@ -867,3 +874,97 @@ def test_launch_path_rehearsed_on_the_cpu(fault, cpu_backward, monkeypatch,
     assert run["launches"]["flash_attention"] > 0
     assert run["launches"]["flash_attention_bwd"] > 0
     assert "4 steps + --resume" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------- path 8 ---
+# reduced traffic: the reduced configs (head width 16, 8 memory positions),
+# B 2 x S 24 (vision B 1), prompts of 4-12 tokens and 8 new, four steps
+CROSS_REHEARSAL = {
+    "whisper-small": cs.CrossModel(
+        2, 24, cs.ServeTraffic(2, 4, 12, 8, 24),
+        cs.TrainTraffic(2, 24, 4, cs.CROSS["whisper-small"].train.kernels),
+        check_seq=16),
+    "llama-3.2-vision-90b": cs.CrossModel(
+        1, 24, cs.ServeTraffic(1, 4, 12, 8, 24), check_seq=16),
+}
+
+
+@pytest.fixture
+def cross_rehearsal(cpu_backward, monkeypatch):
+    """cpu_backward, with the cross-attention configs reduced in
+    ``repro_torch.configs.ARCHS``, path 8's traffic CROSS_REHEARSAL and the
+    card's free memory read as 64 of 80 GB."""
+    for name in CROSS_REHEARSAL:
+        monkeypatch.setitem(ARCHS, name, ARCHS[name].reduced())
+    monkeypatch.setattr(cs, "CROSS", CROSS_REHEARSAL)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *a: (64 << 30, 80 << 30))
+    return cpu_backward
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", list(CROSS_REHEARSAL))
+def test_cross_path_rehearsed_on_the_cpu(name, cross_rehearsal, capsys):
+    """run_cross_path at reduced size in bf16, the plain versions standing
+    in for the kernels: every gate passes; the forward calls flash once an
+    encoder layer and a self- and cross-attention, serving as often in the
+    prefill and once a cross block a decode step, and whisper's train
+    steps twice a forward attention (remat) and once a backward."""
+    cfg = ARCHS[name]
+    spec = CROSS_REHEARSAL[name]
+    run = cs.run_cross_path(name, cross_rehearsal, "cpu")
+    calls = cs._cross_attention_calls(cfg)
+    assert calls == {"whisper-small": 6, "llama-3.2-vision-90b": 10}[name]
+    assert run["forward"]["launches"]["flash_attention"] == calls
+    assert run["serve"]["launches"]["flash_attention"] == calls + (
+        spec.serve.max_new - 1) * cs._cross_layers(cfg)
+    for part in (run["forward"], run["serve"], run["train"]):
+        if part is None:
+            continue
+        for k in cs.KERNELS:
+            assert sum(part["recorded"][k][0].values()) == part["launches"][k]
+    if spec.train is not None:
+        steps = spec.train.steps
+        assert run["train"]["launches"]["flash_attention"] == 2 * steps * calls
+        assert run["train"]["launches"]["flash_attention_bwd"] == steps * calls
+        assert run["train"]["losses"][2] < run["train"]["losses"][0]
+    else:
+        assert run["train"] is None
+    out = capsys.readouterr().out
+    assert "gates closed: the hidden states of two memories == True" in out
+    assert "the cross K/V come from the prefill" in out
+    assert "generate takes no memory" in out and "tokens/s" in out
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("fault, gate", [
+    ("a cross block that ignores its gate", "gates do not gate"),
+    ("a decode that projects the memory again", "read the memory")])
+def test_cross_path_rejects_a_wrong_cross_block(fault, gate, cross_rehearsal,
+                                                monkeypatch):
+    """A cross block that ignores ``xgate`` fails the gates' check, and a
+    decode step that projects the memory again instead of reusing the
+    prefill's cross K/V fails the cache's check (its logits are the same:
+    only reading the memory tells it apart)."""
+    if fault.startswith("a cross block"):
+        block = ML.attention_block
+
+        def ungated(p, cfg, x, ctx, cache, window=None, cross=False):
+            if cross:
+                p = {k: v for k, v in p.items() if k != "xgate"}
+            return block(p, cfg, x, ctx, cache, window=window, cross=cross)
+
+        monkeypatch.setattr(ML, "attention_block", ungated)
+    else:
+        attend = ML._cross_attention
+
+        def again(p, cfg, x, ctx, cache):
+            if cache is not None and ctx.decoding:  # as a prefill does
+                out, _ = attend(p, cfg, x, dataclasses.replace(
+                    ctx, mode="prefill"), None)
+                return out, cache
+            return attend(p, cfg, x, ctx, cache)
+
+        monkeypatch.setattr(ML, "_cross_attention", again)
+    with pytest.raises(AssertionError, match=gate):
+        cs.run_cross_path("whisper-small", cross_rehearsal, "cpu")

@@ -231,7 +231,10 @@ def test_solvers_on_cuda_match_numpy_oracles(cuda):
 # B 1, S 4096 with its window), and at every head width the kernel's
 # options and edges: causal, a window, a softcap, no causal mask with
 # Sq != Skv, rows that see no key, and Sq and Skv off the kernel's 128-row
-# query tile and 64-key tile; G = 8 and 16 at small S.  In bf16, the type
+# query tile and 64-key tile (hd 16, the reduced configs', in 32-byte
+# swizzled rows); G = 8 and 16 at small S; whisper-small's cross-attention
+# (448 queries over 1500 frames, ragged against both tiles, and one decode
+# query).  In bf16, the type
 # the path gives the kernel.  The kernel rounds p to bf16 before P.V (as
 # the JAX model's blocked_attention does) where the plain version keeps it
 # fp32, and both round fp32 sums taken in other orders once to bf16: each
@@ -251,7 +254,9 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 256, True, 128, None),   # hd 256 with a window
     (1, 4096, 4096, 16, 1, 256, True, 2048, None),  # recurrentgemma-9b's
     (2, 2048, 2048, 32, 4, 128, True, None, None),  # qwen3-moe-30b-a3b's
-] + [case for hd in (32, 64, 128, 256) for case in (
+    (2, 448, 1500, 12, 12, 64, False, None, None),  # whisper's cross
+    (2, 1, 1500, 12, 12, 64, False, None, None),    # its decode step
+] + [case for hd in (16, 32, 64, 128, 256) for case in (
     (1, 129, 129, 4, 2, hd, True, None, None),    # causal, ragged
     (1, 191, 191, 4, 1, hd, True, 64, None),      # a window, ragged
     (2, 130, 130, 2, 2, hd, True, None, 30.0),    # a softcap
@@ -305,6 +310,7 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     (2, 2048, 2048, 12, 2, 128, True, None),
     (1, 4096, 4096, 16, 1, 256, True, 2048),
     (1, 191, 300, 4, 2, 32, False, None),
+    (1, 191, 300, 4, 2, 16, False, None),
 ])
 def test_flash_attention_repeats_bit_for_bit(cuda, B, Sq, Sk, Hq, Hkv, hd,
                                              causal, window):
@@ -546,7 +552,7 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
     capacity drops made from them by its own ``routing_of_picks`` (the
     places and drops ``==`` the card's), and every token is compared."""
     cfg = ARCHS[arch].reduced(n_layers=4 * len(ARCHS[arch].pattern),
-                              ssm_head_dim=32, head_dim=32)
+                              ssm_head_dim=32)
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     cpu_params = MT.tree_map(lambda t: t.cpu(), params)
     pp = plan_pipeline(cfg, seq_len=64, microbatch=2, mode="IF",
@@ -622,18 +628,19 @@ def test_planned_chain_on_cuda_matches_the_cpu(cuda, arch, monkeypatch):
 SERVE_KERNELS = {"qwen2-1.5b": (fa,), "mamba2-370m": (ssd,),
                  "recurrentgemma-9b": (fa, rglru)}
 SERVE_TOL = 2e-2  # chip_smoke.py's CHECK_TOL, card vs CPU in bf16
+STACK_TOL = 5e-2  # a bf16 stack of blocks (tests/test_torch_models.py)
 
 
 @pytest.mark.parametrize("arch", list(SERVE_KERNELS))
 def test_prefill_and_decode_on_cuda_match_the_cpu(cuda, arch):
-    """A reduced model (head widths 32, which the kernels take) serves two
+    """A reduced model (head width 16, SSD heads 32) serves two
     prompts of 12 and 32 tokens into caches of 48 slots, then 4 decode
     steps fed the same tokens, on the card (the prefill through the
     kernels, one launch a layer of each kind) and on the CPU (plain
     versions), in bf16: each row's logits within SERVE_TOL of its largest
     |logit|, every float cache leaf within SERVE_TOL of its largest
     magnitude and ``pos`` ``==``.  recurrentgemma's 32-slot ring wraps."""
-    cfg = ARCHS[arch].reduced(head_dim=32, ssm_head_dim=32)
+    cfg = ARCHS[arch].reduced(ssm_head_dim=32)
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(SV.left_pad(
@@ -693,6 +700,10 @@ FLASH_BWD_CASES = FLASH_CASES[:6] + [
     (1, 150, 150, 2, 1, 256, True, None, 50.0),   # hd 256, a softcap
     (1, 100, 300, 4, 2, 64, False, 50, None),     # Sq < Skv, a window
     (2, 512, 512, 12, 2, 128, True, None, None),  # qwen2's path at S 512
+    (1, 129, 129, 4, 2, 16, True, None, None),    # hd 16, causal
+    (1, 191, 300, 4, 2, 16, False, None, None),   # hd 16, Sq != Skv
+    (2, 130, 130, 2, 2, 16, True, 40, 30.0),      # hd 16, window, softcap
+    (2, 448, 1500, 12, 12, 64, False, None, None),  # whisper's cross
 ]
 
 
@@ -846,10 +857,11 @@ def test_expert_matmul_and_rglru_raise_under_grad(cuda):
         assert rglru.rglru_scan(a, b).shape == (1, 16, 8)
 
 
-@pytest.mark.parametrize("arch,kernel", [("qwen2-1.5b", fa), ("mamba2-370m",
-                                                                ssd)])
-def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel):
-    """A reduced model (four layers, head widths 32) on the card: one
+@pytest.mark.parametrize("arch,kernel,head_dim", [
+    ("qwen2-1.5b", fa, 16), ("qwen2-1.5b", fa, 32), ("mamba2-370m", ssd, 16)])
+def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel, head_dim):
+    """A reduced model (four layers, SSD heads 32, attention heads of the
+    reduced configs' 16 and of 32) on the card: one
     ``ChainSimulator.round_trip`` over a TR plan (one forward and one
     backward launch a layer) and one train step (two forward launches a
     layer under remat, one backward), against the same on the CPU (plain
@@ -859,7 +871,7 @@ def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel):
     from repro_torch.optim import make_optimizer
     from repro_torch.train import make_train_step
 
-    cfg = ARCHS[arch].reduced(n_layers=4, head_dim=32, ssm_head_dim=32)
+    cfg = ARCHS[arch].reduced(n_layers=4, head_dim=head_dim, ssm_head_dim=32)
     B, S = 2, 64
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     cpu_params = MT.tree_map(lambda t: t.cpu(), params)
@@ -897,6 +909,113 @@ def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel):
             torch.cuda.synchronize()
             assert (kernel.launch_count, kernel.bwd_launch_count) == (
                 before[0] + 8, before[1] + 4)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(
+            metrics[1][key])
+
+
+# ------------------------------------------- cross-attention families
+def _open_gates(params, value=0.5):
+    """Every ``xgate`` set to ``value``: at init it is 0, and tanh(0) takes
+    out every cross-attention output."""
+    for path, t in MT.tree_paths(params):
+        if path[-1] == "xgate":
+            t.fill_(value)
+    return params
+
+
+def _cross_model(cuda, arch):
+    cfg = ARCHS[arch].reduced()
+    params = _open_gates(MT.init_params(
+        torch.Generator(device=cuda).manual_seed(0), cfg))
+    memory = torch.randn((2, cfg.memory_len, cfg.d_model),
+                         generator=torch.Generator().manual_seed(3))
+    return cfg, params, memory
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
+def test_cross_families_on_cuda_match_the_cpu(cuda, arch):
+    """Reduced whisper-small and llama-3.2-vision-90b (head width 16, the
+    gates open) on the card against the CPU in bf16: ``forward(memory=...)``
+    within SERVE_TOL of the largest magnitude, one flash launch for each
+    encoder layer, self-attention and cross-attention; then
+    ``prefill(memory=...)`` of 12- and 16-token prompts and 4 decode steps,
+    each cross block's decode one flash launch over the cached K/V, each
+    row's logits within STACK_TOL of its largest: llama-vision's 10 bf16
+    layers with bf16 weights put a row 0.0206 apart on an H100, past
+    SERVE_TOL, which the 2-layer models' serving test holds."""
+    cfg, params, memory = _cross_model(cuda, arch)
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    per_pass = cfg.enc_layers + sum(
+        {"attn": 1, "xattn": 1, "dec_block": 2}[k] for k in kinds)
+    cross = sum(k in MT.CROSS_KINDS for k in kinds)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)))
+    pos = torch.arange(16).expand(2, 16)
+
+    def forward(p, device):
+        with torch.no_grad():
+            return MT.forward(p, cfg, tokens.to(device), ML.Ctx(
+                mode="prefill", positions=pos.to(device)),
+                memory=memory.to(device))[0]
+
+    before = fa.launch_count
+    got = forward(params, cuda)
+    torch.cuda.synchronize()
+    assert fa.launch_count == before + per_pass
+    assert _within(got.cpu(), forward(cpu_params, "cpu"), SERVE_TOL)
+
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(SV.left_pad(
+        [rng.integers(1, cfg.vocab_size, n) for n in (12, 16)], 2))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2, 1)))
+
+    def serve(p, device):
+        logits, cache = SV.prefill(p, cfg, toks.to(device), 32,
+                                   memory=memory.to(device))
+        out = [logits]
+        for i, f in enumerate(fed):
+            q = torch.full((2, 1), toks.shape[1] + i, device=device)
+            logits, cache = SV.decode_step(p, cfg, cache, f.to(device), q)
+            out.append(logits)
+        return torch.cat(out, dim=1).float().cpu()
+
+    before = fa.launch_count
+    got = serve(params, cuda)
+    torch.cuda.synchronize()
+    assert fa.launch_count == before + per_pass + len(fed) * cross
+    want = serve(cpu_params, "cpu")
+    row = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert torch.isfinite(got).all() and float(row.max()) < STACK_TOL
+
+
+def test_whisper_train_step_on_cuda(cuda):
+    """One AdamW step of reduced whisper-small (the gates open) on a
+    SyntheticLM batch with memory, on the card and on the CPU: the flash
+    forward twice a layer's attention under remat (encoder, self and
+    cross) and the backward once, the loss and the global gradient norm
+    within SERVE_TOL of the CPU's."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg, params, _ = _cross_model(cuda, "whisper-small")
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    attentions = cfg.enc_layers + 2 * cfg.n_layers
+    stream = SyntheticLM(BatchSpec(2, 32, cfg.vocab_size, cfg.memory_len,
+                                   cfg.d_model), seed=0)
+    metrics = []
+    for p, device in ((params, cuda), (cpu_params, "cpu")):
+        opt = make_optimizer(cfg.optimizer, lr=3e-4, warmup=1, total=50)
+        before = (fa.launch_count, fa.bwd_launch_count)
+        _, _, m = make_train_step(cfg, opt)(
+            p, opt.init(p, cfg), shard_batch(stream.batch_at(0), device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert (fa.launch_count, fa.bwd_launch_count) == (
+                before[0] + 2 * attentions, before[1] + attentions)
         metrics.append({k: float(v) for k, v in m.items()})
     for key in ("loss", "grad_norm"):
         assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(
@@ -1029,8 +1148,7 @@ def test_pipelined_forward_equals_each_microbatch_forward_on_cuda(cuda,
 
     plen = len(ARCHS[arch].pattern)
     n_layers = 4 * plen + (2 if plen == 3 else 0)
-    cfg = ARCHS[arch].reduced(n_layers=n_layers, head_dim=32,
-                              ssm_head_dim=32)
+    cfg = ARCHS[arch].reduced(n_layers=n_layers, ssm_head_dim=32)
     R = -(-n_layers // plen)
     plan = PipelinePlan(K=3, segments=[(1, 1), (2, R - 1), (R, R)],
                         placement=["a", "b", "c"], n_groups=R,
@@ -1071,7 +1189,7 @@ def test_pipelined_train_step_on_cuda(cuda):
     )
     from repro_torch.optim import make_optimizer
 
-    cfg = ARCHS["qwen2-1.5b"].reduced(n_layers=4, head_dim=32)
+    cfg = ARCHS["qwen2-1.5b"].reduced(n_layers=4)
     params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     before = [p.detach().clone() for p in MT.tree_leaves(params)]
     plan = PipelinePlan(K=2, segments=[(1, 1), (2, 4)], placement=["a", "b"],

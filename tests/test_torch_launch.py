@@ -78,8 +78,9 @@ def test_resume_from_a_jax_checkpoint(tmp_path, capsys):
     from repro.configs import get_config
     from repro.models import transformer as JT
 
-    # the launcher's reduced config (launch.reduced_config)
-    jcfg = get_config("qwen2-1.5b").reduced(head_dim=32)
+    # the launcher's --reduced is the JAX package's reduced config
+    jcfg = get_config("qwen2-1.5b").reduced()
+    assert jcfg.resolved_head_dim == 16
     jp = JT.init_params(jax.random.PRNGKey(3), jcfg)
     state = jopt.make_optimizer("adamw").init(jp)
     state["step"] = np.asarray(4, np.int32)
@@ -94,6 +95,43 @@ def test_resume_from_a_jax_checkpoint(tmp_path, capsys):
     start = np.asarray(jp["stack"]["groups"][0]["attn"]["wq"])
     assert moved.shape == start.shape and not np.array_equal(
         moved.numpy(), start)
+
+
+def test_a_port_checkpoint_restores_into_the_jax_reduced_config(tmp_path):
+    """The reverse: the port's launcher at ``--reduced`` writes a
+    checkpoint that the JAX package's ``CheckpointManager`` restores into
+    the JAX package's own ``cfg.reduced()`` tree, leaf for leaf the same
+    paths, shapes and dtypes as its ``init_params`` and optimizer state,
+    and the JAX model runs on it."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import optim as jopt
+    from repro.ckpt import CheckpointManager as JaxCheckpointManager
+    from repro.configs import get_config
+    from repro.models import transformer as JT
+    from repro.models.layers import Ctx as JCtx
+
+    assert train.main(SMALL + ["--steps", "2", "--ckpt-every", "0",
+                               "--ckpt-dir", str(tmp_path)]) == 0
+    jcfg = get_config("qwen2-1.5b").reduced()
+    step, state = JaxCheckpointManager(tmp_path).restore()
+    assert step == 1
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    want = {"params": jp, "opt": jopt.make_optimizer("adamw").init(jp)}
+
+    def spec(tree):
+        return [(jax.tree_util.keystr(path), np.shape(leaf),
+                 np.asarray(leaf).dtype)
+                for path, leaf in jax.tree_util.tree_leaves_with_path(tree)]
+
+    assert spec(state) == spec(want)
+    params = jax.tree.map(jnp.asarray, state["params"])
+    pos = jnp.broadcast_to(jnp.arange(8), (1, 8))
+    hidden, _, _ = JT.forward(params, jcfg, jnp.ones((1, 8), jnp.int32),
+                              JCtx(mode="prefill", positions=pos))
+    assert hidden.shape == (1, 8, jcfg.d_model)
+    assert bool(jnp.isfinite(hidden).all())
 
 
 def test_serve_generates(capsys):

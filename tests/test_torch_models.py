@@ -292,9 +292,16 @@ def test_layer_helpers_keep_the_jax_semantics():
 @pytest.mark.parametrize("arch,kind", [("llama-3.2-vision-90b", "xattn"),
                                        ("whisper-small", "dec_block")])
 def test_unported_kinds_name_their_roadmap_item(arch, kind):
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_block(torch.Generator(), cfg, kind)
+    """Named for the time they raised; now the cross-attention kinds build
+    the JAX package's block (``tests/test_torch_cross.py`` holds them to
+    it), their gate ``xgate`` zero at init as there."""
+    jcfg, cfg = _configs(arch, "bfloat16")
+    p = T.init_block(torch.Generator().manual_seed(0), cfg, kind)
+    want = JT.init_block(jax.random.PRNGKey(0), jcfg, kind)
+    assert T.tree_map(lambda t: tuple(t.shape), p) == jax.tree.map(
+        lambda a: tuple(a.shape), want, is_leaf=lambda a: hasattr(a, "shape"))
+    gate = p["attn" if kind == "xattn" else "xattn"]["xgate"]
+    assert gate.shape == () and float(gate) == 0.0
 
 
 def _cached_block_steps(arch, kind, jcache, tcache):
