@@ -31,14 +31,19 @@ SSD and RG-LRU kernels, then greedy ``decode_step``s in plain PyTorch over
 the KV rings and the SSD and RG-LRU states, then ``ServingEngine.generate``
 on the same prompts.
 
-Path 4 is training, inside the turns of qwen2-1.5b and mamba2-370m after
-path 3, on the same weights (float32, bf16 compute; TRAIN):
-``plan_pipeline(mode="TR")`` and ``ChainSimulator.round_trip`` (each stage
-forward under autograd, then the backward wave in reverse chain order)
-at B 2 x S 2048 and full depth, then four steps of
+Path 4 is training (float32 weights, bf16 compute; TRAIN): inside the
+turns of qwen2-1.5b and mamba2-370m after path 3, on the same weights at
+full depth, B 2 x S 2048; inside the turns of qwen3-moe-30b-a3b and
+recurrentgemma-9b after path 7's forward, once path 2's weights are freed,
+on fresh seeded weights at full width and reduced depth (4 of 48 layers at
+B 2 x S 2048; 6 of 38 at B 1 x S 4096): ``plan_pipeline(mode="TR")`` and
+``ChainSimulator.round_trip`` (each stage forward under autograd, then the
+backward wave in reverse chain order), then four steps of
 ``repro_torch.train.make_train_step`` with AdamW on ``SyntheticLM``
 batches, through the forward kernels and the backward kernels of flash
-attention and SSD (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_bwd.cu``).
+attention, SSD, the expert matmul and the RG-LRU scan
+(``csrc/flash_attention_bwd.cu``, ``csrc/ssd_bwd.cu``,
+``csrc/moe_gmm_bwd.cu``, ``csrc/rglru_bwd.cu``).
 
 Path 5 is the serving control plane, right after path 1 on the same card:
 ``repro_torch.serve``'s ``ServePlanner.admit``, ``ServeGateway.run_stream``
@@ -93,8 +98,9 @@ Phases, in order; any failure exits non-zero:
    SSD_TOL, the expert matmul in bf16 at GMM_TOL and the RG-LRU scan at
    RGLRU_TOL, at ``tests/test_kernels.py``'s shapes and a few more; the
    backward kernels against autograd through the plain versions, flash at
-   FLASH_BWD_TOL on FLASH_GENERIC and SSD at SSD_BWD_TOL on SSD_GENERIC,
-   each twice with the same bits;
+   FLASH_BWD_TOL on FLASH_GENERIC, SSD at SSD_BWD_TOL on SSD_GENERIC, the
+   expert matmul at GMM_BWD_TOL on GMM_GENERIC and the RG-LRU scan at
+   RGLRU_BWD_TOL on RGLRU_GENERIC, each twice with the same bits;
 4. path 1: the 96-instance population of the solver benchmark (NSFNET,
    ResNet-101 at its full 37 layer groups) through ``dfts_torch`` (distinct,
    then cycled to 1024) and ``bcd_torch``, every outcome ``==`` the port's
@@ -153,17 +159,23 @@ Phases, in order; any failure exits non-zero:
    the loop's, every logit finite; its
    prefill ms, decode ms a step (p50, p90), tokens/s, cache bytes and peak
    memory printed beside the card; then path 4 where the model trains
-   (``run_train_path``): the round trip with the counts set to 0 just
-   before and read just after (one forward and one backward launch a
-   layer), its traces FW then BW, every charge ``==``
+   (``run_train_path``; for qwen3-moe and recurrentgemma after path 7's
+   forward, ``run_fresh_train_path``: the training state counted and held
+   to the card's free memory before fresh weights are drawn): the round
+   trip with the counts set to 0 just before and read just after (one
+   forward and one backward launch a layer of each kernel's kinds, three
+   of the expert matmul's), its traces FW then BW, every charge ``==``
    ``segment_comp_dir_s`` and the evaluator's transfer in its direction,
    ``executed_round_trip_s`` within 1e-9 of ``evaluate_round_trip``,
    ``grad_in`` finite, each stage's measured FW and BW compute printed
    beside its charge; on the same weights, the first TRAIN_CHECK_DEPTH
    repetitions at S CHECK_SEQ, card (kernels) against CPU (plain
    versions): the round trip's ``grad_in`` and every parameter's gradient
-   within CHECK_TOL; four train steps counted likewise (two forward
-   launches a layer under remat and one backward a step), every loss and
+   within CHECK_TOL, or GRAD_FLOOR_FACTOR times the plain versions' own
+   distance from the CPU where that passes CHECK_TOL (every leaf printed
+   by name beside it; MoE route-aware: the CPU replays the card's expert
+   picks, its own router flipping them at near ties only); four train steps counted likewise (twice the
+   forward launches under remat and one backward each), every loss and
    grad norm finite, the loss on ``batch_at(0)`` lower at step 3 than at
    step 1, the step's p50 ms over steps 2-4, tokens/s and peak memory
    printed; then path 7's pipelined forward (``run_pipeline_path``, after
@@ -224,8 +236,13 @@ Phases, in order; any failure exits non-zero:
    version's errors against the plain version in float64 printed beside
    its gate on the recorded operands, SSD's held to its float64 witness at
    SSD_BWD_WITNESS and rejecting ddt without its reverse-cumsum term and
-   dA with its sign flipped), flash's yardstick the backward of
-   ``scaled_dot_product_attention``;
+   dA with its sign flipped), the expert matmul's at GMM_BWD_TOL and held
+   to float64 at GMM_BWD_WITNESS (rejecting dW without act' and dX through
+   W un-transposed), the RG-LRU scan's at RGLRU_BWD_TOL and held to float64
+   at RGLRU_BWD_WITNESS (rejecting da_t = lambda_t h_t and lambda without
+   a's shift), flash's yardstick the backward of
+   ``scaled_dot_product_attention``, the expert matmul's two ``torch.bmm``
+   (dX and dW from the plain dZ);
 7. each phase's wall, one JSON line of per-kernel numbers, the card line,
    then the result line.
 """
@@ -320,6 +337,32 @@ CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 FLASH_BWD_TOL = 2.0 ** -6
 SSD_BWD_TOL = 1e-4
 SSD_BWD_WITNESS = 4.0
+# The expert matmul's backward, bf16: the kernel rounds dZ = dY act'(Z) to
+# bf16 as the operand of its two products, where the plain version keeps it
+# fp32, and both round each gradient once to bf16: each of dX and dW within
+# GMM_BWD_TOL of its largest magnitude.  On the path's recorded operands
+# both are also held to the float64 values: the kernel's largest error at
+# most GMM_BWD_WITNESS times the plain version's own (its bf16 rounding),
+# or BF16_EPS of the largest value where that is larger.  The RG-LRU
+# backward, float32 (the kernel's sequential reverse chunks against the
+# plain version's doubling scan run from the end): da and db within
+# RGLRU_BWD_TOL of their largest magnitude, and on the recorded operands
+# held to float64 at RGLRU_BWD_WITNESS as the forward is.  PERF.md gives
+# the readings on the card these were set from.
+GMM_BWD_TOL = 2.0 ** -6
+GMM_BWD_WITNESS = 4.0
+BF16_EPS = 2.0 ** -8  # bf16's largest relative rounding error
+RGLRU_BWD_TOL = 1e-5
+RGLRU_BWD_WITNESS = 4.0
+# Path 4's card-vs-CPU gradient gate holds grad_in and each parameter leaf
+# within CHECK_TOL, save where the same gradients through the plain
+# versions on the card (the floor: two bf16 evaluations in other orders)
+# lie past CHECK_TOL from the CPU themselves; such a gradient is held to
+# GRAD_FLOOR_FACTOR times its floor instead.  Only recurrentgemma-9b's six
+# layers of d 4096 have such floors, three leaves of 0.0204-0.0207; there
+# the kernels read 1.006-1.015 times the floor, every one of its 66 leaves
+# 0.988-1.018 times (H100 80GB HBM3 at 700 W; PERF.md).
+GRAD_FLOOR_FACTOR = 1.1
 
 
 class PathModel(NamedTuple):
@@ -377,19 +420,38 @@ FLOOR_FACTOR = 2.0
 class TrainTraffic(NamedTuple):
     """Path 4's work for one model: the round trip and ``steps`` train
     steps on batches of ``batch`` x ``seq`` tokens, through the forward
-    and backward kernels named."""
+    and backward kernels named, in pairs (forward, its backward, ...).
+    ``layers`` None trains path 2's weights at full depth; a depth draws
+    fresh seeded weights at it, in the config's float32, after path 2's
+    weights are freed."""
     batch: int
     seq: int
     steps: int
-    kernels: tuple[str, str]  # (forward, backward)
+    kernels: tuple[str, ...]  # (forward, backward, forward, backward, ...)
+    layers: int | None = None
+
+    def pairs(self) -> list[tuple[str, str]]:
+        return list(zip(self.kernels[::2], self.kernels[1::2]))
 
 
 # path 4, inside its model's turn after path 3 (the train step updates the
-# weights in place); the learning rate is the reference's default
+# weights in place); the learning rate is the reference's default.  The MoE
+# and RG-LRU families train at full width and reduced depth, in float32
+# with AdamW (weights, gradients and two moments, 16 B a parameter):
+# qwen3-moe-30b-a3b at 4 of 48 layers (3.11 B parameters, 49.8 GB) and
+# recurrentgemma-9b at 6 of 38 (two repetitions of rglru, rglru,
+# local_attn; 2.36 B, 37.8 GB), where their full depths need 490 GB and
+# 150 GB
 TRAIN = {
     "qwen2-1.5b": TrainTraffic(2, 2048, 4, ("flash_attention",
                                             "flash_attention_bwd")),
     "mamba2-370m": TrainTraffic(2, 2048, 4, ("ssd", "ssd_bwd")),
+    "qwen3-moe-30b-a3b": TrainTraffic(
+        2, 2048, 4, ("flash_attention", "flash_attention_bwd", "moe_gmm",
+                     "moe_gmm_bwd"), layers=4),
+    "recurrentgemma-9b": TrainTraffic(
+        1, 4096, 4, ("flash_attention", "flash_attention_bwd", "rglru",
+                     "rglru_bwd"), layers=6),
 }
 TRAIN_LR = 3e-4
 TRAIN_CHECK_DEPTH = SERVE_CHECK_DEPTH  # repetitions of the card-vs-CPU
@@ -426,12 +488,14 @@ SSD_GENERIC = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 128, 64),
                (1, 1000, 5, 64, 128, 500)]
 # (E, C, D, F, activation): tests/test_kernels.py's cases, a ragged D and F
 # (the wrapper pads them to multiples of 8), one row tile short of the MoE
-# path's C, C 1 with D below one stage, and E 1 with C off the 128-row tile
+# path's C, C 1 with D below one stage, and E 1 with C off the 128-row tile;
+# the backward's cases too (there C is dW's depth, one step at C 1)
 GMM_GENERIC = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
                (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
                (2, 256, 2048, 768, "none"), (3, 1, 40, 24, "gelu"),
                (1, 200, 136, 100, "silu")]
-# (B, S, W): tests/test_kernels.py's cases, one step, a chunk and a half
+# (B, S, W): tests/test_kernels.py's cases, one step, a chunk and a half;
+# the backward's cases too
 RGLRU_GENERIC = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
                  (1, 192, 1000)]
 
@@ -2069,63 +2133,29 @@ def _ssd_bwd_operands(gen, shape, device):
 SSD_GRADS = ("dx", "dB", "dC", "ddt", "dA")
 
 
-def _ssd_bwd_check(ssd, cases, what: str, witness: bool = False) -> float:
-    """The backward kernel against autograd through the plain version on
-    each case, a second launch the same bits: every gradient within
+def _ssd_bwd_run(ssd):
+    def run(case, dtype):
+        args, _ = case
+        if dtype is None:
+            return ssd.ssd_intra_chunk_bwd(*args)
+        return ssd.reference_ssd_intra_chunk_bwd(*args, dtype=dtype)
+    return run
+
+
+def _ssd_bwd_check(ssd, cases, what: str, witness: bool = False,
+                   readings: list | None = None) -> float:
+    """The SSD backward kernel against autograd through the plain version
+    on each ``(x, B, C, dt, A, gy, ghc, gdec)``: every gradient within
     SSD_BWD_TOL of its largest magnitude, or, with ``witness`` (the path's
-    recorded operands, as the forward's are held), within SSD_BWD_WITNESS
-    times the plain version's own error of its float64 value (or eps of
-    the largest value, where the plain version is exact), the difference
-    from the plain version printed.  On the path's operands the float32
-    plain version is the less exact of the two in places (ddt and dA sum
-    many terms that cancel), so it cannot be the yardstick there.  Raises
-    on a failure, else returns the max_abs_err."""
-    failures, worst, max_err = 0, [0.0] * 5, 0.0
-    for n, args in enumerate(cases):
-        got = ssd.ssd_intra_chunk_bwd(*args)
-        again = ssd.ssd_intra_chunk_bwd(*args)
-        want = ssd.reference_ssd_intra_chunk_bwd(*args)
-        exact = (ssd.reference_ssd_intra_chunk_bwd(*args,
-                                                   dtype=torch.float64)
-                 if witness else None)
-        for i, (g, a, w) in enumerate(zip(got, again, want)):
-            rel = _rel(g, w)
-            failures += not ((witness or rel <= SSD_BWD_TOL)
-                             and torch.equal(g, a)
-                             and bool(torch.isfinite(g).all()))
-            worst[i] = max(worst[i], rel)
-            max_err = max(max_err, float((g - w).abs().max()))
-        if witness:
-            rows = _ssd_bwd_witness(got, want, exact)
-            failures += sum(not err <= limit for _, err, limit, _ in rows)
-            print(f"ssd_bwd {what}, case {n} (x {tuple(args[0].shape)}), "
-                  f"against float64: " + "; ".join(
-                      f"{name} kernel {err!r} (limit {limit!r}), plain "
-                      f"{err_p!r}" for name, err, limit, err_p in rows))
-    limit = "held to float64 instead" if witness else f"limit {SSD_BWD_TOL}"
-    line = (f"ssd_bwd {what}: {len(cases)} float32 cases, max error of "
-            f"{', '.join(SSD_GRADS)} against the plain version {worst!r} of "
-            f"their largest magnitude ({limit}), two launches the same "
-            f"bits, max_abs_err {max_err!r}")
-    if failures:
-        raise AssertionError(f"{line}: {failures} gradients past a limit or "
-                             f"not repeated")
-    print(line)
-    return max_err
-
-
-def _ssd_bwd_witness(got, want, exact) -> list:
-    """For each gradient: (name, the largest error of ``got`` against the
-    float64 values ``exact``, its limit: SSD_BWD_WITNESS times the plain
-    version ``want``'s own largest error, or eps of the largest value where
-    the plain version is exact, and the plain version's error)."""
-    rows = []
-    for name, g, w, e in zip(SSD_GRADS, got, want, exact):
-        err_k = float((g.double() - e).abs().max())
-        err_p = float((w.double() - e).abs().max())
-        rows.append((name, err_k, SSD_BWD_WITNESS * max(
-            err_p, FP32_EPS * float(e.abs().max())), err_p))
-    return rows
+    recorded operands, as the forward's are held), held to float64 at
+    SSD_BWD_WITNESS instead, the difference from the plain version
+    printed.  On the path's operands the float32 plain version is the less
+    exact of the two in places (ddt and dA sum many terms that cancel), so
+    it cannot be the yardstick there."""
+    return _bwd_check(f"ssd_bwd {what} (float32)", SSD_GRADS,
+                      _ssd_bwd_run(ssd), [(c, {}) for c in cases],
+                      SSD_BWD_TOL, SSD_BWD_WITNESS if witness else 0.0,
+                      FP32_EPS, readings, witness_only=True)
 
 
 def _ssd_ddt_without_cumsum(ssd, args):
@@ -2166,21 +2196,245 @@ def _ssd_bwd_rejects_wrong_outputs(ssd, args) -> None:
     """Both gates must reject both wrong gradients of
     ``_ssd_bwd_wrong_outputs`` on these operands: SSD_BWD_TOL against the
     plain version, and the float64 witness at SSD_BWD_WITNESS."""
-    want = ssd.reference_ssd_intra_chunk_bwd(*args)
-    exact = ssd.reference_ssd_intra_chunk_bwd(*args, dtype=torch.float64)
-    for what, grads in _ssd_bwd_wrong_outputs(ssd, args).items():
-        errors = [_rel(g, w) for g, w in zip(grads, want)]
-        rows = _ssd_bwd_witness(grads, want, exact)
-        if all(e <= SSD_BWD_TOL for e in errors) or all(
-                err <= limit for _, err, limit, _ in rows):
-            raise AssertionError(f"an SSD backward gate passes a wrong "
-                                 f"gradient ({what}): {errors}, {rows}")
-        print(f"ssd_bwd check rejects a wrong output ({what}; x "
-              f"{tuple(args[0].shape)}): errors of {', '.join(SSD_GRADS)} "
-              f"{errors!r} of their largest magnitude (limit "
-              f"{SSD_BWD_TOL}); against float64 " + ", ".join(
-                  f"{name} {err!r} (limit {limit!r})"
+    _bwd_rejects("ssd_bwd", SSD_GRADS, _ssd_bwd_wrong_outputs(ssd, args),
+                 _ssd_bwd_run(ssd), (args, {}), SSD_BWD_TOL,
+                 SSD_BWD_WITNESS, FP32_EPS)
+
+
+def _gmm_bwd_operands(gen, shape, device):
+    """((x, w, dy), kw) of an expert-matmul backward at ``(E, C, D, F,
+    activation)``: the forward's operands and a random bf16 cotangent."""
+    (x, w), kw = _gmm_operands(gen, shape, device)
+    dy = torch.randn((*x.shape[:2], w.shape[2]), generator=gen).to(
+        device, torch.bfloat16)
+    return (x, w, dy), kw
+
+
+GMM_GRADS = ("dX", "dW")
+
+
+def _grad_witness(names, got, want, exact, floor: float) -> list:
+    """For each gradient: (name, the largest error of ``got`` against the
+    float64 values ``exact``, its limit: the witness multiple times the
+    plain version ``want``'s own largest error, or ``floor`` of the largest
+    value where that is larger, and the plain version's error); the
+    multiple is the caller's, applied to the limit it is given back."""
+    rows = []
+    for name, g, w, e in zip(names, got, want, exact):
+        err_k = float((g.double() - e).abs().max())
+        err_p = float((w.double() - e).abs().max())
+        rows.append((name, err_k, max(err_p, floor * float(e.abs().max())),
+                     err_p))
+    return rows
+
+
+def _rel_or_abs(out, ref) -> float:
+    """``_rel``, or max |out - ref| where ref is all 0 (da of a one-step
+    RG-LRU scan: h_0 = 0)."""
+    if not ref.numel() or float(ref.abs().max()) > 0.0:
+        return _rel(out, ref)
+    return float((out - ref).abs().max())
+
+
+def _bwd_check(what: str, names, run, cases, tol: float, witness: float,
+               floor: float, readings: list | None = None,
+               witness_only: bool = False) -> float:
+    """A backward kernel against its plain version on each case, a second
+    launch the same bits: ``run(case, dtype)`` gives the kernel's gradients
+    (dtype None) or the plain version's in that dtype.  Every gradient
+    within ``tol`` of its largest magnitude; where ``witness`` is given
+    (the path's recorded operands), each also held to its float64 value,
+    the kernel's largest error at most ``witness`` times the plain
+    version's own (or ``floor`` of the largest value where that is
+    larger), each reading (name, error, limit, the plain version's error)
+    appended to ``readings`` where a list is given; with
+    ``witness_only``, the witness replaces ``tol`` where it is given.
+    Raises on a failure, else returns the max_abs_err."""
+    failures, worst, max_err = 0, [0.0] * len(names), 0.0
+    for n, case in enumerate(cases):
+        got, again = run(case, None), run(case, None)
+        want = run(case, torch.float32)
+        for i, (g, a, w) in enumerate(zip(got, again, want)):
+            rel = _rel_or_abs(g.float(), w.float())
+            failures += not ((rel <= tol or (witness and witness_only))
+                             and torch.equal(g, a)
+                             and bool(torch.isfinite(g).all()))
+            worst[i] = max(worst[i], rel)
+            max_err = max(max_err, float((g.float() - w.float()).abs().max()))
+        if witness:
+            rows = _grad_witness(names, got, want, run(case, torch.float64),
+                                 floor)
+            failures += sum(not err <= witness * limit
+                            for _, err, limit, _ in rows)
+            if readings is not None:
+                readings += [(name, err, witness * limit, err_p)
+                             for name, err, limit, err_p in rows]
+            print(f"{what}, case {n} ({tuple(case[0][0].shape)}), against "
+                  f"float64: " + "; ".join(
+                      f"{name} kernel {err!r} (limit {witness * limit!r}), "
+                      f"plain {err_p!r}" for name, err, limit, err_p in rows))
+    limit = ("held to float64 instead" if witness and witness_only else
+             f"limit {tol}")
+    line = (f"{what}: {len(cases)} cases, max error of {', '.join(names)} "
+            f"against the plain version {worst!r} of their largest magnitude "
+            f"({limit}), two launches the same bits, max_abs_err "
+            f"{max_err!r}")
+    if failures:
+        raise AssertionError(f"{line}: {failures} gradients past a limit or "
+                             f"not repeated")
+    print(line)
+    return max_err
+
+
+def _gmm_bwd_run(gmm):
+    def run(case, dtype):
+        args, kw = case
+        if dtype is None:
+            return gmm.expert_matmul_bwd(*args, **kw)
+        return gmm.reference_expert_matmul_bwd(*args, **kw, dtype=dtype)
+    return run
+
+
+def _gmm_bwd_check(gmm, cases, what: str, witness: bool = False,
+                   readings: list | None = None) -> float:
+    """The expert matmul's backward kernel against autograd through the
+    plain version on each ``((x, w, dy), kw)``: dX and dW within
+    GMM_BWD_TOL, and with ``witness`` held to float64 at GMM_BWD_WITNESS."""
+    return _bwd_check(f"moe_gmm_bwd {what} (bf16)", GMM_GRADS,
+                      _gmm_bwd_run(gmm), cases, GMM_BWD_TOL,
+                      GMM_BWD_WITNESS if witness else 0.0, BF16_EPS,
+                      readings)
+
+
+def _gmm_dz(x, w, dy, activation):
+    """dZ = dY act'(Z) of the plain version, float32 (E, C, F)."""
+    with torch.enable_grad():
+        z = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+        z.requires_grad_()
+        out = {"none": lambda t: t, "silu": F.silu,
+               "gelu": lambda t: F.gelu(t, approximate="tanh")}[
+            activation](z)
+        (dz,) = torch.autograd.grad(out, z, dy.float())
+    return dz
+
+
+def _gmm_bwd_wrong_outputs(gmm, args, kw) -> dict:
+    """Two deliberately wrong gradients, from the plain version: dW without
+    act' (X^T dY, the activation's backward left out) and dX through W
+    un-transposed (dZ times w's memory read as (E, F, D), a layout fault).
+    Needs an activation."""
+    x, w, dy = args
+    act = kw.get("activation", "none")
+    if act == "none":
+        raise ValueError("operands of an activated product expected")
+    want = gmm.reference_expert_matmul_bwd(x, w, dy, **kw)
+    E, D, F_ = w.shape
+    no_act = gmm.reference_expert_matmul_bwd(x, w, dy, "none")[1]
+    flat = torch.einsum("ecf,efd->ecd", _gmm_dz(x, w, dy, act),
+                        w.float().reshape(E, F_, D)).to(x.dtype)
+    return {"dW without act'": (want[0], no_act),
+            "dX through W un-transposed": (flat, want[1])}
+
+
+def _bwd_rejects(kernel: str, names, wrong: dict, run, case, tol: float,
+                 witness: float, floor: float) -> None:
+    """Both gates of ``_bwd_check`` must reject each wrong gradient of
+    ``wrong`` (what it is -> the gradients) on the case: ``tol`` against
+    the plain version ``run(case, float32)``, and the float64 witness at
+    ``witness`` times the plain version's own error."""
+    want, exact = run(case, torch.float32), run(case, torch.float64)
+    for what, grads in wrong.items():
+        errors = [_rel_or_abs(g.float(), w.float())
+                  for g, w in zip(grads, want)]
+        rows = _grad_witness(names, grads, want, exact, floor)
+        if all(e <= tol for e in errors) or all(
+                err <= witness * limit for _, err, limit, _ in rows):
+            raise AssertionError(f"a {kernel} gate passes a wrong gradient "
+                                 f"({what}): {errors}, {rows}")
+        print(f"{kernel} check rejects a wrong output ({what}; "
+              f"{tuple(case[0][0].shape)}, {case[1]}): errors of "
+              f"{', '.join(names)} {errors!r} of their largest magnitude "
+              f"(limit {tol}); against float64 " + ", ".join(
+                  f"{name} {err!r} (limit {witness * limit!r})"
                   for name, err, limit, _ in rows))
+
+
+def _gmm_bwd_rejects_wrong_outputs(gmm, args, kw) -> None:
+    """Both gates must reject both wrong gradients of
+    ``_gmm_bwd_wrong_outputs`` on these operands: GMM_BWD_TOL against the
+    plain version, and the float64 witness at GMM_BWD_WITNESS."""
+    _bwd_rejects("moe_gmm_bwd", GMM_GRADS,
+                 _gmm_bwd_wrong_outputs(gmm, args, kw), _gmm_bwd_run(gmm),
+                 (args, kw), GMM_BWD_TOL, GMM_BWD_WITNESS, BF16_EPS)
+
+
+def _rglru_bwd_operands(gen, shape, device):
+    """(a, h, g) of an RG-LRU backward at ``(B, S, W)``: the forward's
+    operands, h from its plain version, and a random cotangent."""
+    from repro_torch.kernels.rglru import reference_rglru_scan
+
+    a, b = _rglru_operands(gen, shape, device)
+    return (a, reference_rglru_scan(a, b),
+            torch.randn(shape, generator=gen).to(device))
+
+
+RGLRU_GRADS = ("da", "db")
+
+
+def _rglru_bwd_run(rglru):
+    def run(case, dtype):
+        args, _ = case
+        if dtype is None:
+            return rglru.rglru_scan_bwd(*args)
+        return rglru.reference_rglru_scan_bwd(*args, dtype=dtype)
+    return run
+
+
+def _rglru_bwd_check(rglru, cases, what: str, witness: bool = False,
+                     readings: list | None = None) -> float:
+    """The RG-LRU backward kernel against its plain version on each
+    ``(a, h, g)``: da and db within RGLRU_BWD_TOL, and with ``witness``
+    held to float64 at RGLRU_BWD_WITNESS."""
+    return _bwd_check(f"rglru_bwd {what} (float32)", RGLRU_GRADS,
+                      _rglru_bwd_run(rglru), [(c, {}) for c in cases],
+                      RGLRU_BWD_TOL, RGLRU_BWD_WITNESS if witness else 0.0,
+                      FP32_EPS, readings)
+
+
+def _witness_summary(readings) -> dict:
+    """The float64 witness of a backward kernel's recorded cases, by
+    gradient: the reading nearest its limit (the kernel's error, the plain
+    version's, the limit)."""
+    out: dict = {}
+    for name, err, limit, err_p in readings:
+        if name not in out or err / limit > out[name]["kernel"] / out[
+                name]["limit"]:
+            out[name] = {"kernel": err, "plain": err_p, "limit": limit}
+    return out
+
+
+def _rglru_bwd_wrong_outputs(rglru, args) -> dict:
+    """Two deliberately wrong gradients, from the plain version: da_t =
+    lambda_t h_t (the shift of h dropped), and lambda without a's shift
+    (``lambda_t = g_t + a_t lambda_{t+1}``), with its da."""
+    a, h, g = args
+    da, lam = rglru.reference_rglru_scan_bwd(*args)
+    # lambda_t = g_t + a_t lambda_{t+1}: the forward's plain version run
+    # from the end with a unshifted
+    unshifted = rglru.reference_rglru_scan(a.flip(1), g.flip(1)).flip(1)
+    return {"da_t = lambda_t h_t (the shift dropped)": (lam * h, lam),
+            "lambda without a's shift": (
+                unshifted * torch.cat([torch.zeros_like(h[:, :1]),
+                                       h[:, :-1]], dim=1), unshifted)}
+
+
+def _rglru_bwd_rejects_wrong_outputs(rglru, args) -> None:
+    """Both gates must reject both wrong gradients of
+    ``_rglru_bwd_wrong_outputs`` on these operands: RGLRU_BWD_TOL against
+    the plain version, and the float64 witness at RGLRU_BWD_WITNESS."""
+    _bwd_rejects("rglru_bwd", RGLRU_GRADS,
+                 _rglru_bwd_wrong_outputs(rglru, args), _rglru_bwd_run(rglru),
+                 (args, {}), RGLRU_BWD_TOL, RGLRU_BWD_WITNESS, FP32_EPS)
 
 
 def check_generic(mods, device) -> dict:
@@ -2207,16 +2461,23 @@ def check_generic(mods, device) -> dict:
                 for s in FLASH_GENERIC], "generic"),
         "ssd_bwd": _ssd_bwd_check(mods["ssd"], [
             _ssd_bwd_operands(gen, s, device) for s in SSD_GENERIC],
+            "generic"),
+        "moe_gmm_bwd": _gmm_bwd_check(mods["moe_gmm"], [
+            _gmm_bwd_operands(gen, s, device) for s in GMM_GENERIC],
+            "generic"),
+        "rglru_bwd": _rglru_bwd_check(mods["rglru"], [
+            _rglru_bwd_operands(gen, s, device) for s in RGLRU_GENERIC],
             "generic")}
 
 
 @contextlib.contextmanager
-def record_calls(module, name: str, key_fn):
+def record_calls(module, name: str, key_fn, device=None,
+                 keep: int = RECORDED_OPERANDS):
     """Record every call of ``module.<name>`` inside the block: a count per
-    ``key_fn(*args, **kw)`` and up to RECORDED_OPERANDS clones of its
-    operands per key, detached from any autograd graph.  The recorder calls
-    the function it replaced, so the wrappers' launch counts are
-    untouched."""
+    ``key_fn(*args, **kw)`` and up to ``keep`` clones of its operands per
+    key, detached from any autograd graph (copied to ``device`` where it
+    is given).  The recorder calls the function it replaced, so the
+    wrappers' launch counts are untouched."""
     shapes: collections.Counter = collections.Counter()
     operands: dict = collections.defaultdict(list)
     wrapped = getattr(module, name)
@@ -2224,10 +2485,10 @@ def record_calls(module, name: str, key_fn):
     def recorder(*args, **kw):
         key = key_fn(*args, **kw)
         shapes[key] += 1
-        if len(operands[key]) < RECORDED_OPERANDS:
-            operands[key].append((tuple(a.detach().clone()
-                                        if torch.is_tensor(a) else a
-                                        for a in args), dict(kw)))
+        if len(operands[key]) < keep:
+            operands[key].append((tuple(
+                a.detach().to(device or a.device, copy=True)
+                if torch.is_tensor(a) else a for a in args), dict(kw)))
         return wrapped(*args, **kw)
 
     setattr(module, name, recorder)
@@ -2272,13 +2533,23 @@ def _rglru_key(a, b):
     return tuple(a.shape)  # (B, S, W)
 
 
+def _gmm_bwd_key(x, w, dy, activation="none"):
+    return _gmm_key(x, w, activation)
+
+
+def _rglru_bwd_key(a, h, g):
+    return _rglru_key(a, h)
+
+
 @contextlib.contextmanager
-def record_routes(replay=None):
+def record_routes(replay=None, own=None):
     """Record every MoE layer's routing inside the block: yields a list of
-    ``layers.Routing``, one per layer in order.  With ``replay`` (another
-    run's routings of the same layers) each layer sends its tokens to that
-    run's experts instead, through ``layers.routing_of_picks``, whose
-    buffer places and capacity drops must then be ``==`` that run's."""
+    ``layers.Routing``, one per layer call in order.  With ``replay``
+    (another run's routings of the same layer calls) each call sends its
+    tokens to that run's experts instead, through
+    ``layers.routing_of_picks``, whose buffer places and capacity drops
+    must then be ``==`` that run's; the router's own routing is appended to
+    ``own`` where a list is given."""
     from repro_torch.models import layers as ML
 
     routes: list = []
@@ -2286,6 +2557,8 @@ def record_routes(replay=None):
 
     def recorder(router, cfg, toks):
         r = route(router, cfg, toks)
+        if own is not None:
+            own.append(r)
         if replay is not None:
             want = replay[len(routes)]
             r = ML.routing_of_picks(r.logits, r.probs,
@@ -2493,14 +2766,19 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     pipeline = run_pipeline_path(name, cfg, params, PIPELINE[name], mods,
                                  device)
     serve = train = pipeline_train = None
+    fresh = name in TRAIN and TRAIN[name].layers is not None
     if name in SERVE:
         serve = run_serve_path(name, cfg, params, SERVE[name], spec.kernels,
                                mods, device)
-    if name in TRAIN:
+    if name in TRAIN and not fresh:
         train = run_train_path(name, cfg, params, TRAIN[name], mods, device)
     del params  # path 7's steps draw the seeded weights again
     torch.cuda.empty_cache()
-    if name in TRAIN:
+    if fresh:
+        for run in ({"recorded": recorded}, pipeline, serve):
+            park(run)
+        train = run_fresh_train_path(name, mods, device)
+    elif name in TRAIN:
         pipeline_train = run_pipeline_train_path(name, cfg, TRAIN[name],
                                                  mods, device, train)
     return {"launches": launches, "recorded": recorded, "serve": serve,
@@ -2766,23 +3044,30 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
 
 
 # ------------------------------------------------------------------ path 4 --
-# the block kinds that run each forward kernel of path 4's models
+# the block kinds that run each forward kernel of path 4's models, and the
+# calls of it a layer of those kinds makes where that is not one (an MoE
+# FFN's gate, up and down products)
 KERNEL_KINDS = {"flash_attention": ("attn", "local_attn", "moe", "moe_dense"),
-                "ssd": ("ssd",)}
+                "ssd": ("ssd",), "moe_gmm": ("moe", "moe_dense"),
+                "rglru": ("rglru",)}
+KERNEL_CALLS = {"moe_gmm": 3}
 
 
 def _train_launches(cfg, kernel: str) -> tuple[int, int]:
-    """A train step's (forward, backward) launches of ``kernel``: every
-    layer of its kinds once each way, and the forward once more in every
-    full pattern repetition that ``cfg.remat`` recomputes."""
+    """A train step's (forward, backward) launches of the forward kernel
+    ``kernel`` and of its backward: every layer of its kinds KERNEL_CALLS
+    times each way (each forward call under autograd is one autograd
+    Function, whose backward is one backward launch), and the forward once
+    more in every full pattern repetition that ``cfg.remat`` recomputes."""
     from repro_torch.models import transformer as MT
 
     full = cfg.n_layers // len(cfg.pattern) * len(cfg.pattern)
+    calls = KERNEL_CALLS.get(kernel, 1)
     layers = [i for i, kind in enumerate(MT.layer_kinds(cfg.n_layers,
                                                         cfg.pattern))
               if kind in KERNEL_KINDS[kernel]]
-    return (sum(2 if cfg.remat and i < full else 1 for i in layers),
-            len(layers))
+    return (calls * sum(2 if cfg.remat and i < full else 1 for i in layers),
+            calls * len(layers))
 
 
 def _charged_transfer_s(ev, path, cut_after: int, direction: str) -> float:
@@ -2859,6 +3144,13 @@ def _rel2(out, ref, scale=None) -> float:
     return float(d / scale.double().norm().clamp_min(1e-300))
 
 
+def _grad_limit(floor: float) -> float:
+    """Path 4's limit for a gradient whose plain versions on the card lie
+    ``floor`` from the CPU: CHECK_TOL, or GRAD_FLOOR_FACTOR times the floor
+    where the floor itself passes CHECK_TOL."""
+    return CHECK_TOL if floor < CHECK_TOL else GRAD_FLOOR_FACTOR * floor
+
+
 def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
     """The first TRAIN_CHECK_DEPTH pattern repetitions at S = CHECK_SEQ on
     the card (kernels) against the same on the CPU (plain versions): the
@@ -2871,9 +3163,17 @@ def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
     cancel, bf16 rounding is amplified in single elements (a bias's
     largest element can be far below the terms it sums), so the leaves
     are held as the vectors the optimizer takes; their largest element's
-    error, and the same gradients through the plain versions on the card
-    against the CPU (the floor of two bf16 evaluations), are printed
-    beside.  Raises on a failure, else returns the readings."""
+    error is printed beside.  Beside each gradient, the same through the
+    plain versions on the card against the CPU (the floor of two bf16
+    evaluations) is printed, leaf by leaf; where that floor passes
+    CHECK_TOL itself, the gradient's limit is GRAD_FLOOR_FACTOR times its
+    floor (``_grad_limit``), and the count of such limits and the largest
+    are printed.  With MoE layers the gate is aware of routing: the CPU's
+    forwards and backwards (and the floor's) replay the card's expert
+    picks, call for call (``record_routes(replay=...)``), where the CPU's
+    own router must pick as the card does up to near ties (within
+    CHECK_TOL of the largest |logit|, half the tokens at least alike at
+    every layer).  Raises on a failure, else returns the readings."""
     from repro_torch.models import layers as ML
     from repro_torch.models import transformer as MT
 
@@ -2888,6 +3188,12 @@ def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
         x = MT.embed_tokens(params, cfg, toks)
     cot = torch.randn((B, S, cfg.d_model),
                       generator=torch.Generator().manual_seed(5))
+    moe = any(kind in KERNEL_KINDS["moe_gmm"]
+              for kind in MT.layer_kinds(n, cfg.pattern))
+
+    def routed(replay=None, own=None):
+        return (record_routes(replay, own) if moe else
+                contextlib.nullcontext([]))
 
     def grad_in(stack, h):
         h = h.detach().requires_grad_()
@@ -2907,43 +3213,85 @@ def _train_check_on_cpu(name, cfg, params, tokens, stage) -> str:
             loss = (out.float() * cot.to(h.device)).sum()
         return torch.autograd.grad(loss, leaves)
 
-    cpu_in = grad_in(cpu_sub, x.cpu()).float()
-    cpu_p = [g.float() for g in param_grads(cpu_sub, x.cpu())]
-    err_in = _rel(grad_in(sub, x).float().cpu(), cpu_in)
-    card_p = [g.float().cpu() for g in param_grads(sub, x)]
-    with plain_kernels():
-        floor_in = _rel(grad_in(sub, x).float().cpu(), cpu_in)
-        floor_p = [g.float().cpu() for g in param_grads(sub, x)]
-    names = [".".join(map(str, path)) for path, _ in MT.tree_paths(sub)]
+    with routed() as card_in_routes:
+        card_in = grad_in(sub, x).float().cpu()
+    with routed() as card_p_routes:
+        card_p = [g.float().cpu() for g in param_grads(sub, x)]
+    own: list = []
+    with routed(card_in_routes, own):
+        cpu_in = grad_in(cpu_sub, x.cpu()).float()
+    with routed(card_p_routes):
+        cpu_p = [g.float() for g in param_grads(cpu_sub, x.cpu())]
+    err_in = _rel(card_in, cpu_in)
     errs = [_rel2(a, b) for a, b in zip(card_p, cpu_p)]
     tops = [_rel(a, b) for a, b in zip(card_p, cpu_p)]
-    floors = [_rel2(a, b) for a, b in zip(floor_p, cpu_p)]
-    worst = max(range(len(errs)), key=errs.__getitem__)
+    del card_p  # the host holds one set of gradients beside the CPU's
+    with plain_kernels():
+        with routed(card_in_routes):
+            floor_in = _rel(grad_in(sub, x).float().cpu(), cpu_in)
+        with routed(card_p_routes):
+            floors = [_rel2(g.float().cpu(), c) for g, c in zip(
+                param_grads(sub, x), cpu_p)]
+    names = [".".join(map(str, path)) for path, _ in MT.tree_paths(sub)]
+    limit_in = _grad_limit(floor_in)
+    limits = [_grad_limit(f) for f in floors]
+    by_floor = [lim for lim in [limit_in, *limits] if lim != CHECK_TOL]
+    worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i])
     top = max(range(len(tops)), key=tops.__getitem__)
+    routing = near_ties = ""
+    if moe:
+        ra = ML.routing_agreement(
+            [(r.logits.cpu(), r.idx.cpu(), r.keep.cpu())
+             for r in card_in_routes],
+            [(r.logits, r.idx, r.keep) for r in own])
+        near_ties = ra.flips_are_near_ties(CHECK_TOL) and \
+            2 * int(ra.agree.sum()) >= B * S
+        routing = (f"; routing of the grad_in forward: {ra.flips} of "
+                   f"{ra.picks} expert picks differ by slot, {ra.diverged} "
+                   f"of {B * S} tokens keep other experts at some layer, the "
+                   f"largest distance of a differing expert from the CPU's "
+                   f"top-k cut {ra.worst_gap!r} of the largest |logit| "
+                   f"(limit {CHECK_TOL}); the CPU replayed the card's "
+                   f"picks in {len(card_in_routes)} + {len(card_p_routes)} "
+                   f"router calls")
     line = (f"first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
             f"(plain versions) in {cfg.compute_dtype}: grad_in {err_in!r} "
-            f"of its largest magnitude (limit {CHECK_TOL}; the plain "
-            f"versions on the card {floor_in!r}); the {len(errs)} parameter "
-            f"gradients up to {errs[worst]!r} ({names[worst]}) in 2-norm "
-            f"(limit {CHECK_TOL}; the plain versions on the card up to "
-            f"{max(floors)!r}), their largest element up to {tops[top]!r} "
-            f"({names[top]}) of each one's largest magnitude; in "
-            f"{time.perf_counter() - t0!r} s")
-    if not (err_in < CHECK_TOL and errs[worst] < CHECK_TOL):
+            f"of its largest magnitude (the plain versions on the card "
+            f"{floor_in!r}; limit {limit_in!r}); the {len(errs)} parameter "
+            f"gradients in 2-norm, nearest their limit {errs[worst]!r} "
+            f"({names[worst]}; the floor {floors[worst]!r}, limit "
+            f"{limits[worst]!r}), up to {max(errs)!r} (the plain versions "
+            f"on the card up to {max(floors)!r}); {len(by_floor)} of "
+            f"{len(limits) + 1} limits set by a floor past CHECK_TOL "
+            f"{CHECK_TOL} (GRAD_FLOOR_FACTOR {GRAD_FLOOR_FACTOR} x the "
+            f"floor), the largest {max(by_floor, default=None)!r}; their "
+            f"largest element up to {tops[top]!r} ({names[top]}) of each "
+            f"one's largest magnitude{routing}; every leaf (card vs CPU, the "
+            f"plain versions' floor): " + ", ".join(
+                f"{nm} {e!r} ({f!r})" for nm, e, f in zip(names, errs, floors))
+            + f"; in {time.perf_counter() - t0!r} s")
+    if moe and not near_ties:
+        raise AssertionError(f"{name}: the card's routing is not the CPU's "
+                             f"up to near ties; {line}")
+    if not (err_in < limit_in and errs[worst] < limits[worst]):
         raise AssertionError(f"{name}: path 4's gradients on the card differ "
                              f"from the CPU's past the limit; {line}; every "
-                             f"leaf: {dict(zip(names, errs))}")
+                             f"leaf (error, limit): "
+                             f"{dict(zip(names, zip(errs, limits)))}")
     return line
 
 
-def _recorded_run(mods, fn) -> tuple:
-    """``fn()`` with every kernel's calls recorded and the counts set to 0
-    just before it and read just after: (its result, launches, recorded),
-    each kernel's recorded calls checked against its launches."""
+def _recorded_run(mods, fn, device=None,
+                  keep: int = RECORDED_OPERANDS) -> tuple:
+    """``fn()`` with every kernel's calls recorded (up to ``keep`` operand
+    sets a shape, copied to ``device`` where it is given) and the counts
+    set to 0 just before it and read just after: (its result, launches,
+    recorded), each kernel's recorded calls checked against its
+    launches."""
     with contextlib.ExitStack() as stack:
         recorded = {k: stack.enter_context(record_calls(
-            importlib.import_module(ks.site[0]), ks.site[1], ks.key))
-            for k, ks in KERNELS.items()}
+            importlib.import_module(ks.site[0]), ks.site[1], ks.key, device,
+            keep)) for k, ks in KERNELS.items()}
         _zero_counts(mods)
         out = fn()
         torch.cuda.synchronize()
@@ -2961,9 +3309,10 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
     train steps then update in place:
 
     1. ``plan_pipeline(mode="TR")`` and ``ChainSimulator.round_trip`` at
-       full depth, the counts set to 0 just before and read just after
-       (one forward and one backward launch a layer); its charges and
-       event replay gated (``_round_trip_gates``); ``grad_in`` finite;
+       the model's depth, the counts set to 0 just before and read just
+       after (one forward and one backward launch a layer of each kernel's
+       kinds, three for the expert matmul); its charges and event replay
+       gated (``_round_trip_gates``); ``grad_in`` finite;
     2. ``_train_check_on_cpu`` on the same weights: grad_in and the
        parameter gradients of the first TRAIN_CHECK_DEPTH repetitions,
        card against CPU.  It runs before the steps because the weights
@@ -2978,6 +3327,9 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
     4. one more step under the profiler (device busy time and the top
        kernels).
 
+    The kernel calls of parts 1 and 3 are recorded on the host, one
+    operand set a shape (the MoE path's three a shape took 22 GB: the
+    expert weights are 403 MB a call).
     Returns each part's counts and recorded kernel calls, and the
     numbers."""
     from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
@@ -2987,7 +3339,6 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
 
     t_path = time.perf_counter()
     B, S = traffic.batch, traffic.seq
-    fwd, bwd = traffic.kernels
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(4)).to(
         device)
@@ -2996,14 +3347,16 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
                          pp.problem.request)
     torch.cuda.reset_peak_memory_stats()
     rt, rt_launches, rt_recorded = _recorded_run(
-        mods, lambda: sim.round_trip(pp.plan, tokens))
+        mods, lambda: sim.round_trip(pp.plan, tokens), "cpu", 1)
     rt_peak = torch.cuda.max_memory_allocated()
-    per_layer = _train_launches(dataclasses.replace(cfg, remat=False), fwd)
-    if (rt_launches[fwd], rt_launches[bwd]) != per_layer:
-        raise AssertionError(f"{name}: the round trip launched "
-                             f"{rt_launches[fwd]} {fwd} and "
-                             f"{rt_launches[bwd]} {bwd} kernels, not "
-                             f"{per_layer}")
+    for fwd, bwd in traffic.pairs():
+        per_layer = _train_launches(dataclasses.replace(cfg, remat=False),
+                                    fwd)
+        if (rt_launches[fwd], rt_launches[bwd]) != per_layer:
+            raise AssertionError(f"{name}: the round trip launched "
+                                 f"{rt_launches[fwd]} {fwd} and "
+                                 f"{rt_launches[bwd]} {bwd} kernels, not "
+                                 f"{per_layer}")
     gates = _round_trip_gates(name, sim, pp.plan, rt)
     if rt.grad_in.shape != (B, S, cfg.d_model) or not bool(
             torch.isfinite(rt.grad_in).all()):
@@ -3050,14 +3403,18 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
             ms.append((time.perf_counter() - t0) * 1e3)
         return losses, norms, ms
 
-    (losses, norms, step_ms), launches, recorded = _recorded_run(mods, steps)
+    (losses, norms, step_ms), launches, recorded = _recorded_run(
+        mods, steps, "cpu", 1)
     peak = torch.cuda.max_memory_allocated()
-    per_step = _train_launches(cfg, fwd)
-    want = tuple(traffic.steps * n for n in per_step)
-    if (launches[fwd], launches[bwd]) != want:
-        raise AssertionError(f"{name}: {traffic.steps} train steps launched "
-                             f"{launches[fwd]} {fwd} and {launches[bwd]} "
-                             f"{bwd} kernels, not {want}")
+    per_step = {}
+    for fwd, bwd in traffic.pairs():
+        per_step[fwd] = _train_launches(cfg, fwd)
+        want = tuple(traffic.steps * n for n in per_step[fwd])
+        if (launches[fwd], launches[bwd]) != want:
+            raise AssertionError(f"{name}: {traffic.steps} train steps "
+                                 f"launched {launches[fwd]} {fwd} and "
+                                 f"{launches[bwd]} {bwd} kernels, not "
+                                 f"{want}")
     if not all(map(math.isfinite, losses + norms)):
         raise AssertionError(f"{name}: losses {losses}, grad norms {norms} "
                              f"are not all finite")
@@ -3085,6 +3442,39 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
             "losses": losses, "grad_norms": norms, "step_ms": step_ms,
             "step_ms_p50": p50, "tokens_per_s": B * S / (p50 * 1e-3),
             "peak_bytes": peak}
+
+
+def run_fresh_train_path(name: str, mods: dict, device) -> dict:
+    """Path 4 for a model of TRAIN with a ``layers`` depth, after path 2's
+    weights are freed and its recorded calls parked on the host: the
+    training state counted before it is allocated (``_planned_bytes`` of
+    the config at that depth, four times: float32 weights, gradients and
+    AdamW's two moments) and held to the card's free memory, then fresh
+    weights at full width from seed 0 in the config's own float32, and
+    ``run_train_path`` on them."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as MT
+
+    traffic = TRAIN[name]
+    cfg = dataclasses.replace(ARCHS[name], n_layers=traffic.layers)
+    weights = _planned_bytes(cfg, device)
+    free, total = torch.cuda.mem_get_info()
+    print(f"{name}: path 4 at {cfg.n_layers} of {ARCHS[name].n_layers} "
+          f"layers, full width, {cfg.param_dtype} weights: {weights} B of "
+          f"weights, {4 * weights} B with their gradients and AdamW's "
+          f"moments, against {free} B free of the card's {total} B")
+    if 4 * weights > free:
+        raise AssertionError(f"{name}: path 4's training state, "
+                             f"{4 * weights} B, does not fit the card's "
+                             f"{free} B free")
+    params = MT.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in MT.tree_leaves(params))
+    if n_bytes != weights:
+        raise AssertionError(f"{name}: {n_bytes} B of weights allocated, "
+                             f"{weights} B planned")
+    return run_train_path(name, cfg, params, traffic, mods, device)
 
 
 # ------------------------------------------------------------------ path 7 --
@@ -3291,8 +3681,9 @@ def _pipe_train_launches(cfg, kernel: str, n_micro: int) -> tuple[int, int]:
     once more under ``cfg.remat``, which recomputes every group slot."""
     from repro_torch.models import transformer as MT
 
-    n = sum(kind in KERNEL_KINDS[kernel]
-            for kind in MT.layer_kinds(cfg.n_layers, cfg.pattern))
+    n = KERNEL_CALLS.get(kernel, 1) * sum(
+        kind in KERNEL_KINDS[kernel]
+        for kind in MT.layer_kinds(cfg.n_layers, cfg.pattern))
     return n_micro * n * (2 if cfg.remat else 1), n_micro * n
 
 
@@ -4024,6 +4415,31 @@ def _rglru_bound(key) -> tuple[float, str, int, int]:
             "bytes", n_ops, n_bytes)
 
 
+def _gmm_bwd_bound(key) -> tuple[float, str, int, int]:
+    """The backward's least work from its inputs x, w and dY: dX = dZ W^T
+    and dW = X^T dZ, 2 E C D F operations each, and with an activation Z =
+    X W recomputed for dZ = dY act'(Z) (Z is not an input: the forward
+    keeps none); x, w and dY read and dX and dW written once."""
+    E, C, D, F_, act = key
+    n_ops = (2 if act == "none" else 3) * 2 * E * C * D * F_
+    n_bytes = 2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_)
+    op_ms = n_ops / BF16_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
+def _rglru_bwd_bound(key) -> tuple[float, str, int, int]:
+    """a, h and g read and da and db written once; an add and two
+    multiplies per element (lambda, the carry, da)."""
+    n = key[0] * key[1] * key[2]
+    n_ops, n_bytes = 3 * n, 20 * n
+    op_ms = n_ops / FP32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
+            "bytes", n_ops, n_bytes)
+
+
 def _flash_bwd_bound(key) -> tuple[float, str, int, int]:
     """Five products over the visible pairs (S = Q K^T, dP = dO V^T, dV =
     P^T dO, dQ = dS K, dK = dS^T Q), 2.5 times the forward's operations;
@@ -4076,53 +4492,78 @@ def _ssd_bwd_fp32_bound(key) -> tuple[float, str]:
     return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
 
-def _flash_path_check(fa, recorded, random) -> float:
+def _flash_path_check(fa, recorded, random) -> tuple[float, None]:
     err = _flash_check(fa, recorded + random, "at path 2's shapes (recorded "
                        "operands and random)")
     _flash_rejects_wrong_outputs(fa, *next(
         case for case in recorded if case[1].get("causal", True)
         and not case[1].get("window") and not case[1].get("softcap")))
-    return err
+    return err, None
 
 
-def _gmm_path_check(gmm, recorded, random) -> float:
+def _gmm_path_check(gmm, recorded, random) -> tuple[float, None]:
     err = _gmm_check(gmm, recorded + random, "at path 2's shapes (recorded "
                      "operands and random)")
     _gmm_rejects_wrong_outputs(gmm, *recorded[0])
-    return err
+    return err, None
 
 
-def _rglru_path_check(rglru, recorded, random) -> float:
+def _rglru_path_check(rglru, recorded, random) -> tuple[float, None]:
     err = _rglru_check_witness(rglru, [args for args, _ in recorded],
                                "recorded at path 2's shapes")
     return max(err, _rglru_check(rglru, [args for args, _ in random],
-                                 "random at path 2's shapes"))
+                                 "random at path 2's shapes")), None
 
 
-def _ssd_path_check(ssd, recorded, random) -> float:
+def _ssd_path_check(ssd, recorded, random) -> tuple[float, None]:
     err = _ssd_check_witness(ssd, [args for args, _ in recorded],
                              "recorded at path 2's shapes")
     _ssd_rejects_wrong_outputs(ssd, recorded[0][0])
     return max(err, _ssd_check(ssd, [args for args, _ in random],
-                               "random at path 2's shapes"))
+                               "random at path 2's shapes")), None
 
 
-def _flash_bwd_path_check(fa, recorded, random) -> float:
+def _flash_bwd_path_check(fa, recorded, random) -> tuple[float, None]:
     err = max(_flash_bwd_check(fa, recorded, "recorded at path 4's shapes",
                                witness=True),
               _flash_bwd_check(fa, random, "random at path 4's shapes"))
     _flash_bwd_rejects_wrong_outputs(fa, *next(
         case for case in recorded if case[1].get("causal", True)
         and case[0][0].shape[2] > case[0][1].shape[2]))
-    return err
+    return err, None
 
 
-def _ssd_bwd_path_check(ssd, recorded, random) -> float:
-    err = _ssd_bwd_check(ssd, [args for args, _ in recorded],
-                         "recorded at path 4's shapes", witness=True)
+def _ssd_bwd_path_check(ssd, recorded, random) -> tuple[float, dict]:
+    readings: list = []
+    err = max(_ssd_bwd_check(ssd, [args for args, _ in recorded],
+                             "recorded at path 4's shapes", witness=True,
+                             readings=readings),
+              _ssd_bwd_check(ssd, [args for args, _ in random],
+                             "random at path 4's shapes"))
     _ssd_bwd_rejects_wrong_outputs(ssd, recorded[0][0])
-    return max(err, _ssd_bwd_check(ssd, [args for args, _ in random],
-                                   "random at path 4's shapes"))
+    return err, _witness_summary(readings)
+
+
+def _gmm_bwd_path_check(gmm, recorded, random) -> tuple[float, dict]:
+    readings: list = []
+    err = max(_gmm_bwd_check(gmm, recorded, "recorded at path 4's shapes",
+                             witness=True, readings=readings),
+              _gmm_bwd_check(gmm, random, "random at path 4's shapes"))
+    _gmm_bwd_rejects_wrong_outputs(gmm, *next(
+        case for case in recorded
+        if case[1].get("activation", "none") != "none"))
+    return err, _witness_summary(readings)
+
+
+def _rglru_bwd_path_check(rglru, recorded, random) -> tuple[float, dict]:
+    readings: list = []
+    err = max(_rglru_bwd_check(rglru, [args for args, _ in recorded],
+                               "recorded at path 4's shapes", witness=True,
+                               readings=readings),
+              _rglru_bwd_check(rglru, [args for args, _ in random],
+                               "random at path 4's shapes"))
+    _rglru_bwd_rejects_wrong_outputs(rglru, recorded[0][0])
+    return err, _witness_summary(readings)
 
 
 def _flash_library(args, kw):
@@ -4174,6 +4615,16 @@ def _gmm_library(args, kw):
     return lambda: act(torch.bmm(x, w))  # noqa: E731
 
 
+def _gmm_bwd_library(args, kw):
+    """Two ``torch.bmm`` calls, dZ W^T and X^T dZ, on the plain version's
+    dZ (computed once beforehand, in bf16), the library yardstick of the
+    backward (never called by the port)."""
+    x, w, dy = args
+    dz = _gmm_dz(x, w, dy, kw.get("activation", "none")).to(x.dtype)
+    wt, xt = w.transpose(1, 2), x.transpose(1, 2)
+    return lambda: (torch.bmm(dz, wt), torch.bmm(xt, dz))  # noqa: E731
+
+
 class Kernel(NamedTuple):
     """What the script knows of one kernel: where it comes from, where path
     2 calls it (the function recorded), and, for the kernels of path 2's
@@ -4186,7 +4637,9 @@ class Kernel(NamedTuple):
     wrapper: str = ""       # the wrapper's and the plain version's names
     plain: str = ""
     random_operands: Callable | None = None  # (gen, key, kw, device)
-    check: Callable | None = None  # (module, recorded, random) -> max err
+    # (module, recorded, random) -> (max err, the float64 witness by
+    # gradient of a backward kernel held to it, else None)
+    check: Callable | None = None
     bound: Callable | None = None  # key -> (ms, by, operations, bytes)
     library: Callable = lambda args, kw: None  # noqa: E731
     # key -> (ms, by) of the same work at the fp32 rate, or None
@@ -4280,6 +4733,22 @@ KERNELS = {
             gen, (s[0], s[1] * s[3], s[2], s[4], s[5], s[3]), device), kw),
         _ssd_bwd_path_check, _ssd_bwd_bound, fp32_bound=_ssd_bwd_fp32_bound,
         module="ssd", counter="bwd_launch_count"),
+    "moe_gmm_bwd": Kernel(
+        "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+        "src/repro/kernels/moe_gmm.py:22",
+        ("repro_torch.kernels.moe_gmm", "expert_matmul_bwd"), _gmm_bwd_key,
+        "gmm_bwd_kernel", "expert_matmul_bwd", "reference_expert_matmul_bwd",
+        lambda gen, s, kw, device: _gmm_bwd_operands(gen, s, device),
+        _gmm_bwd_path_check, _gmm_bwd_bound, _gmm_bwd_library,
+        module="moe_gmm", counter="bwd_launch_count"),
+    "rglru_bwd": Kernel(
+        "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+        "src/repro/kernels/rglru.py:23",
+        ("repro_torch.kernels.rglru", "rglru_scan_bwd"), _rglru_bwd_key,
+        "rglru_bwd_", "rglru_scan_bwd", "reference_rglru_scan_bwd",
+        lambda gen, s, kw, device: (_rglru_bwd_operands(gen, s, device), kw),
+        _rglru_bwd_path_check, _rglru_bwd_bound,
+        module="rglru", counter="bwd_launch_count"),
 }
 
 
@@ -4293,9 +4762,10 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
     shapes, operands = recorded
     gen = torch.Generator().manual_seed(3)
     order = sorted(shapes, key=lambda s: (-shapes[s], str(s)))
-    err = spec.check(mod, [case for s in order for case in operands[s]],
-                     [spec.random_operands(gen, s, operands[s][0][1], device)
-                      for s in order])
+    err, witness = spec.check(
+        mod, [case for s in order for case in operands[s]],
+        [spec.random_operands(gen, s, operands[s][0][1], device)
+         for s in order])
     rows = {}
     for s in order:
         args, kw = operands[s][0]
@@ -4343,6 +4813,7 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
             "max_abs_err": max(err, generic_err), "mismatches": 0,
             **{k: v for k, v in top.items() if k != "launches"},
             "launches_by_path": launches_by_path,
+            **({"witness_float64": witness} if witness else {}),
             "shapes": [rows[s] for s in order]}
 
 
@@ -4466,7 +4937,8 @@ def main() -> int:
     print(f"clocks after the minplus_scan timings (sm, max sm, "
           f"temperature): {_clocks_line()}")
     for kernel in ("flash_attention", "ssd", "moe_gmm", "rglru",
-                   "flash_attention_bwd", "ssd_bwd"):
+                   "flash_attention_bwd", "ssd_bwd", "moe_gmm_bwd",
+                   "rglru_bwd"):
         t_kernel = time.perf_counter()
         runs = []
         for m, spec in MODELS.items():
@@ -4506,7 +4978,7 @@ def main() -> int:
              "library_ms", "ops_per_s", "bytes_per_s", "bound_share",
              "fp32_bound_ms", "fp32_bound_by", "fp32_bound_share", "shape",
              "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
-             "note", "shapes"]
+             "note", "witness_float64", "shapes"]
     walls["kernel checks and timings"] = time.perf_counter() - t_start - sum(
         walls.values())
     walls["generic"] += walls.pop("generic +")

@@ -21,6 +21,13 @@ operands: :func:`pad_operands` pads a ragged D or F with zeros (exact zeros
 in the sums), and the wrapper slices the output back and raises on a
 misaligned operand.  Its times against its bound and ``torch.bmm`` at the
 MoE path's shapes are in PERF.md.
+
+Where grad mode is on and an operand requires grad, the launch goes through
+the autograd Function ``_ExpertMatmul``, whose backward is the hand-written
+kernel in ``csrc/moe_gmm_bwd.cu`` (:func:`expert_matmul_bwd`): dZ = dY
+act'(Z) with Z recomputed on the tensor cores, then dX = dZ W^T and dW =
+X^T dZ, each in bf16 from fp32 sums.  On CPU tensors autograd
+differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -34,35 +41,54 @@ from . import build as _build
 LIBRARY = _build.KernelLibrary("moe_gmm", {
     "expert_matmul_bf16": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]})
-ACTIVATIONS = {"none": 0, "silu": 1, "gelu": 2}  # the kernel's codes
+BWD_LIBRARY = _build.KernelLibrary("moe_gmm_bwd", {
+    "expert_matmul_bwd_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]})
+ACTIVATIONS = {"none": 0, "silu": 1, "gelu": 2}  # the kernels' codes
 TMA_ELEMS = 8  # bf16 elements in TMA's 16-byte row pitch: D and F are multiples
 
-# Kernel launches made by expert_matmul since the count was last set to 0.
+# Kernel launches made by expert_matmul since the count was last set to 0
+# (forward), and by expert_matmul_bwd (backward).
 launch_count = 0
-# Where grad mode is on and an operand requires grad, a CUDA launch raises
-# naming the ROADMAP item that brings this kernel's backward: a result
-# without autograd history would cut the gradient of every parameter before
-# it.  (CPU tensors take the plain version, which autograd differentiates.)
-TRAINING_ITEM = ("ROADMAP A4b: MoE and RG-LRU training (the expert matmul's "
-                 "and the RG-LRU scan's backward kernels)")
+bwd_launch_count = 0
 
 
 def build():
-    """Compile the kernel now (else it is built at its first launch)."""
+    """Compile the forward kernel now (else it is built at its first
+    launch)."""
     return LIBRARY.build()
 
 
-def reference_expert_matmul(x, w, *, activation: str = "none"):
-    """Plain PyTorch version: an fp32 product per expert, the activation in
-    fp32, then the cast to x's type (``ref.reference_expert_matmul`` of the
-    JAX package)."""
+def reference_expert_matmul(x, w, *, activation: str = "none",
+                            dtype=torch.float32):
+    """Plain PyTorch version: a product per expert in ``dtype`` (float32; a
+    float64 witness for the backward's checks), the activation in it, then
+    the cast to x's type (``ref.reference_expert_matmul`` of the JAX
+    package)."""
     _check(x, w, activation)
-    out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    out = torch.einsum("ecd,edf->ecf", x.to(dtype), w.to(dtype))
     if activation == "silu":
         out = out * torch.sigmoid(out)
     elif activation == "gelu":
         out = F.gelu(out, approximate="tanh")
     return out.to(x.dtype)
+
+
+def reference_expert_matmul_bwd(x, w, dy, activation: str = "none", *,
+                                dtype=torch.float32):
+    """The plain version of the backward: ``(dx, dw)``, autograd through
+    :func:`reference_expert_matmul` for the cotangent ``dy`` of its output.
+    In float32 (the default) the gradients come back in x's and w's types,
+    as autograd through the forward gives them; ``dtype=torch.float64``
+    computes in float64 from the operands widened to it and returns float64
+    (the witness of the exact values)."""
+    _check(x, w, activation)
+    with torch.enable_grad():
+        ins = [(t.detach().to(dtype) if dtype == torch.float64 else
+                t.detach()).requires_grad_() for t in (x, w)]
+        out = reference_expert_matmul(*ins, activation=activation,
+                                      dtype=dtype)
+        return tuple(torch.autograd.grad(out, ins, dy.to(out.dtype)))
 
 
 def _check(x, w, activation) -> None:
@@ -73,6 +99,34 @@ def _check(x, w, activation) -> None:
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"x (E, C, D) and w (E, D, F) expected, got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
+
+
+def _check_call(x, w, activation, what: str) -> None:
+    _check(x, w, activation)
+    if x.device != w.device:
+        raise ValueError(f"operands on different devices: {x.device}, "
+                         f"{w.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, got {x.device}")
+
+
+def _check_launch(operands, what: str) -> None:
+    """What the kernels take of CUDA operands; raises on anything else."""
+    if any(t.dtype != torch.bfloat16 for t in operands):
+        raise TypeError(f"the expert matmul {what} kernel takes bf16 "
+                        f"operands, got {[t.dtype for t in operands]}")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError(f"the expert matmul {what} kernel takes contiguous "
+                         f"operands")
+    if operands[0].shape[2] == 0:
+        raise ValueError(f"the expert matmul {what} kernel needs a depth "
+                         f"D >= 1")
+
+
+def _aligned(operands, what: str) -> None:
+    if any(t.data_ptr() % 16 for t in operands):
+        raise ValueError(f"the expert matmul {what} kernel takes 16-byte "
+                         f"aligned operands (its TMA loads need them)")
 
 
 def pad_operands(x, w):
@@ -89,42 +143,15 @@ def pad_operands(x, w):
     return x, w
 
 
-def expert_matmul(x, w, activation: str = "none"):
-    """``act(x[e] @ w[e])`` for every expert e: (E, C, F) in x's type.
-
-    CPU tensors take :func:`reference_expert_matmul`.  CUDA tensors must be
-    contiguous bf16 on one device, 16-byte aligned where D and F are
-    multiples of TMA_ELEMS (else :func:`pad_operands` copies them); they
-    launch the kernel on the current stream, and anything the kernel does
-    not take raises.
-    """
+def _launch_forward(x, w, activation: str):
     global launch_count
-    _check(x, w, activation)
-    if x.device != w.device:
-        raise ValueError(f"operands on different devices: {x.device}, "
-                         f"{w.device}")
-    if x.device.type == "cpu":
-        return reference_expert_matmul(x, w, activation=activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"expert_matmul runs on cuda or cpu, got {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(f"the expert matmul kernel has no backward "
-                                  f"yet: {TRAINING_ITEM}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the expert matmul kernel takes bf16 operands, got "
-                        f"{x.dtype}, {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the expert matmul kernel takes contiguous operands")
+    _check_launch((x, w), "forward")
     E, C, D = x.shape
     Fo = w.shape[2]
-    if D == 0:
-        raise ValueError("the expert matmul kernel needs a depth D >= 1")
     if E * C * Fo == 0:
         return torch.empty((E, C, Fo), dtype=x.dtype, device=x.device)
     xp, wp = pad_operands(x, w)
-    if any(t.data_ptr() % 16 for t in (xp, wp)):
-        raise ValueError("the expert matmul kernel takes 16-byte aligned "
-                         "operands (its TMA loads need them)")
+    _aligned((xp, wp), "forward")
     Dp, Fp = xp.shape[2], wp.shape[2]
     out = torch.empty((E, C, Fp), dtype=x.dtype, device=x.device)
     fn = LIBRARY.entry("expert_matmul_bf16")
@@ -137,3 +164,85 @@ def expert_matmul(x, w, activation: str = "none"):
                            f"{err}")
     launch_count += 1
     return out if Fp == Fo else out[..., :Fo].contiguous()
+
+
+def expert_matmul_bwd(x, w, dy, activation: str = "none"):
+    """The gradients ``(dx (E, C, D), dw (E, D, F))`` of
+    :func:`expert_matmul` at ``(x, w)`` for the cotangent ``dy`` (E, C, F)
+    of its output, in x's and w's types.
+
+    CPU tensors take :func:`reference_expert_matmul_bwd`.  CUDA tensors
+    launch the backward kernels on the current stream (bf16, contiguous;
+    a ragged D or F padded with zeros, in dy's columns too, and the
+    gradients sliced back; dy cast to bf16); anything they do not take
+    raises."""
+    global bwd_launch_count
+    _check_call(x, w, activation, "expert_matmul_bwd")
+    E, C, D = x.shape
+    Fo = w.shape[2]
+    if dy.shape != (E, C, Fo):
+        raise ValueError(f"dy {(E, C, Fo)} expected, got {tuple(dy.shape)}")
+    if x.device.type == "cpu":
+        return reference_expert_matmul_bwd(x, w, dy, activation)
+    dy = dy.to(torch.bfloat16).contiguous()
+    _check_launch((x, w, dy), "backward")
+    if E * C * Fo == 0:
+        return torch.zeros_like(x), torch.zeros_like(w)
+    xp, wp = pad_operands(x, w)
+    Dp, Fp = xp.shape[2], wp.shape[2]
+    if Fp != Fo:
+        dy = F.pad(dy, (0, Fp - Fo))
+    dz = (torch.empty_like(dy) if activation != "none" else None)
+    dx = torch.empty_like(xp)
+    dw = torch.empty_like(wp)
+    _aligned([t for t in (xp, wp, dy, dz, dx, dw) if t is not None],
+             "backward")
+    fn = BWD_LIBRARY.entry("expert_matmul_bwd_bf16")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(xp.data_ptr(), wp.data_ptr(), dy.data_ptr(),
+                 dz.data_ptr() if dz is not None else None, dx.data_ptr(),
+                 dw.data_ptr(), E, C, Dp, Fp, ACTIVATIONS[activation],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"expert matmul backward kernel launch failed: "
+                           f"CUDA error {err}")
+    bwd_launch_count += 1
+    if (Dp, Fp) != (D, Fo):
+        dx, dw = dx[..., :D].contiguous(), dw[:, :D, :Fo].contiguous()
+    return dx, dw
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """The forward kernel, and the backward kernel for both operands."""
+
+    @staticmethod
+    def forward(ctx, x, w, activation):
+        ctx.save_for_backward(x, w)
+        ctx.activation = activation
+        return _launch_forward(x, w, activation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, dw = expert_matmul_bwd(*ctx.saved_tensors, dy,
+                                   activation=ctx.activation)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
+
+
+def expert_matmul(x, w, activation: str = "none"):
+    """``act(x[e] @ w[e])`` for every expert e: (E, C, F) in x's type.
+
+    CPU tensors take :func:`reference_expert_matmul`.  CUDA tensors must be
+    contiguous bf16 on one device, 16-byte aligned where D and F are
+    multiples of TMA_ELEMS (else :func:`pad_operands` copies them); they
+    launch the kernel on the current stream, and anything the kernel does
+    not take raises.  Where grad mode is on and an operand requires grad,
+    the result carries the backward kernel.
+    """
+    _check_call(x, w, activation, "expert_matmul")
+    if x.device.type == "cpu":
+        return reference_expert_matmul(x, w, activation=activation)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ExpertMatmul.apply(x, w, activation)
+    return _launch_forward(x, w, activation)

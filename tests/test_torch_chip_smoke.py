@@ -368,12 +368,19 @@ def test_serve_path_rejects_a_wrong_decode(fault, cpu_launches,
 
 # ------------------------------------------------------------- path 4 ---
 # reduced traffic: B 2 x S 32 (two SSD chunks of 16), four steps; the
-# card-vs-CPU gradient check at S 16; the models deepened to four pattern
-# groups, so that the TR plan has stages to chain
-TRAIN_REHEARSAL = {
-    "qwen2-1.5b": cs.TrainTraffic(2, 32, 4, cs.TRAIN["qwen2-1.5b"].kernels),
-    "mamba2-370m": cs.TrainTraffic(2, 32, 4,
-                                   cs.TRAIN["mamba2-370m"].kernels),
+# card-vs-CPU gradient check at S 16; the models at four layers (four
+# pattern groups, so that the TR plan has stages to chain), recurrentgemma
+# at six (two repetitions of rglru, rglru, local_attn), as the card runs it
+TRAIN_REHEARSAL = {name: cs.TrainTraffic(2, 32, 4, cs.TRAIN[name].kernels)
+                   for name in cs.TRAIN}
+REHEARSAL_LAYERS = {"qwen2-1.5b": 4, "mamba2-370m": 4,
+                    "qwen3-moe-30b-a3b": 4, "recurrentgemma-9b": 6}
+# (forward, backward) launches of a train step (remat on), each kernel
+TRAIN_STEP_LAUNCHES = {
+    "qwen2-1.5b": {"flash_attention": (8, 4)},
+    "mamba2-370m": {"ssd": (8, 4)},
+    "qwen3-moe-30b-a3b": {"flash_attention": (8, 4), "moe_gmm": (24, 12)},
+    "recurrentgemma-9b": {"flash_attention": (4, 2), "rglru": (8, 4)},
 }
 
 
@@ -398,15 +405,43 @@ class _PlainWithBackward(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
+def route_backward(monkeypatch, gmm_bwd, rglru_bwd):
+    """The model's expert matmul and RG-LRU scan (``layers.expert_matmul``,
+    ``layers.rglru_scan``, as they stand) with their backward taken through
+    ``gmm_bwd(x, w, dy, activation=...)`` and ``rglru_bwd(a, h, g)``
+    (``_PlainWithBackward``), as the card's autograd Functions take
+    theirs."""
+    gmm_site, rglru_site = ML.expert_matmul, ML.rglru_scan
+
+    def gmm(x, w, activation="none"):
+        return _PlainWithBackward.apply(
+            gmm_site, lambda saved, cot, kw: gmm_bwd(*saved[:2], cot[0],
+                                                     **kw),
+            {"activation": activation}, x, w)
+
+    def scan(a, b):
+        return _PlainWithBackward.apply(
+            rglru_site, lambda saved, cot, kw: rglru_bwd(saved[0], saved[2],
+                                                         cot[0]), {}, a, b)
+
+    monkeypatch.setattr(ML, "expert_matmul", gmm)
+    monkeypatch.setattr(ML, "rglru_scan", scan)
+
+
 @pytest.fixture
 def cpu_backward(cpu_launches, monkeypatch):
-    """cpu_launches, with flash attention's and SSD's backward taken
-    through their backward wrappers (``_PlainWithBackward``)."""
+    """cpu_launches, with the backward of flash attention, SSD, the expert
+    matmul and the RG-LRU scan taken through their backward wrappers
+    (``_PlainWithBackward``)."""
     fa = cpu_launches["flash_attention"]
     ssd = cpu_launches["ssd"]
     from repro_torch.kernels import ops
 
     flash_site, ssd_site = ML.flash_attention, ops.ssd_intra_chunk
+    gmm, rglru = cpu_launches["moe_gmm"], cpu_launches["rglru"]
+    route_backward(monkeypatch,
+                   lambda *a, **kw: gmm.expert_matmul_bwd(*a, **kw),
+                   lambda *a: rglru.rglru_scan_bwd(*a))
 
     def flash_bwd(saved, cot, kw):
         q, k, v, _ = saved
@@ -434,21 +469,31 @@ def cpu_backward(cpu_launches, monkeypatch):
 def test_train_path_rehearsed_on_the_cpu(name, cpu_backward, capsys):
     """run_train_path at reduced size in bf16, the plain versions standing
     in for the kernels: the round trip's and the train steps' gates pass,
-    with one forward and one backward call a layer in the round trip and
-    two forward calls (rematerialised) and one backward a layer in each
-    step, counted and recorded."""
-    cfg = ARCHS[name].reduced(n_layers=4)
+    with one forward and one backward call a layer of each kernel's kinds
+    (three of the expert matmul's) in the round trip and twice the forward
+    calls (rematerialised) and one backward in each step, counted and
+    recorded, and the loss falling.  For MoE the gradient gate replays the
+    card's expert picks on the CPU and prints every leaf by name."""
+    cfg = ARCHS[name].reduced(n_layers=REHEARSAL_LAYERS[name])
     traffic = TRAIN_REHEARSAL[name]
     params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     run = cs.run_train_path(name, cfg, params, traffic, cpu_backward, "cpu")
-    fwd, bwd = traffic.kernels
-    assert cs._train_launches(cfg, fwd) == (8, 4)
     rt, tr = run["round trip"], run["train"]
-    assert (rt["launches"][fwd], rt["launches"][bwd]) == (4, 4)
-    assert (tr["launches"][fwd], tr["launches"][bwd]) == (32, 16)
+    assert [fwd for fwd, _ in traffic.pairs()] == list(
+        TRAIN_STEP_LAUNCHES[name])
+    for fwd, bwd in traffic.pairs():
+        per_step = TRAIN_STEP_LAUNCHES[name][fwd]
+        assert cs._train_launches(cfg, fwd) == per_step
+        assert (rt["launches"][fwd], rt["launches"][bwd]) == (per_step[1],
+                                                             per_step[1])
+        assert (tr["launches"][fwd], tr["launches"][bwd]) == tuple(
+            4 * n for n in per_step)
     for part in (rt, tr):
         for k in cs.KERNELS:
             assert sum(part["recorded"][k][0].values()) == part["launches"][k]
+            for calls in part["recorded"][k][1].values():
+                assert all(a.device.type == "cpu" for args, _ in calls
+                           for a in args if torch.is_tensor(a))
     assert run["losses"][2] < run["losses"][0]
     out = capsys.readouterr().out
     assert "charges == segment_comp_dir_s" in out and "tokens/s" in out
@@ -456,6 +501,104 @@ def test_train_path_rehearsed_on_the_cpu(name, cpu_backward, capsys):
     # the card-vs-CPU check reads the weights the round trip ran on, before
     # the steps move them
     assert out.index("parameter gradients") < out.index("train steps (")
+    if cfg.n_experts:
+        assert "the CPU replayed the card's picks" in out
+        assert "router" in out and "w_down" in out
+
+
+@pytest.mark.parametrize("name,kernel,fault", [
+    ("qwen3-moe-30b-a3b", "moe_gmm", "dW without act'"),
+    ("recurrentgemma-9b", "rglru", "lambda without a's shift")])
+def test_train_gate_rejects_a_wrong_backward_on_the_card(
+        name, kernel, fault, cpu_backward, monkeypatch):
+    """_train_check_on_cpu fails when the card's backward kernel gives one
+    of its check's wrong gradients: the calls of the gate's card runs (its
+    first grad_in and parameter-gradient runs) take the wrong gradient,
+    the CPU's and the floor's the plain version, so the floor is 0 and
+    CHECK_TOL binds."""
+    cfg = ARCHS[name].reduced(n_layers=REHEARSAL_LAYERS[name])
+    n = cs.TRAIN_CHECK_DEPTH * len(cfg.pattern)
+    sub_cfg = dataclasses.replace(cfg, n_layers=n)
+    card_calls = 2 * cs._train_launches(sub_cfg, kernel)[1]
+    mod = cpu_backward[kernel]
+    name_bwd = cs.KERNELS[f"{kernel}_bwd"].site[1]
+    right = getattr(mod, name_bwd)
+    calls = []
+
+    def wrong(*args, **kw):
+        calls.append(1)
+        if len(calls) > card_calls or kw.get("activation") == "none":
+            return right(*args, **kw)  # (without act', dW is right there)
+        if kernel == "moe_gmm":
+            return cs._gmm_bwd_wrong_outputs(mod, args, kw)[fault]
+        return cs._rglru_bwd_wrong_outputs(mod, args)[fault]
+
+    monkeypatch.setattr(mod, name_bwd, wrong)
+    params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(4))
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+
+    def stage(stack, h):
+        pos = torch.arange(h.shape[1]).expand(h.shape[0], h.shape[1])
+        for i in range(n):
+            h, _, _ = MT.apply_block(stack["layers"][i], cfg, kinds[i], h,
+                                     ML.Ctx(mode="prefill", positions=pos),
+                                     None)
+        return h
+
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._train_check_on_cpu(name, cfg, params, tokens, stage)
+    assert len(calls) == 2 * card_calls
+
+
+@pytest.mark.parametrize("floor", [0.0, 0.0148, 0.0199, 0.02, 0.0207])
+def test_train_gate_limit_leaves_check_tol_below_it(floor):
+    """Path 4's gradient limit is CHECK_TOL wherever the plain versions on
+    the card lie within CHECK_TOL of the CPU, and GRAD_FLOOR_FACTOR times
+    that floor only where the floor itself passes CHECK_TOL."""
+    want = (cs.CHECK_TOL if floor < cs.CHECK_TOL
+            else cs.GRAD_FLOOR_FACTOR * floor)
+    assert cs._grad_limit(floor) == want
+    assert cs._grad_limit(floor) >= max(cs.CHECK_TOL, floor)
+    assert 1.0 < cs.GRAD_FLOOR_FACTOR < cs.FLOOR_FACTOR
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("free", [2 ** 40, 2 ** 20])
+def test_fresh_train_path_counts_the_state_first(name, free, cpu_backward,
+                                                 monkeypatch, capsys):
+    """run_fresh_train_path on the reduced config (the CPU standing in for
+    the card): the weights counted before they are allocated, four times
+    that held to the card's free memory, then fresh float32 weights at
+    TRAIN's depth and path 4 on them; a card without room for the state
+    raises before any weight is drawn."""
+    from repro_torch import configs
+
+    reduced = ARCHS[name].reduced()
+    monkeypatch.setitem(configs.ARCHS, name, reduced)
+    layers = cs.TRAIN[name].layers
+    monkeypatch.setitem(cs.TRAIN, name, TRAIN_REHEARSAL[name]._replace(
+        layers=layers))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (free, free))
+    drawn = []
+    init = MT.init_params
+    monkeypatch.setattr(MT, "init_params",
+                        lambda *a, **kw: drawn.append(1) or init(*a, **kw))
+    if free < 2 ** 30:
+        with pytest.raises(AssertionError, match="does not fit"):
+            cs.run_fresh_train_path(name, cpu_backward, "cpu")
+        assert not drawn
+        return
+    run = cs.run_fresh_train_path(name, cpu_backward, "cpu")
+    assert drawn == [1] and run["losses"][2] < run["losses"][0]
+    out = capsys.readouterr().out
+    assert f"path 4 at {layers} of {reduced.n_layers} layers" in out
+    cfg = dataclasses.replace(reduced, n_layers=layers)
+    weights = cs._planned_bytes(cfg, "cpu")
+    assert f"{4 * weights} B with their gradients" in out
+    assert weights == sum(t.numel() * 4 for t in MT.tree_leaves(
+        MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")))
 
 
 def _flash_bwd_case():
@@ -533,6 +676,67 @@ def test_ssd_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
     monkeypatch.setattr(ssd, "ssd_intra_chunk_bwd", lambda *a: wrong)
     with pytest.raises(AssertionError, match="past a limit"):
         cs._ssd_bwd_check(ssd, [args], "wrong", witness=True)
+
+
+@pytest.mark.parametrize("fault", [None, "dW without act'",
+                                   "dX through W un-transposed"])
+def test_gmm_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
+    """The expert matmul's backward check (with its float64 witness)
+    passes the plain version and fails each wrong gradient of
+    ``_gmm_bwd_wrong_outputs`` standing in for the kernel, at a ragged D
+    and F with silu."""
+    from repro_torch.kernels import moe_gmm
+
+    args, kw = cs._gmm_bwd_operands(torch.Generator().manual_seed(10),
+                                    (3, 70, 50, 33, "silu"), "cpu")
+    cs._gmm_bwd_rejects_wrong_outputs(moe_gmm, args, kw)
+    if fault is None:
+        assert cs._gmm_bwd_check(moe_gmm, [(args, kw)], "plain",
+                                 witness=True) >= 0.0
+        return
+    wrong = cs._gmm_bwd_wrong_outputs(moe_gmm, args, kw)[fault]
+    monkeypatch.setattr(moe_gmm, "expert_matmul_bwd", lambda *a, **k: wrong)
+    with pytest.raises(AssertionError, match="past a limit"):
+        cs._gmm_bwd_check(moe_gmm, [(args, kw)], "wrong", witness=True)
+
+
+@pytest.mark.parametrize("fault", [None, "da_t = lambda_t h_t (the shift "
+                                   "dropped)", "lambda without a's shift"])
+def test_rglru_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
+    """The RG-LRU backward check (with its float64 witness) passes the
+    plain version and fails each wrong gradient of
+    ``_rglru_bwd_wrong_outputs`` standing in for the kernel, over a chunk
+    and a half."""
+    from repro_torch.kernels import rglru
+
+    args = cs._rglru_bwd_operands(torch.Generator().manual_seed(11),
+                                  (2, 192, 40), "cpu")
+    cs._rglru_bwd_rejects_wrong_outputs(rglru, args)
+    if fault is None:
+        assert cs._rglru_bwd_check(rglru, [args], "plain",
+                                   witness=True) >= 0.0
+        return
+    wrong = cs._rglru_bwd_wrong_outputs(rglru, args)[fault]
+    monkeypatch.setattr(rglru, "rglru_scan_bwd", lambda *a: wrong)
+    with pytest.raises(AssertionError, match="past a limit"):
+        cs._rglru_bwd_check(rglru, [args], "wrong", witness=True)
+
+
+def test_new_backward_bounds_at_the_path_shapes():
+    """The expert matmul's backward at qwen3-moe-30b-a3b's gate product:
+    three products with silu (Z recomputed), 386.5 GFLOP, bound by
+    operations at 0.391 ms; two without, bound by the 1.20 GB of x, w, dY,
+    dX and dW at 0.359 ms.  The RG-LRU backward at recurrentgemma-9b's
+    shape: a, h, g read and da, db written, 335.5 MB, 0.100 ms."""
+    ms, by, n_ops, n_bytes = cs._gmm_bwd_bound((128, 320, 2048, 768, "silu"))
+    assert n_ops == 3 * 2 * 128 * 320 * 2048 * 768 == 386_547_056_640
+    assert by == "operations" and ms == pytest.approx(0.3909, rel=1e-3)
+    ms, by, n_ops, n_bytes = cs._gmm_bwd_bound((128, 320, 2048, 768, "none"))
+    assert n_bytes == 1_203_765_248 and by == "bytes"
+    assert ms == pytest.approx(0.3593, rel=1e-3)
+    ms, by, _, n_bytes = cs._rglru_bwd_bound((1, 4096, 4096))
+    assert n_bytes == 20 * 4096 * 4096 and by == "bytes"
+    assert ms == pytest.approx(0.1002, rel=1e-3)
 
 
 def test_backward_bounds_at_the_path_shapes():

@@ -840,21 +840,118 @@ def test_ssd_autograd_reaches_the_backward_kernel(cuda):
         assert _within(g.cpu(), w, SSD_BWD_TOL)
 
 
-def test_expert_matmul_and_rglru_raise_under_grad(cuda):
-    """The two kernels without a backward raise on the card when an operand
-    requires grad in grad mode (naming ROADMAP A4b), and launch as before
-    under ``no_grad``."""
-    x = torch.randn((2, 64, 32), device=cuda).to(torch.bfloat16)
-    w = torch.randn((2, 32, 16), device=cuda).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        moe_gmm.expert_matmul(x, w.requires_grad_())
-    a = torch.rand((1, 16, 8), device=cuda)
-    b = torch.randn((1, 16, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        rglru.rglru_scan(a, b)
-    with torch.no_grad():
-        assert moe_gmm.expert_matmul(x, w).shape == (2, 64, 16)
-        assert rglru.rglru_scan(a, b).shape == (1, 16, 8)
+# The expert matmul's backward in bf16: the kernel rounds dZ = dY act'(Z)
+# to bf16 as the operand of its two products, where the plain version keeps
+# it fp32, and rounds each gradient once to bf16: each of dX and dW within
+# 2**-6 of its largest magnitude (chip_smoke.py's GMM_BWD_TOL).  The RG-LRU
+# backward in float32: the kernel's sequential reverse chunks and the plain
+# version's doubling scan round the same recurrence in other orders, 1e-5 of
+# each gradient's largest magnitude (chip_smoke.py's RGLRU_BWD_TOL).  The
+# shapes: GMM_CASES's ragged, C 1 and off-tile ones, a D and F past one
+# 256-column tile with C off both 128-row tiles, and the MoE path's widths
+# at 8 experts; RG-LRU_CASES with one step and a chunk and a half.
+GMM_BWD_TOL = 2.0 ** -6
+RGLRU_BWD_TOL = 1e-5
+GMM_BWD_CASES = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
+                 (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
+                 (3, 1, 40, 24, "gelu"), (1, 200, 136, 100, "silu"),
+                 (2, 130, 264, 520, "gelu"), (8, 320, 2048, 768, "silu"),
+                 (8, 320, 768, 2048, "none")]
+RGLRU_BWD_CASES = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
+                   (1, 192, 1000), (1, 4096, 4096)]
+
+
+def _gmm_bwd_operands(cuda, E, C, D, F, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((E, C, D), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda)
+         * D ** -0.5).to(torch.bfloat16)
+    dy = torch.randn((E, C, F), generator=gen, device=cuda).to(torch.bfloat16)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("E,C,D,F,act", GMM_BWD_CASES)
+def test_expert_matmul_bwd_matches_plain_autograd(cuda, E, C, D, F, act):
+    """dX and dW of the backward kernel within GMM_BWD_TOL of autograd
+    through the plain version, in bf16 and of the operands' shapes; two
+    launches give the same bits."""
+    x, w, dy = _gmm_bwd_operands(cuda, E, C, D, F, C + D + F)
+    before = moe_gmm.bwd_launch_count
+    got = moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    again = moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    torch.cuda.synchronize()
+    assert moe_gmm.bwd_launch_count == before + 2
+    want = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act)
+    for g, a, wn, t in zip(got, again, want, (x, w)):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all() and torch.equal(g, a)
+        assert _within(g, wn, GMM_BWD_TOL)
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_BWD_CASES)
+def test_rglru_bwd_matches_plain(cuda, B, S, W):
+    """da and db of the backward kernel within RGLRU_BWD_TOL of the plain
+    version, from the forward kernel's h; two launches give the same
+    bits."""
+    gen = torch.Generator(device=cuda).manual_seed(S + W)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.299 + 0.7
+    b = torch.randn((B, S, W), generator=gen, device=cuda) * 0.1
+    g = torch.randn((B, S, W), generator=gen, device=cuda)
+    h = rglru.rglru_scan(a, b)
+    before = rglru.bwd_launch_count
+    got = rglru.rglru_scan_bwd(a, h, g)
+    again = rglru.rglru_scan_bwd(a, h, g)
+    torch.cuda.synchronize()
+    assert rglru.bwd_launch_count == before + 2
+    want = rglru.reference_rglru_scan_bwd(a, h, g)
+    for gr, ag, wn in zip(got, again, want):
+        assert gr.shape == a.shape and torch.isfinite(gr).all()
+        assert torch.equal(gr, ag) and _within(gr, wn, RGLRU_BWD_TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "none"])
+def test_expert_matmul_autograd_reaches_the_backward_kernel(cuda, act):
+    """``expert_matmul`` on bf16 operands that require grad, a ragged D and
+    F: one forward and one backward launch, and the operands' gradients
+    within GMM_BWD_TOL of autograd through the plain version on the CPU."""
+    x, w, dy = _gmm_bwd_operands(cuda, 3, 70, 50, 33, 5)
+
+    def grads(device):
+        leaves = [t.to(device).clone().requires_grad_() for t in (x, w)]
+        moe_gmm.expert_matmul(*leaves, act).backward(dy.to(device))
+        return [leaf.grad for leaf in leaves]
+
+    fwd, bwd = moe_gmm.launch_count, moe_gmm.bwd_launch_count
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert (moe_gmm.launch_count, moe_gmm.bwd_launch_count) == (fwd + 1,
+                                                                bwd + 1)
+    for g, want in zip(got, grads("cpu")):
+        assert g.dtype == torch.bfloat16 and _within(g.cpu(), want,
+                                                     GMM_BWD_TOL)
+
+
+def test_rglru_autograd_reaches_the_backward_kernel(cuda):
+    """``rglru_scan`` on operands that require grad: one forward and one
+    backward launch, and the gradients within RGLRU_BWD_TOL of autograd
+    through the plain version on the CPU."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.rand((2, 300, 64), generator=gen, device=cuda) * 0.299 + 0.7
+    b = torch.randn((2, 300, 64), generator=gen, device=cuda) * 0.1
+    g = torch.randn((2, 300, 64), generator=gen, device=cuda)
+
+    def grads(device):
+        leaves = [t.to(device).clone().requires_grad_() for t in (a, b)]
+        rglru.rglru_scan(*leaves).backward(g.to(device))
+        return [leaf.grad for leaf in leaves]
+
+    fwd, bwd = rglru.launch_count, rglru.bwd_launch_count
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert (rglru.launch_count, rglru.bwd_launch_count) == (fwd + 1,
+                                                            bwd + 1)
+    for gr, want in zip(got, grads("cpu")):
+        assert _within(gr.cpu(), want, RGLRU_BWD_TOL)
 
 
 @pytest.mark.parametrize("arch,kernel,head_dim", [
@@ -909,6 +1006,94 @@ def test_round_trip_and_train_step_on_cuda(cuda, arch, kernel, head_dim):
             torch.cuda.synchronize()
             assert (kernel.launch_count, kernel.bwd_launch_count) == (
                 before[0] + 8, before[1] + 4)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(
+            metrics[1][key])
+
+
+@pytest.mark.parametrize("arch,n_layers", [("qwen3-moe-30b-a3b", 4),
+                                          ("recurrentgemma-9b", 6)])
+def test_moe_and_rglru_round_trip_and_train_step_on_cuda(cuda, arch,
+                                                         n_layers,
+                                                         monkeypatch):
+    """Reduced qwen3-moe-30b-a3b (four MoE layers) and recurrentgemma-9b
+    (two repetitions of rglru, rglru, local_attn) on the card: one
+    ``ChainSimulator.round_trip`` over a TR plan (each layer of a kernel's
+    kinds one forward and one backward call of it, three of the expert
+    matmul's) and one train step (the forwards twice under remat), through
+    the forward and backward kernels of flash attention and of the expert
+    matmul or the RG-LRU scan, against the same on the CPU (plain versions)
+    in bf16: the hidden state, ``grad_in``, the loss and the global gradient
+    norm within SERVE_TOL.  The CPU replays the card's expert picks, call
+    for call (``routing_of_picks``; the buffer drops ``==`` the card's), so
+    that a near tie routed otherwise cannot move the comparison."""
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg = ARCHS[arch].reduced(n_layers=n_layers)
+    B, S = 2, 64
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S)))
+    pp = plan_pipeline(cfg, seq_len=S, microbatch=B, mode="TR",
+                       device="cpu")
+    card, replayed = [], [0]
+    route = ML.moe_route
+
+    def record_or_replay(router, cfg_, toks):
+        r = route(router, cfg_, toks)
+        if toks.device.type == "cuda":
+            card.append(r)
+            return r
+        c = card[replayed[0]]
+        replayed[0] += 1
+        picked = ML.routing_of_picks(r.logits, r.probs, c.idx.cpu(),
+                                     r.capacity)
+        assert torch.equal(picked.keep, c.keep.cpu())
+        return picked
+
+    monkeypatch.setattr(ML, "moe_route", record_or_replay)
+    mods = CHAIN_KERNELS[arch]
+    per_layer = [_launches_per_layer(cfg, m) for m in mods]
+
+    def counts():
+        return [(m.launch_count, m.bwd_launch_count) for m in mods]
+
+    def round_trip(p, device):
+        sim = ChainSimulator(cfg, p, pp.problem.net, pp.problem.profile,
+                             pp.problem.request)
+        return sim.round_trip(pp.plan, tokens.to(device))
+
+    before = counts()
+    got = round_trip(params, cuda)
+    torch.cuda.synchronize()
+    assert counts() == [(f + n, b + n) for (f, b), n in zip(before,
+                                                            per_layer)]
+    want = round_trip(cpu_params, "cpu")
+    assert replayed[0] == len(card)
+    for g, w in ((got.hidden, want.hidden), (got.grad_in, want.grad_in)):
+        assert torch.isfinite(g).all()
+        assert _within(g.cpu(), w, SERVE_TOL)
+
+    card.clear()
+    replayed[0] = 0
+    stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size), seed=0)
+    metrics = []
+    for p, device in ((params, cuda), (cpu_params, "cpu")):
+        opt = make_optimizer(cfg.optimizer, lr=3e-4, warmup=1, total=50)
+        step = make_train_step(cfg, opt)
+        before = counts()
+        _, _, m = step(p, opt.init(p, cfg),
+                       shard_batch(stream.batch_at(0), device))
+        if device == "cpu":
+            assert counts() == before and replayed[0] == len(card)
+        else:
+            torch.cuda.synchronize()
+            assert counts() == [(f + 2 * n, b + n) for (f, b), n in zip(
+                before, per_layer)]
         metrics.append({k: float(v) for k, v in m.items()})
     for key in ("loss", "grad_norm"):
         assert abs(metrics[0][key] - metrics[1][key]) <= SERVE_TOL * abs(

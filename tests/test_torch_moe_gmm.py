@@ -17,6 +17,17 @@ in float32 compute and to 2e-2 in bf16 (the one-block bound of
 cases stress the dispatch: 2 x MOE_GROUP tokens, so that the groups fold
 into the kernel's buffer axis, and capacity factor 0.5, so that slots are
 dropped.
+
+The backward's plain version ``reference_expert_matmul_bwd`` (autograd
+through the plain forward) is held against ``jax.vjp`` of the JAX oracle
+for each activation, a ragged D and F and C = 1: within 1e-5 of each
+gradient's largest magnitude in float32, and in bf16 (both packages sum in
+fp32 in other orders and round once to bf16) within one bf16 ulp of the
+largest, 2**-7 of it.  The autograd Function ``_ExpertMatmul``, which CUDA
+operands take under grad, is run on the CPU with its forward launch
+standing in by the plain version: its backward goes through
+``expert_matmul_bwd`` (here the plain version) and gives autograd's
+gradients through the plain forward.
 """
 from __future__ import annotations
 
@@ -217,3 +228,96 @@ def test_routing_agreement_counts_flips_and_near_ties():
     far_ref[2, 3] = -10.0
     ra = L.routing_agreement([far, far], [want, (far_ref, *want[1:])])
     assert ra.worst_gap == pytest.approx(0.995 / 3.0)
+
+
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+BWD_SHAPES = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
+              (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
+              (3, 1, 40, 24, "gelu"), (2, 9, 13, 8, "none")]
+
+
+def _within(got, want, tol):
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol * max(np.abs(want).max(), 1e-30), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,act", BWD_SHAPES)
+def test_expert_matmul_bwd_matches_jax_vjp(E, C, D, F, act, dtype,
+                                          monkeypatch):
+    """reference_expert_matmul_bwd against jax.vjp of the JAX oracle;
+    expert_matmul_bwd on CPU tensors is that plain version, with no
+    launch counted."""
+    (jx, jw), (x, w) = _operands(E + C + D + F, E, C, D, F, dtype)
+    jdt, tdt = DTYPES[dtype]
+    g = np.random.default_rng(E * C).standard_normal((E, C, F))
+    jg = jnp.asarray(g, jdt)
+    dy = torch.from_numpy(np.array(jg, np.float32)).to(tdt)
+    _, vjp = jax.vjp(lambda a, b: ref.reference_expert_matmul(
+        a, b, activation=act), jx, jw)
+    want = vjp(jg)
+    plain = _spy(monkeypatch, moe_gmm, "reference_expert_matmul_bwd")
+    before = moe_gmm.bwd_launch_count
+    got = moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    assert moe_gmm.bwd_launch_count == before
+    assert len(plain) == 1 and got is plain[0]
+    for gr, wn, t in zip(got, want, (x, w)):
+        assert gr.dtype == t.dtype and gr.shape == t.shape
+        _within(gr, wn, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+def test_expert_matmul_bwd_float64_is_the_exact_witness(act):
+    """dtype=float64 gives float64 gradients that the float32 plain
+    version approaches to 1e-6 of their largest magnitude."""
+    _, (x, w) = _operands(3, 2, 20, 24, 16, "float32")
+    dy = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 20, 16)).astype(np.float32))
+    exact = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act,
+                                                dtype=torch.float64)
+    f32 = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act)
+    for e, g in zip(exact, f32):
+        assert e.dtype == torch.float64 and g.dtype == torch.float32
+        assert float((g.double() - e).abs().max()) <= 1e-6 * float(
+            e.abs().max())
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+@pytest.mark.parametrize("E,C,D,F", [(3, 70, 50, 33), (2, 16, 64, 24)])
+def test_function_routes_its_backward_through_the_wrapper(E, C, D, F, act,
+                                                         monkeypatch):
+    """_ExpertMatmul with its launch standing in by the plain version: one
+    backward call of expert_matmul_bwd (the plain version on the CPU),
+    and dx and dw within 1e-6 of autograd through the plain forward; an
+    operand that needs no grad gets none."""
+    _, (x, w) = _operands(C + F, E, C, D, F, "float32")
+    dy = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (E, C, F)).astype(np.float32))
+    monkeypatch.setattr(moe_gmm, "_launch_forward", lambda a, b, act_: (
+        moe_gmm.reference_expert_matmul(a, b, activation=act_)))
+    calls = []
+    bwd = moe_gmm.expert_matmul_bwd
+    monkeypatch.setattr(moe_gmm, "expert_matmul_bwd", lambda *a, **kw: (
+        calls.append(kw), bwd(*a, **kw))[1])
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    moe_gmm._ExpertMatmul.apply(*leaves, act).backward(dy)
+    assert calls == [{"activation": act}]
+    ref_leaves = [t.clone().requires_grad_() for t in (x, w)]
+    moe_gmm.reference_expert_matmul(*ref_leaves, activation=act).backward(dy)
+    for a, b in zip(leaves, ref_leaves):
+        assert float((a.grad - b.grad).abs().max()) <= 1e-6 * float(
+            b.grad.abs().max())
+    x_only = x.clone().requires_grad_()
+    moe_gmm._ExpertMatmul.apply(x_only, w, act).backward(dy)
+    assert x_only.grad is not None and w.grad is None
+
+
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
+    x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 3))
+    with pytest.raises(ValueError, match="dy"):
+        moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 4)))
+    with pytest.raises(ValueError, match="activation"):
+        moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 3)), "relu")
+    with pytest.raises(ValueError, match="devices"):
+        moe_gmm.expert_matmul_bwd(x, w.to("meta"), torch.zeros((2, 4, 3)))

@@ -44,11 +44,13 @@ from test_torch_simulator import (
 )
 
 # float32 for one model of each block family (attention, SSD, MoE, and
-# RG-LRU with local attention); bf16, the card's type, for the card's two
-# training configs.  (recurrentgemma-9b's bf16 backward through its 12
+# RG-LRU with local attention); bf16, the card's type, for qwen2-1.5b and
+# mamba2-370m.  (recurrentgemma-9b's bf16 backward through its 12
 # reduced layers lay 7.9e-2 from the JAX package's, past the forward's
 # 5e-2: bf16 rounding amplified by the backward; its float32 round trip
-# agrees to 1e-5, and it is not trained on the card yet, ROADMAP A4b.)
+# agrees to 1e-5.  On the card its bf16 round trip and train step go
+# through the RG-LRU backward kernel and are held to the CPU's plain
+# versions instead: chip_smoke.py's path 4, tests/test_torch_cuda.py.)
 CASES = [(a, "float32") for a in ("qwen2-1.5b", "mamba2-370m",
                                   "qwen3-moe-30b-a3b",
                                   "recurrentgemma-9b")] + [

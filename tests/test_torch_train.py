@@ -71,7 +71,7 @@ def _port_grads(cfg, params, batch):
     return loss.detach(), grads
 
 
-# float32 for every config; bf16 for the card's two training configs
+# float32 for every config; bf16 for qwen2-1.5b and mamba2-370m
 @pytest.mark.parametrize("arch,compute_dtype", [
     (a, "float32") for a in ARCH_NAMES] + [("qwen2-1.5b", "bfloat16"),
                                           ("mamba2-370m", "bfloat16")])
@@ -87,10 +87,21 @@ def test_loss_and_gradients_match_jax(arch, compute_dtype, monkeypatch):
                       L.Ctx(mode="train", positions=pos))
         ra = L.routing_agreement(port, ref)
         assert ra.picks > 0 and ra.flips == 0 and bool(ra.agree.all())
+    _hold_to_jax(jcfg, cfg, jp, tp, batch, compute_dtype)
+
+
+def _jax_loss_and_grads(jcfg, jp, batch):
     (jloss, _), jgrads = jax.jit(
         jax.value_and_grad(jsteps.loss_fn, has_aux=True),
         static_argnums=1)(jp, jcfg, {k: jnp.asarray(v)
                                       for k, v in batch.items()})
+    return jloss, jgrads
+
+
+def _hold_to_jax(jcfg, cfg, jp, tp, batch, compute_dtype):
+    """The port's loss, every gradient leaf and the global gradient norm
+    against the JAX package's, at TOL and LEAF_TOL."""
+    jloss, jgrads = _jax_loss_and_grads(jcfg, jp, batch)
     loss, grads = _port_grads(cfg, tp, batch)
     assert abs(float(loss) - float(jloss)) <= TOL[compute_dtype] * abs(
         float(jloss))
@@ -107,6 +118,45 @@ def test_loss_and_gradients_match_jax(arch, compute_dtype, monkeypatch):
     _, norm = optim.clip_by_global_norm(list(grads), 1.0)
     assert float(norm) == pytest.approx(float(jnorm),
                                         rel=TOL[compute_dtype])
+    return jloss, jnorm
+
+
+@pytest.mark.parametrize("arch,kernel", [("qwen3-moe-30b-a3b", "moe_gmm"),
+                                         ("recurrentgemma-9b", "rglru")])
+def test_train_step_through_the_backward_wrappers_matches_jax(
+        arch, kernel, monkeypatch):
+    """The MoE and RG-LRU families with the expert matmul's and the RG-LRU
+    scan's backward taken through their backward wrappers
+    (``expert_matmul_bwd``, ``rglru_scan_bwd``: the plain versions on the
+    CPU), as the card's autograd Functions take theirs (the path-4
+    rehearsal's ``_PlainWithBackward``), in float32: the loss and every
+    gradient leaf against the JAX package's at 1e-5 / 1e-4, one backward
+    wrapper call a layer call of the kernel (chip_smoke's
+    ``_train_launches``); then one ``make_train_step`` so routed, its loss
+    and gradient norm those of the JAX package."""
+    import chip_smoke as cs
+    from test_torch_chip_smoke import route_backward
+
+    from repro_torch.kernels import moe_gmm, rglru
+
+    jcfg, cfg, jp, tp, batch = _setup(arch, "float32")
+    calls = []
+
+    def counted(fn):
+        return lambda *a, **kw: (calls.append(1), fn(*a, **kw))[1]
+
+    route_backward(monkeypatch, counted(moe_gmm.expert_matmul_bwd),
+                   counted(rglru.rglru_scan_bwd))
+    jloss, jnorm = _hold_to_jax(jcfg, cfg, jp, tp, batch, "float32")
+    per_step = cs._train_launches(cfg, kernel)[1]
+    assert per_step > 0 and len(calls) == per_step
+    opt = optim.make_optimizer(cfg.optimizer, lr=3e-3, warmup=1, total=50)
+    _, _, m = train.make_train_step(cfg, opt)(tp, opt.init(tp, cfg),
+                                              shard_batch(batch, "cpu"))
+    assert len(calls) == 2 * per_step
+    assert float(m["loss"]) == pytest.approx(float(jloss), rel=TOL["float32"])
+    assert float(m["grad_norm"]) == pytest.approx(float(jnorm),
+                                                  rel=TOL["float32"])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m",
