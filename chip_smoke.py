@@ -227,20 +227,25 @@ Phases, in order; any failure exits non-zero:
    its TF32 tensor-core work; the same work at the fp32 rate is printed
    beside it), and its library
    yardstick (``scaled_dot_product_attention`` for flash attention,
-   ``torch.bmm`` with the activation for the expert matmul; SSD and RG-LRU
-   have no single library call), with the SM clock, its maximum and the
-   temperature sampled before and after the timings; the backward kernels
+   ``torch.bmm`` with the activation for the expert matmul, whose launch
+   as the forward under grad, writing Z beside its output, is timed too;
+   SSD and RG-LRU have no single library call), with the SM clock, its
+   maximum and the temperature sampled before and after the timings; the backward kernels
    likewise at path 4's shapes (recorded operands and random, flash's
    rejecting dK and dV without the sum over the G query heads and a dQ
    that ignores the causal mask, with the kernel's and the fp32 plain
    version's errors against the plain version in float64 printed beside
    its gate on the recorded operands, SSD's held to its float64 witness at
    SSD_BWD_WITNESS and rejecting ddt without its reverse-cumsum term and
-   dA with its sign flipped), the expert matmul's at GMM_BWD_TOL and held
-   to float64 at GMM_BWD_WITNESS (rejecting dW without act' and dX through
-   W un-transposed), the RG-LRU scan's at RGLRU_BWD_TOL and held to float64
-   at RGLRU_BWD_WITNESS (rejecting da_t = lambda_t h_t and lambda without
-   a's shift), flash's yardstick the backward of
+   dA with its sign flipped), the expert matmul's from the forward
+   kernel's Z (that Z first held to the launch without it bit for bit and
+   to the plain version at GMM_TOL) at GMM_BWD_TOL against the plain
+   version and held to float64 at GMM_BWD_WITNESS, both from Z formed from
+   x and w in their own type (rejecting dW without act', dX through W
+   un-transposed, act' of Y instead of Z, and the kernel given Y or the
+   next expert's Z as its Z), the RG-LRU scan's at RGLRU_BWD_TOL and
+   held to float64 at RGLRU_BWD_WITNESS (rejecting da_t = lambda_t h_t
+   and lambda without a's shift), flash's yardstick the backward of
    ``scaled_dot_product_attention``, the expert matmul's two ``torch.bmm``
    (dX and dW from the plain dZ);
 7. each phase's wall, one JSON line of per-kernel numbers, the card line,
@@ -337,17 +342,20 @@ CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 FLASH_BWD_TOL = 2.0 ** -6
 SSD_BWD_TOL = 1e-4
 SSD_BWD_WITNESS = 4.0
-# The expert matmul's backward, bf16: the kernel rounds dZ = dY act'(Z) to
-# bf16 as the operand of its two products, where the plain version keeps it
-# fp32, and both round each gradient once to bf16: each of dX and dW within
-# GMM_BWD_TOL of its largest magnitude.  On the path's recorded operands
-# both are also held to the float64 values: the kernel's largest error at
-# most GMM_BWD_WITNESS times the plain version's own (its bf16 rounding),
-# or BF16_EPS of the largest value where that is larger.  The RG-LRU
-# backward, float32 (the kernel's sequential reverse chunks against the
-# plain version's doubling scan run from the end): da and db within
-# RGLRU_BWD_TOL of their largest magnitude, and on the recorded operands
-# held to float64 at RGLRU_BWD_WITNESS as the forward is.  PERF.md gives
+# The expert matmul's backward, bf16, from the forward kernel's Z in bf16
+# (the plain version forms its own Z from x and w in float32): the kernel
+# rounds dZ = dY act'(Z) to bf16 as the operand of its two products, where
+# the plain version keeps it fp32, and both round each gradient once to
+# bf16: each of dX and dW within GMM_BWD_TOL of its largest magnitude.  On
+# the path's recorded operands both are also held to the float64 values
+# (Z formed in float64): the
+# kernel's largest error at most GMM_BWD_WITNESS times the plain version's
+# own (its bf16 rounding), or BF16_EPS of the largest value where that is
+# larger.  The RG-LRU backward, float32 (the kernel's sequential reverse
+# chunks against the plain version's doubling scan run from the end): da
+# and db within RGLRU_BWD_TOL of their largest magnitude, and on the
+# recorded operands held to float64 at RGLRU_BWD_WITNESS as the forward
+# is.  PERF.md gives
 # the readings on the card these were set from.
 GMM_BWD_TOL = 2.0 ** -6
 GMM_BWD_WITNESS = 4.0
@@ -2201,13 +2209,65 @@ def _ssd_bwd_rejects_wrong_outputs(ssd, args) -> None:
                  SSD_BWD_WITNESS, FP32_EPS)
 
 
+def _gmm_forward_with_z(gmm, x, w, activation):
+    """``(y, z)`` of the expert matmul's forward as ``_ExpertMatmul`` runs
+    it under grad: on the card one launch of the kernel's KEEP_Z variant (z
+    None without an activation), on the CPU the plain version."""
+    if x.is_cuda:
+        return gmm._launch_forward(x, w, activation, keep_z=True)
+    y, z = gmm.reference_expert_matmul(x, w, activation=activation,
+                                       keep_z=True)
+    return y, (z if activation != "none" else None)
+
+
 def _gmm_bwd_operands(gen, shape, device):
     """((x, w, dy), kw) of an expert-matmul backward at ``(E, C, D, F,
-    activation)``: the forward's operands and a random bf16 cotangent."""
+    activation)``: the forward's operands, a random bf16 cotangent and, in
+    kw beside the activation, the forward's pre-activation z as the forward
+    kernel writes it under grad (None without an activation, as
+    ``_ExpertMatmul`` hands it on)."""
+    from repro_torch.kernels import moe_gmm
+
     (x, w), kw = _gmm_operands(gen, shape, device)
     dy = torch.randn((*x.shape[:2], w.shape[2]), generator=gen).to(
         device, torch.bfloat16)
-    return (x, w, dy), kw
+    z = _gmm_forward_with_z(moe_gmm, x, w, kw["activation"])[1]
+    return (x, w, dy), {**kw, "z": z}
+
+
+def _gmm_keep_z_check(gmm, cases) -> float:
+    """The forward's launch that keeps Z, on each activated ``((x, w, dy),
+    kw)``: its output has the bits of the launch without Z, its Z those of
+    the launch without the activation and of kw's z (the Z that the path's
+    or the case's forward wrote), and Z lies within GMM_TOL of the plain
+    version's pre-activation, which must reject the output Y written as Z.
+    Raises on a failure, else returns Z's max_abs_err."""
+    failures, max_err, n = 0, 0.0, 0
+    for (x, w, _), kw in cases:
+        act = kw.get("activation", "none")
+        if act == "none":
+            continue
+        n += 1
+        y, z = _gmm_forward_with_z(gmm, x, w, act)
+        want = gmm.reference_expert_matmul(x, w, activation=act,
+                                           keep_z=True)[1]
+        if _gmm_within(y, want):
+            raise AssertionError(f"GMM_TOL passes Y as Z at "
+                                 f"{tuple(x.shape)}, {act}")
+        failures += not (torch.equal(y, gmm.expert_matmul(x, w, act))
+                         and torch.equal(z, gmm.expert_matmul(x, w))
+                         and torch.equal(z, kw["z"])
+                         and _gmm_within(z, want))
+        max_err = max(max_err, float((z.float() - want.float()).abs().max()))
+    line = (f"moe_gmm keeping Z: {n} activated cases, the output == the "
+            f"launch without Z, Z == the launch without the activation == "
+            f"the case's Z, Z against the plain version max_abs_err "
+            f"{max_err!r} (elementwise limit {GMM_TOL} of |want| + {GMM_TOL} "
+            f"of the largest; Y as Z rejected)")
+    if failures or not n:
+        raise AssertionError(f"{line}: {failures} cases failed")
+    print(line)
+    return max_err
 
 
 GMM_GRADS = ("dX", "dW")
@@ -2286,19 +2346,35 @@ def _bwd_check(what: str, names, run, cases, tol: float, witness: float,
     return max_err
 
 
+def _gmm_plain_z(x, w, activation, dtype):
+    """The pre-activation formed from x and w in ``dtype`` (None without an
+    activation): the Z of the plain version's backward."""
+    if activation == "none":
+        return None
+    return torch.einsum("ecd,edf->ecf", x.to(dtype), w.to(dtype))
+
+
 def _gmm_bwd_run(gmm):
+    """The kernel (dtype None) takes the case's z, the Z that the forward
+    kernel wrote; the plain version in float32 and the float64 witness form
+    Z from x and w in their own type, so that a wrong Z from the forward
+    kernel, and Z's bf16 rounding, count in the kernel's distance from
+    both."""
     def run(case, dtype):
-        args, kw = case
+        (x, w, dy), kw = case
         if dtype is None:
-            return gmm.expert_matmul_bwd(*args, **kw)
-        return gmm.reference_expert_matmul_bwd(*args, **kw, dtype=dtype)
+            return gmm.expert_matmul_bwd(x, w, dy, **kw)
+        act = kw.get("activation", "none")
+        return gmm.reference_expert_matmul_bwd(
+            x, w, dy, act, z=_gmm_plain_z(x, w, act, dtype), dtype=dtype)
     return run
 
 
 def _gmm_bwd_check(gmm, cases, what: str, witness: bool = False,
                    readings: list | None = None) -> float:
-    """The expert matmul's backward kernel against autograd through the
-    plain version on each ``((x, w, dy), kw)``: dX and dW within
+    """The expert matmul's backward kernel against the plain version on
+    each ``((x, w, dy), kw)`` (the kernel given kw's z, the plain version
+    its own): dX and dW within
     GMM_BWD_TOL, and with ``witness`` held to float64 at GMM_BWD_WITNESS."""
     return _bwd_check(f"moe_gmm_bwd {what} (bf16)", GMM_GRADS,
                       _gmm_bwd_run(gmm), cases, GMM_BWD_TOL,
@@ -2319,21 +2395,43 @@ def _gmm_dz(x, w, dy, activation):
 
 
 def _gmm_bwd_wrong_outputs(gmm, args, kw) -> dict:
-    """Two deliberately wrong gradients, from the plain version: dW without
-    act' (X^T dY, the activation's backward left out) and dX through W
-    un-transposed (dZ times w's memory read as (E, F, D), a layout fault).
+    """Three deliberately wrong gradients, from the plain version: dW
+    without act' (X^T dY, the activation's backward left out), dX through W
+    un-transposed (dZ times w's memory read as (E, F, D), a layout fault),
+    and both with act' applied to the forward's output Y instead of its
+    pre-activation Z (the wrong one of the forward's two outputs kept).
     Needs an activation."""
     x, w, dy = args
     act = kw.get("activation", "none")
     if act == "none":
         raise ValueError("operands of an activated product expected")
-    want = gmm.reference_expert_matmul_bwd(x, w, dy, **kw)
+    want = _gmm_bwd_run(gmm)((args, kw), torch.float32)
     E, D, F_ = w.shape
     no_act = gmm.reference_expert_matmul_bwd(x, w, dy, "none")[1]
     flat = torch.einsum("ecf,efd->ecd", _gmm_dz(x, w, dy, act),
                         w.float().reshape(E, F_, D)).to(x.dtype)
+    y = gmm.reference_expert_matmul(x, w, activation=act)
     return {"dW without act'": (want[0], no_act),
-            "dX through W un-transposed": (flat, want[1])}
+            "dX through W un-transposed": (flat, want[1]),
+            "act' of Y instead of Z": gmm.reference_expert_matmul_bwd(
+                x, w, dy, act, z=y)}
+
+
+def _gmm_bwd_wrong_z(gmm, args, kw) -> dict:
+    """The backward kernel's own gradients from two wrong Zs, as a faulty
+    forward would hand them on: the forward's output Y written as Z, and Z
+    of the next expert (a tile stored at the wrong expert).  Needs an
+    activation and E > 1."""
+    x, w, dy = args
+    act = kw.get("activation", "none")
+    if act == "none" or x.shape[0] < 2:
+        raise ValueError("operands of an activated product over two "
+                         "experts at least expected")
+    y = gmm.expert_matmul(x, w, act)
+    return {"the kernel given Y as Z": gmm.expert_matmul_bwd(
+                x, w, dy, act, z=y),
+            "the kernel given the next expert's Z": gmm.expert_matmul_bwd(
+                x, w, dy, act, z=torch.roll(kw["z"], 1, dims=0))}
 
 
 def _bwd_rejects(kernel: str, names, wrong: dict, run, case, tol: float,
@@ -2351,8 +2449,9 @@ def _bwd_rejects(kernel: str, names, wrong: dict, run, case, tol: float,
                 err <= witness * limit for _, err, limit, _ in rows):
             raise AssertionError(f"a {kernel} gate passes a wrong gradient "
                                  f"({what}): {errors}, {rows}")
+        options = {k: v for k, v in case[1].items() if not torch.is_tensor(v)}
         print(f"{kernel} check rejects a wrong output ({what}; "
-              f"{tuple(case[0][0].shape)}, {case[1]}): errors of "
+              f"{tuple(case[0][0].shape)}, {options}): errors of "
               f"{', '.join(names)} {errors!r} of their largest magnitude "
               f"(limit {tol}); against float64 " + ", ".join(
                   f"{name} {err!r} (limit {witness * limit!r})"
@@ -2360,11 +2459,13 @@ def _bwd_rejects(kernel: str, names, wrong: dict, run, case, tol: float,
 
 
 def _gmm_bwd_rejects_wrong_outputs(gmm, args, kw) -> None:
-    """Both gates must reject both wrong gradients of
-    ``_gmm_bwd_wrong_outputs`` on these operands: GMM_BWD_TOL against the
-    plain version, and the float64 witness at GMM_BWD_WITNESS."""
+    """Both gates must reject the three wrong gradients of
+    ``_gmm_bwd_wrong_outputs`` and the kernel's two of ``_gmm_bwd_wrong_z``
+    on these operands: GMM_BWD_TOL against the plain version, and the
+    float64 witness at GMM_BWD_WITNESS."""
     _bwd_rejects("moe_gmm_bwd", GMM_GRADS,
-                 _gmm_bwd_wrong_outputs(gmm, args, kw), _gmm_bwd_run(gmm),
+                 {**_gmm_bwd_wrong_outputs(gmm, args, kw),
+                  **_gmm_bwd_wrong_z(gmm, args, kw)}, _gmm_bwd_run(gmm),
                  (args, kw), GMM_BWD_TOL, GMM_BWD_WITNESS, BF16_EPS)
 
 
@@ -2475,9 +2576,10 @@ def record_calls(module, name: str, key_fn, device=None,
                  keep: int = RECORDED_OPERANDS):
     """Record every call of ``module.<name>`` inside the block: a count per
     ``key_fn(*args, **kw)`` and up to ``keep`` clones of its operands per
-    key, detached from any autograd graph (copied to ``device`` where it
-    is given).  The recorder calls the function it replaced, so the
-    wrappers' launch counts are untouched."""
+    key (tensors among its keyword arguments too), detached from any
+    autograd graph (copied to ``device`` where it is given).  The recorder
+    calls the function it replaced, so the wrappers' launch counts are
+    untouched."""
     shapes: collections.Counter = collections.Counter()
     operands: dict = collections.defaultdict(list)
     wrapped = getattr(module, name)
@@ -2486,9 +2588,11 @@ def record_calls(module, name: str, key_fn, device=None,
         key = key_fn(*args, **kw)
         shapes[key] += 1
         if len(operands[key]) < keep:
-            operands[key].append((tuple(
-                a.detach().to(device or a.device, copy=True)
-                if torch.is_tensor(a) else a for a in args), dict(kw)))
+            def clone(a):
+                return (a.detach().to(device or a.device, copy=True)
+                        if torch.is_tensor(a) else a)
+            operands[key].append((tuple(map(clone, args)),
+                                  {k: clone(v) for k, v in kw.items()}))
         return wrapped(*args, **kw)
 
     setattr(module, name, recorder)
@@ -2533,7 +2637,7 @@ def _rglru_key(a, b):
     return tuple(a.shape)  # (B, S, W)
 
 
-def _gmm_bwd_key(x, w, dy, activation="none"):
+def _gmm_bwd_key(x, w, dy, activation="none", z=None):
     return _gmm_key(x, w, activation)
 
 
@@ -4416,13 +4520,14 @@ def _rglru_bound(key) -> tuple[float, str, int, int]:
 
 
 def _gmm_bwd_bound(key) -> tuple[float, str, int, int]:
-    """The backward's least work from its inputs x, w and dY: dX = dZ W^T
-    and dW = X^T dZ, 2 E C D F operations each, and with an activation Z =
-    X W recomputed for dZ = dY act'(Z) (Z is not an input: the forward
-    keeps none); x, w and dY read and dX and dW written once."""
+    """The backward's least work from its inputs: dX = dZ W^T and dW = X^T
+    dZ, 2 E C D F operations each; x, w, dY and, with an activation, the
+    forward's Z (for dZ = dY act'(Z)) read once, and dX and dW written
+    once."""
     E, C, D, F_, act = key
-    n_ops = (2 if act == "none" else 3) * 2 * E * C * D * F_
-    n_bytes = 2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_)
+    n_ops = 2 * 2 * E * C * D * F_
+    n_bytes = 2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_
+                   + (E * C * F_ if act != "none" else 0))
     op_ms = n_ops / BF16_OPS_PER_S * 1e3
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
@@ -4545,6 +4650,7 @@ def _ssd_bwd_path_check(ssd, recorded, random) -> tuple[float, dict]:
 
 
 def _gmm_bwd_path_check(gmm, recorded, random) -> tuple[float, dict]:
+    _gmm_keep_z_check(gmm, recorded + random)
     readings: list = []
     err = max(_gmm_bwd_check(gmm, recorded, "recorded at path 4's shapes",
                              witness=True, readings=readings),
@@ -4646,6 +4752,9 @@ class Kernel(NamedTuple):
     fp32_bound: Callable = lambda key: None  # noqa: E731
     module: str = ""  # module of repro_torch.kernels, if not the kernel's name
     counter: str = "launch_count"  # the module's count of this kernel
+    # whether the wrapper is also timed with its first operand requiring
+    # grad, as the forward under grad launches the kernel (``grad_ms``)
+    grad_timed: bool = False
 
 
 def _tuple(out) -> tuple:
@@ -4703,7 +4812,7 @@ KERNELS = {
         ("repro_torch.models.layers", "expert_matmul"), _gmm_key,
         "expert_matmul_kernel", "expert_matmul", "reference_expert_matmul",
         lambda gen, s, kw, device: _gmm_operands(gen, s, device),
-        _gmm_path_check, _gmm_bound, _gmm_library),
+        _gmm_path_check, _gmm_bound, _gmm_library, grad_timed=True),
     "rglru": Kernel(
         "src/repro_torch/kernels/csrc/rglru.cu",
         "src/repro/kernels/rglru.py:23",
@@ -4737,7 +4846,7 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
         "src/repro/kernels/moe_gmm.py:22",
         ("repro_torch.kernels.moe_gmm", "expert_matmul_bwd"), _gmm_bwd_key,
-        "gmm_bwd_kernel", "expert_matmul_bwd", "reference_expert_matmul_bwd",
+        "gmm_bwd_", "expert_matmul_bwd", "reference_expert_matmul_bwd",
         lambda gen, s, kw, device: _gmm_bwd_operands(gen, s, device),
         _gmm_bwd_path_check, _gmm_bwd_bound, _gmm_bwd_library,
         module="moe_gmm", counter="bwd_launch_count"),
@@ -4774,6 +4883,18 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                                spec.profiled)
         plain_ms = _kernel_device_ms(lambda: plain(*args, **kw), 20, None)
         held_ms = _held_queue_ms(lambda: wrapper(*args, **kw), 20)
+        grad_ms = None
+        if spec.grad_timed:
+            leaf = args[0].detach().requires_grad_()
+
+            def under_grad():
+                with torch.enable_grad():
+                    return wrapper(leaf, *args[1:], **kw)
+
+            grad_ms = _kernel_device_ms(under_grad, 20, spec.profiled)
+            print(f"{name} {s}: device time per launch as the forward under "
+                  f"grad launches it (the first operand requiring grad) "
+                  f"{grad_ms!r} ms")
         bound, by, n_ops, n_bytes = spec.bound(s)
         library = spec.library(args, kw)
         library_ms = None
@@ -4790,7 +4911,8 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                    "plain_ms": plain_ms, "held_ms": held_ms,
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": library_ms, "ops_per_s": rate,
-                   "bytes_per_s": byte_rate, "bound_share": share}
+                   "bytes_per_s": byte_rate, "bound_share": share,
+                   **({"grad_ms": grad_ms} if grad_ms is not None else {})}
         fp32 = spec.fp32_bound(s)
         if fp32 is not None:
             rows[s].update(fp32_bound_ms=fp32[0], fp32_bound_by=fp32[1],
@@ -4832,9 +4954,14 @@ def _operands_to(recorded, device) -> tuple:
     ``record_calls`` yields them) with their operands moved to ``device``,
     in place; returns the record."""
     _, operands = recorded
+
+    def to(a):
+        return a.to(device) if torch.is_tensor(a) else a
+
     for key, calls in operands.items():
-        operands[key] = [(tuple(a.to(device) if torch.is_tensor(a) else a
-                                for a in args), kw) for args, kw in calls]
+        operands[key] = [(tuple(map(to, args)),
+                          {k: to(v) for k, v in kw.items()})
+                         for args, kw in calls]
     return recorded
 
 
@@ -4975,9 +5102,9 @@ def main() -> int:
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "ops_per_s", "bytes_per_s", "bound_share",
-             "fp32_bound_ms", "fp32_bound_by", "fp32_bound_share", "shape",
-             "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
+             "library_ms", "grad_ms", "ops_per_s", "bytes_per_s",
+             "bound_share", "fp32_bound_ms", "fp32_bound_by",
+             "fp32_bound_share", "shape", "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
              "note", "witness_float64", "shapes"]
     walls["kernel checks and timings"] = time.perf_counter() - t_start - sum(
         walls.values())

@@ -56,6 +56,18 @@
 //     epilogue that carried all three, unrolled over the 128 accumulators,
 //     ran past the instruction cache and cost more than a 12-step tile's
 //     products (PERF.md, section 6).
+//   - Under grad (KEEP_Z, a template argument beside the activation) the
+//     epilogue also writes Z, the bf16 rounding of the fp32 sum before the
+//     activation, to a second (E, C, F) output: the backward
+//     (csrc/moe_gmm_bwd.cu) reads act'(Z) from it instead of recomputing
+//     the product.  Z is staged in the warpgroup's own w tile of one stage
+//     (stage 0 for warpgroup 0, stage 1 for warpgroup 1), once both
+//     warpgroups have passed a named barrier after their last products (the
+//     other warpgroup may still read those w tiles until then), and stored
+//     by four more TMA boxes.  It adds 2 E C F bytes written, 63 MB at the
+//     gate product (0.015-0.019 ms more a launch on an H100, PERF.md,
+//     section 6); the kernel without it is the launch without grad,
+//     unchanged.
 //   - No atomics: two launches on the same operands give the same bits.
 //
 // Tile reckoning at the path's shapes:
@@ -106,6 +118,8 @@ constexpr uint32_t WG_ROWS = 64 * ROW;       // a warpgroup's rows of an x tile
 constexpr size_t SMEM = NS * STAGE + 1024 + 8 * 2 * NS;
 static_assert(NS * ATOM == BN, "the epilogue stages a warpgroup's 64 x BN "
               "output in its x rows of the NS stages, one column block each");
+static_assert(W_BLOCK == WG_ROWS && NS >= 2, "KEEP_Z stages a warpgroup's "
+              "64 x BN Z in the w tile of its own stage");
 
 enum Activation { kNone = 0, kSilu = 1, kGelu = 2 };
 
@@ -250,11 +264,14 @@ __device__ __forceinline__ float activate(float v) {
   }
 }
 
-template <int ACT>
+// KEEP_Z: also store the pre-activation sum in bf16 through z_map (unused
+// otherwise).
+template <int ACT, bool KEEP_Z>
 __global__ void __launch_bounds__(THREADS, 1)
 expert_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
                      const __grid_constant__ CUtensorMap w_map,
-                     const __grid_constant__ CUtensorMap o_map, int C, int D,
+                     const __grid_constant__ CUtensorMap o_map,
+                     const __grid_constant__ CUtensorMap z_map, int C, int D,
                      int F) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -330,27 +347,43 @@ expert_matmul_kernel(const __grid_constant__ CUtensorMap x_map,
       // epilogue: act(acc) in bf16 over this warpgroup's x rows of the NS
       // stages (stage cb holds output columns 64 cb .. 64 cb + 63), then TMA;
       // acc[4j], acc[4j + 1]: row r, columns 8j + 2 (lane % 4) and the next;
-      // acc[4j + 2], acc[4j + 3]: row r + 8
+      // acc[4j + 2], acc[4j + 3]: row r + 8.  With KEEP_Z, acc itself in
+      // bf16 over the w tile of stage wg (column block cb at cb W_BLOCK),
+      // after every active consumer has passed barrier 3: their products,
+      // which read the w tiles, are done by then.
+      if constexpr (KEEP_Z) named_barrier(3, 128 * active);
       const int warp = (tid % 128) / 32;
       const int lane = tid % 32;
       const int r = warp * 16 + lane / 4;  // and r + 8: the same swizzle
       const uint32_t swz = r & 7;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const uint32_t at = xs(j / (ATOM / 8)) + wg * WG_ROWS + r * ROW +
-                            (((j % (ATOM / 8)) ^ swz) << 4) + 4 * (lane % 4);
+        const uint32_t in_block = r * ROW + (((j % (ATOM / 8)) ^ swz) << 4) +
+                                  4 * (lane % 4);
+        const uint32_t at = xs(j / (ATOM / 8)) + wg * WG_ROWS + in_block;
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
                      "r"(pack_bf16(activate<ACT>(acc[4 * j]),
                                    activate<ACT>(acc[4 * j + 1]))));
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * ROW),
                      "r"(pack_bf16(activate<ACT>(acc[4 * j + 2]),
                                    activate<ACT>(acc[4 * j + 3]))));
+        if constexpr (KEEP_Z) {
+          const uint32_t zt = ws(wg) + (j / (ATOM / 8)) * W_BLOCK + in_block;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(zt),
+                       "r"(pack_bf16(acc[4 * j], acc[4 * j + 1])));
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(zt + 8 * ROW),
+                       "r"(pack_bf16(acc[4 * j + 2], acc[4 * j + 3])));
+        }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_barrier(1 + wg, 128);
       if (tid % 128 == 0) {
         for (int cb = 0; cb < BN / ATOM; ++cb)
           tma_store(&o_map, xs(cb) + wg * WG_ROWS, n0 + cb * ATOM, m0 + wg * 64, e);
+        if constexpr (KEEP_Z) {
+          for (int cb = 0; cb < BN / ATOM; ++cb)
+            tma_store(&z_map, ws(wg) + cb * W_BLOCK, n0 + cb * ATOM, m0 + wg * 64, e);
+        }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
@@ -396,48 +429,60 @@ bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int ACT>
+template <int ACT, bool KEEP_Z>
 int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
-           const CUtensorMap& o_map, int E, int C, int D, int F,
-           cudaStream_t stream) {
+           const CUtensorMap& o_map, const CUtensorMap& z_map, int E, int C,
+           int D, int F, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      expert_matmul_kernel<ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM));
+      expert_matmul_kernel<ACT, KEEP_Z>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
   if (err != cudaSuccess) return int(err);
   const long long blocks =
       (long long)E * ((C + BM - 1) / BM) * ((F + BN - 1) / BN);
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  expert_matmul_kernel<ACT><<<unsigned(blocks), THREADS, SMEM, stream>>>(
-      x_map, w_map, o_map, C, D, F);
+  expert_matmul_kernel<ACT, KEEP_Z><<<unsigned(blocks), THREADS, SMEM, stream>>>(
+      x_map, w_map, o_map, z_map, C, D, F);
   return int(cudaGetLastError());
+}
+
+template <bool KEEP_Z>
+int launch_act(int act, const CUtensorMap& x_map, const CUtensorMap& w_map,
+               const CUtensorMap& o_map, const CUtensorMap& z_map, int E,
+               int C, int D, int F, cudaStream_t stream) {
+  switch (act) {
+    case kNone:
+      return launch<kNone, KEEP_Z>(x_map, w_map, o_map, z_map, E, C, D, F, stream);
+    case kSilu:
+      return launch<kSilu, KEEP_Z>(x_map, w_map, o_map, z_map, E, C, D, F, stream);
+    case kGelu:
+      return launch<kGelu, KEEP_Z>(x_map, w_map, o_map, z_map, E, C, D, F, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 when it was accepted).  act: 0 none,
-// 1 silu, 2 gelu (tanh form).  D and F must be multiples of 8 and every
-// pointer 16-byte aligned (the TMA's rules).
+// 1 silu, 2 gelu (tanh form).  z: null, or an (E, C, F) bf16 output for the
+// pre-activation sum (the backward's Z), written by the KEEP_Z kernel.  D
+// and F must be multiples of 8 and every pointer 16-byte aligned (the TMA's
+// rules).
 extern "C" int expert_matmul_bf16(const void* x, const void* w, void* out,
-                                  int E, int C, int D, int F, int act,
+                                  void* z, int E, int C, int D, int F, int act,
                                   void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || D % 8 || F % 8)
     return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(out)) % 16)
+       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(z)) % 16)
     return int(cudaErrorMisalignedAddress);
-  CUtensorMap x_map, w_map, o_map;
+  CUtensorMap x_map, w_map, o_map, z_map;
   if (!make_map(&x_map, x, E, C, D, BM) || !make_map(&w_map, w, E, D, F, BK) ||
-      !make_map(&o_map, out, E, C, F, 64))
+      !make_map(&o_map, out, E, C, F, 64) ||
+      (z != nullptr && !make_map(&z_map, z, E, C, F, 64)))
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kNone:
-      return launch<kNone>(x_map, w_map, o_map, E, C, D, F, s);
-    case kSilu:
-      return launch<kSilu>(x_map, w_map, o_map, E, C, D, F, s);
-    case kGelu:
-      return launch<kGelu>(x_map, w_map, o_map, E, C, D, F, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (z != nullptr)
+    return launch_act<true>(act, x_map, w_map, o_map, z_map, E, C, D, F, s);
+  return launch_act<false>(act, x_map, w_map, o_map, o_map, E, C, D, F, s);
 }

@@ -6,60 +6,79 @@
 // which the JAX package differentiates through its jnp code; the port's
 // forward is csrc/moe_gmm.cu, and autograd would stop at it without this.
 // Wrapper here: src/repro_torch/kernels/moe_gmm.py::expert_matmul_bwd, which
-// holds the plain version `reference_expert_matmul_bwd` (autograd through
-// `reference_expert_matmul`) beside it.
+// holds the plain version `reference_expert_matmul_bwd` (dZ from the given
+// Z, then the two products, in float32) beside it.
 //
 // Semantics: the forward is Y = act(Z), Z[e] = X[e] W[e], X (E, C, D) and W
 // (E, D, F) bf16, fp32 sums, act none, silu or gelu (tanh form).  For the
-// cotangent dY (E, C, F) bf16:
+// cotangent dY (E, C, F) bf16 and, with an activation, the forward's Z (E,
+// C, F) bf16 (csrc/moe_gmm.cu writes it under grad: the bf16 rounding of
+// the fp32 sum before the activation):
 //   dZ = dY * act'(Z)      (dZ = dY where act is none)
 //   dX = dZ W^T            (E, C, F) . (E, F, D) -> (E, C, D) bf16
 //   dW = X^T dZ            (E, D, C) . (E, C, F) -> (E, D, F) bf16
 // every product summed in fp32 and rounded to bf16 once.  dZ is a bf16
-// operand of the two products (the plain version keeps it fp32): its
-// rounding, 2^-9 of each element at most, adds terms of random sign, so
-// each gradient lies a fraction of a bf16 ulp of its largest magnitude
-// further from the float64 values than the plain version's own rounding
-// (chip_smoke.py's GMM_BWD_TOL and GMM_BWD_WITNESS hold both).  Like B3, the
-// kernel takes D and F in multiples of 8 and 16-byte aligned operands; the
-// wrapper pads a ragged D or F with zeros (zero cotangent columns, zero
-// depths) and slices the gradients back.
+// operand of the two products (the plain version keeps it fp32), and act'
+// reads Z in bf16: each rounding, 2^-9 of an element at most, adds terms of
+// random sign, so each gradient lies a fraction of a bf16 ulp of its largest
+// magnitude further from the float64 values than the plain version's own
+// rounding (chip_smoke.py's GMM_BWD_TOL and GMM_BWD_WITNESS hold both).
+// Like B3, the kernels take D and F in multiples of 8 and 16-byte aligned
+// operands; the wrapper pads a ragged D or F with zeros (zero cotangent
+// columns, zero depths) and slices the gradients back.
 //
-// What bounds it on the H100: at qwen3-moe-30b-a3b's gate and up products
-// (E 128, C 320, D 2048, F 768, silu) the three products do 3 x 2 E C D F =
-// 386.5 GFLOP, 391 us at the 989 TFLOP/s of the bf16 tensor cores, against
-// 1.21 GB of device memory (x, w and dY read once, dX and dW written once)
-// at 3.35 TB/s, 360 us: operations set the bound; without the activation
-// (two products, 257.7 GFLOP, 261 us) bytes do.  The 403 MB of expert
+// Why Z is kept: without it a third product recomputes Z = X W, re-reading
+// X and W (570 MB at the path's gate product), 0.38 ms of a 0.97 ms
+// backward on an H100 (PERF.md, section 6).  The port's train mode
+// checkpoints each repetition (models/transformer.py), so a kept Z lives
+// only while one repetition is recomputed and back-propagated: 63 MB per
+// activated product at qwen3-moe-30b-a3b's shapes.
+//
+// What bounds it on the H100: at qwen3-moe-30b-a3b's gate product (E 128,
+// C 320, D 2048, F 768, silu) the two products do 2 x 2 E C D F = 257.7
+// GFLOP, 261 us at the 989 TFLOP/s of the bf16 tensor cores, against 1.27
+// GB of device memory (x, w, dY and Z read once, dX and dW written once)
+// at 3.35 TB/s, 378 us: bytes set the bound, with or without the
+// activation (without it, 1.20 GB and 359 us).  The 403 MB of expert
 // weights and as many of their gradient dominate the bytes.
 //
-// Design: B3's warp-specialised TMA + wgmma GEMM (csrc/moe_gmm.cu): a block
-// of three warpgroups owns a 128 x 256 fp32 output tile of one expert, two
-// consumer warpgroups of 64 rows each and one producer thread, which walks
-// the depth in BK 64 steps through a ring of 4 stages of 48 KB, with
-// `wgmma` m64n256k16 and the 128-byte swizzle everywhere.  The operands'
-// major-ness and the epilogue are template arguments, giving three kernels:
-//   - dZ (silu or gelu): Z = X W recomputed with B3's own operands (X
-//     K-major, W MN-major through the transpose bit); the epilogue reads the
-//     matching dY tile from device memory and writes dZ = dY act'(Z) in
-//     bf16.  Z is not kept by the forward: with rematerialisation the
-//     forward runs twice a step, and each run would write and keep (E, C, F)
-//     values for the backward.  Recomputing it costs a third product, the
-//     price of leaving B3 and the model's memory as they are.
-//   - dX = dZ W^T: A is dZ, K-major; B is W read K-major: W[e] (D, F) with F
-//     contiguous is W^T's K-major layout, `wgmma`'s natural one, one TMA box
-//     of 256 rows of D by 64 of F a stage.
-//   - dW = X^T dZ: A is X read M-major through the transpose bit: per
-//     consumer warpgroup one TMA box of 64 depths (C) by 64 rows (D), D
-//     contiguous, the layout B3 gives its MN-major W; B is dZ read MN-major
-//     as B3 reads W.  Its depth is the buffer's C rows (5 stages at the
-//     path's C 320).
-//   The epilogues stage each warpgroup's 64 x 256 output in its own 8 KB of
-//   the A region of the four stages (no load is in flight then, and the
-//   other warpgroup reads only its own A rows and the B tiles) and store it
-//   by TMA, which clips rows and columns past the output's edges; TMA
-//   zero-fills every load past an edge.  No atomics: two launches on the
-//   same operands give the same bits.
+// Design, three launches (two without an activation):
+//   - dZ = dY act'(Z) (silu, gelu): one elementwise pass, 16-byte loads of
+//     eight bf16 of dY and of Z a thread, act' in fp32, dZ stored once in
+//     bf16 (189 MB moved at the gate product, 56 us at the memory's rate).
+//   - dX = dZ W^T and dW = X^T dZ: a persistent warp-specialised TMA +
+//     wgmma GEMM each.  One block of three warpgroups per SM walks a tile
+//     list in expert-major order (the expert outermost, then the N tile,
+//     then the M tile: the tiles in flight share W's or X's slice in L2);
+//     a tile is 128 x 256 fp32, two consumer warpgroups of 64 rows each,
+//     `wgmma` m64n256k16 with the 128-byte swizzle everywhere.  One
+//     producer thread walks every tile's depth in BK 64 steps through a
+//     ring of 48 KB stages, without a pause between tiles: it loads the
+//     next tile's first stages while the consumers run the current tile's
+//     epilogue.  A consumer warpgroup whose rows of a tile all lie past M
+//     (the half-empty third tile of C 320) passes its stages on without
+//     products.
+//   - The operands' major-ness is a template argument.  dX: A is dZ,
+//     K-major; B is W read K-major: W[e] (D, F) with F contiguous is W^T's
+//     K-major layout, one TMA box of 256 rows of D by 64 of F a stage.  dW:
+//     A is X read M-major through the transpose bit, per consumer
+//     warpgroup one TMA box of 64 depths (C) by 64 rows (D), D contiguous;
+//     B is dZ read N-major as B3 reads W.
+//   - Epilogue: each consumer warpgroup rounds its 64 x 256 to bf16 into a
+//     buffer of its own (not the ring, which already holds the next tile's
+//     loads) and stores it by TMA, which clips rows and columns past the
+//     output's edges; it waits for that buffer's previous store to have
+//     read it only when it writes the buffer again.  TMA zero-fills every
+//     load past an edge.
+//   - The stage count and the epilogue's passes are template arguments, as
+//     measured at the path's shapes (PERF.md, section 6): dX takes 3
+//     stages and 32 KB buffers (208 KB of shared memory); dW, whose depth
+//     is C (5 stages a tile at C 320), takes 4 stages and stores its output
+//     in two passes of 128 columns through 16 KB buffers (224 KB), so that
+//     the producer holds most of the next tile while a tile's epilogue
+//     runs: 0.243 against 0.264 ms with 3 stages at the up product on an
+//     H100.  dX with 4 stages ran slower there (0.308 against 0.259 ms).
+//   - No atomics: two launches on the same operands give the same bits.
 // Its times against its bound and torch.bmm (dX and dW from the plain dZ)
 // at the MoE path's shapes are in PERF.md, section 6.
 
@@ -71,11 +90,11 @@
 
 namespace {
 
-constexpr int BM = 128;       // output rows per block: two consumer warpgroups
-constexpr int BN = 256;       // output columns per block
+constexpr int BM = 128;       // output rows per tile: two consumer warpgroups
+constexpr int BN = 256;       // output columns per tile
 constexpr int BK = 64;        // depth per stage (one 128-byte swizzle atom)
-constexpr int NS = 4;         // ring stages
 constexpr int THREADS = 384;  // warpgroups 0 and 1 consume, 2 produces
+constexpr int CONSUMERS = 256;  // threads of the two consumer warpgroups
 constexpr int ATOM = 64;      // bf16 columns of one 128-byte swizzle atom
 constexpr uint32_t ROW = 128;                // bytes of one swizzled row
 constexpr uint32_t A_BYTES = BM * BK * 2;    // 16 KB
@@ -83,12 +102,18 @@ constexpr uint32_t A_BLOCK = BK * ATOM * 2;  // 8 KB: a warpgroup's 64 rows
 constexpr uint32_t B_BLOCK = BK * ATOM * 2;  // 8 KB: one 64-column block of B
 constexpr uint32_t B_BYTES = BK * BN * 2;    // 32 KB
 constexpr uint32_t STAGE = A_BYTES + B_BYTES;
-// the ring, 1,024 bytes of alignment slack, then the barriers
-constexpr size_t SMEM = NS * STAGE + 1024 + 8 * 2 * NS;
-static_assert(NS * ATOM == BN, "the epilogue stages a warpgroup's 64 x BN "
-              "output in its A rows of the NS stages, one column block each");
+constexpr uint32_t O_BLOCK = 64 * ATOM * 2;  // 8 KB: 64 rows of one column block
+constexpr uint32_t EPI = 64 * BN * 2;        // 32 KB: a warpgroup's output
+// A GEMM's ring of NS stages, the two consumer warpgroups' epilogue buffers
+// (each 64 x BN / PASSES: the output goes out in PASSES column slices),
+// 1,024 bytes of alignment slack, then the barriers.
+template <int NS, int PASSES>
+constexpr size_t smem_bytes() {
+  return NS * STAGE + 2 * (EPI / PASSES) + 1024 + 8 * 2 * NS;
+}
 static_assert(A_BLOCK == 64 * ROW, "a warpgroup's A rows are one 8 KB block "
               "in either major-ness");
+constexpr int DZ_THREADS = 256;
 
 enum Activation { kNone = 0, kSilu = 1, kGelu = 2 };
 
@@ -217,7 +242,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// act'(z) for the dZ epilogue: silu' = s (1 + z (1 - s)), s = sigmoid(z);
+// act'(z) for the dZ pass: silu' = s (1 + z (1 - s)), s = sigmoid(z);
 // gelu's tanh form 0.5 z (1 + tanh(u)), u = c (z + 0.044715 z^3), c =
 // sqrt(2 / pi), has the derivative s2 + 2 z s2 (1 - s2) c (1 + 0.134145 z^2)
 // with s2 = sigmoid(2 u) (1 + tanh(u) = 2 s2, 1 - tanh(u)^2 = 4 s2 (1 - s2)).
@@ -234,50 +259,69 @@ __device__ __forceinline__ float dact(float z) {
   }
 }
 
-// dY at (row, col) and (row, col + 1) of expert e's (M, N) matrix, 0 past an
-// edge (N is a multiple of 8 and col is even, so col < N covers both).
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* __restrict__ dy,
-                                            int e, int M, int N, int row, int col) {
-  if (row >= M || col >= N) return make_float2(0.f, 0.f);
-  const uint32_t v =
-      __ldg(reinterpret_cast<const unsigned int*>(dy + ((size_t)e * M + row) * N + col));
+// Two bf16 of a 32-bit word as an fp32 pair.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// One 128 x 256 tile of out[e] = A[e] . B[e] (M x N, depth K).  A_MN: A is
-// read M-major (its K x M matrix in memory, M contiguous), else K-major (M x
-// K, K contiguous); B_K: B is read K-major (its N x K matrix, K contiguous),
-// else N-major (K x N, N contiguous).  ACT none stores the product, silu or
-// gelu stores dY * act'(product), dY an (E, M, N) bf16 matrix.
-template <bool A_MN, bool B_K, int ACT>
+// dZ = dY act'(Z), eight elements a thread and step, over n 16-byte words.
+template <int ACT>
+__global__ void __launch_bounds__(DZ_THREADS)
+gmm_bwd_dz_kernel(const uint4* __restrict__ dy, const uint4* __restrict__ z,
+          uint4* __restrict__ dz, long long n) {
+  for (long long i = (long long)blockIdx.x * DZ_THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * DZ_THREADS) {
+    const uint4 g = __ldg(dy + i);
+    const uint4 v = __ldg(z + i);
+    const uint32_t gs[4] = {g.x, g.y, g.z, g.w};
+    const uint32_t zs[4] = {v.x, v.y, v.z, v.w};
+    uint32_t out[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 gf = unpack_bf16(gs[k]), zf = unpack_bf16(zs[k]);
+      out[k] = pack_bf16(gf.x * dact<ACT>(zf.x), gf.y * dact<ACT>(zf.y));
+    }
+    dz[i] = make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// out[e] = A[e] . B[e] (M x N, depth K), persistent: block b takes tiles b,
+// b + gridDim.x, ... of the E ceil(M / BM) ceil(N / BN) tiles of 128 x 256,
+// numbered with the expert outermost, then the N tile, then the M tile.
+// A_MN: A is read M-major (its K x M matrix in memory, M contiguous), else
+// K-major (M x K, K contiguous); B_K: B is read K-major (its N x K matrix, K
+// contiguous), else N-major (K x N, N contiguous).  NS ring stages; the
+// epilogue stores a warpgroup's output in PASSES column slices through a
+// buffer of 64 x BN / PASSES.
+template <bool A_MN, bool B_K, int NS, int PASSES>
 __global__ void __launch_bounds__(THREADS, 1)
 gmm_bwd_kernel(const __grid_constant__ CUtensorMap a_map,
                const __grid_constant__ CUtensorMap b_map,
-               const __grid_constant__ CUtensorMap o_map,
-               const __nv_bfloat16* __restrict__ dy, int M, int N, int K) {
+               const __grid_constant__ CUtensorMap o_map, int E, int M, int N,
+               int K) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   auto as = [&](int s) { return ring + s * STAGE; };
   auto bs = [&](int s) { return ring + s * STAGE + A_BYTES; };
-  const uint32_t bars = ring + NS * STAGE;
+  constexpr uint32_t EPI_P = EPI / PASSES;        // a warpgroup's buffer
+  constexpr int J_P = BN / 8 / PASSES;             // accumulator quads a pass
+  constexpr int CB_P = BN / ATOM / PASSES;         // column blocks a pass
+  static_assert(J_P % (ATOM / 8) == 0, "a pass stores whole column blocks");
+  const uint32_t epi = ring + NS * STAGE;  // [warpgroup][CB_P][64][64]
+  const uint32_t bars = epi + 2 * EPI_P;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (NS + s); };
 
-  // expert outermost, then the N tile, then the M tile
   const int m_tiles = (M + BM - 1) / BM;
   const int n_tiles = (N + BN - 1) / BN;
-  const int m0 = int(blockIdx.x) % m_tiles * BM;
-  const int n0 = int(blockIdx.x) / m_tiles % n_tiles * BN;
-  const int e = int(blockIdx.x) / (m_tiles * n_tiles);
+  const int tiles = E * m_tiles * n_tiles;
   const int k_steps = (K + BK - 1) / BK;
-  // consumer warpgroups with a row below M: 1 or 2
-  const int active = M - m0 > 64 ? 2 : 1;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 128 * active);
+      mbar_init(empty(s), CONSUMERS);  // every consumer, active or not
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -288,44 +332,71 @@ gmm_bwd_kernel(const __grid_constant__ CUtensorMap a_map,
     // ---------------------------------------------------------- producer --
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 2 * 128) {
-      for (int t = 0; t < k_steps; ++t) {
-        const int s = t % NS;
-        mbar_wait(empty(s), ((t / NS) & 1) ^ 1);
-        mbar_expect_tx(full(s), STAGE);
-        if constexpr (A_MN) {
-          for (int blk = 0; blk < 2; ++blk)
-            tma_load(as(s) + blk * A_BLOCK, &a_map, full(s), m0 + blk * ATOM, t * BK, e);
-        } else {
-          tma_load(as(s), &a_map, full(s), t * BK, m0, e);
-        }
-        if constexpr (B_K) {
-          tma_load(bs(s), &b_map, full(s), t * BK, n0, e);
-        } else {
-          for (int cb = 0; cb < BN / ATOM; ++cb)
-            tma_load(bs(s) + cb * B_BLOCK, &b_map, full(s), n0 + cb * ATOM, t * BK, e);
+      int it = 0;  // stages loaded so far, over every tile of this block
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile % m_tiles * BM;
+        const int n0 = tile / m_tiles % n_tiles * BN;
+        const int e = tile / (m_tiles * n_tiles);
+        for (int t = 0; t < k_steps; ++t, ++it) {
+          const int s = it % NS;
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(full(s), STAGE);
+          if constexpr (A_MN) {
+            for (int blk = 0; blk < 2; ++blk)
+              tma_load(as(s) + blk * A_BLOCK, &a_map, full(s), m0 + blk * ATOM,
+                       t * BK, e);
+          } else {
+            tma_load(as(s), &a_map, full(s), t * BK, m0, e);
+          }
+          if constexpr (B_K) {
+            tma_load(bs(s), &b_map, full(s), t * BK, n0, e);
+          } else {
+            for (int cb = 0; cb < BN / ATOM; ++cb)
+              tma_load(bs(s) + cb * B_BLOCK, &b_map, full(s), n0 + cb * ATOM,
+                       t * BK, e);
+          }
         }
       }
     }
   } else {
     // --------------------------------------------------------- consumers --
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    if (wg < active) {
-      // K-major: 8-row groups 1,024 B apart, k16 steps 32 B along the row;
-      // M- or N-major: 8-depth groups 1,024 B apart, 64-column blocks
-      // A_BLOCK / B_BLOCK apart, k16 steps 2,048 B
-      const uint64_t a_desc = A_MN ? make_desc(as(0) + wg * A_BLOCK, A_BLOCK, 8 * ROW)
-                                   : make_desc(as(0) + wg * A_BLOCK, 16, 8 * ROW);
-      const uint64_t b_desc = B_K ? make_desc(bs(0), 16, 8 * ROW)
-                                  : make_desc(bs(0), B_BLOCK, 8 * ROW);
-      constexpr uint32_t a_step = A_MN ? 16 * ROW : 32;
-      constexpr uint32_t b_step = B_K ? 32 : 16 * ROW;
+    // K-major: 8-row groups 1,024 B apart, k16 steps 32 B along the row;
+    // M- or N-major: 8-depth groups 1,024 B apart, 64-column blocks
+    // A_BLOCK / B_BLOCK apart, k16 steps 2,048 B
+    const uint64_t a_desc = A_MN ? make_desc(as(0) + wg * A_BLOCK, A_BLOCK, 8 * ROW)
+                                 : make_desc(as(0) + wg * A_BLOCK, 16, 8 * ROW);
+    const uint64_t b_desc = B_K ? make_desc(bs(0), 16, 8 * ROW)
+                                : make_desc(bs(0), B_BLOCK, 8 * ROW);
+    constexpr uint32_t a_step = A_MN ? 16 * ROW : 32;
+    constexpr uint32_t b_step = B_K ? 32 : 16 * ROW;
+    // the epilogue's place of acc[4j], acc[4j + 1]: row r, columns 8j + 2
+    // (lane % 4) and the next; acc[4j + 2], acc[4j + 3]: row r + 8
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int r = warp * 16 + lane / 4;  // and r + 8: the same swizzle
+    const uint32_t swz = r & 7;
+    const uint32_t out = epi + wg * EPI_P + r * ROW + 4 * (lane % 4);
 
+    int it = 0;  // stages consumed so far, over every tile of this block
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile % m_tiles * BM;
+      const int n0 = tile / m_tiles % n_tiles * BN;
+      const int e = tile / (m_tiles * n_tiles);
+      if (M - m0 <= 64 * wg) {
+        // every row of this warpgroup lies past M: hand the stages back
+        for (int t = 0; t < k_steps; ++t, ++it) {
+          mbar_wait(full(it % NS), (it / NS) & 1);
+          mbar_arrive(empty(it % NS));
+        }
+        continue;
+      }
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      for (int t = 0; t < k_steps; ++t) {
-        const int s = t % NS;
-        mbar_wait(full(s), (t / NS) & 1);
+      for (int t = 0; t < k_steps; ++t, ++it) {
+        const int s = it % NS;
+        mbar_wait(full(s), (it / NS) & 1);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
@@ -336,48 +407,43 @@ gmm_bwd_kernel(const __grid_constant__ CUtensorMap a_map,
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done
         fence_regs(acc);
-        if (t > 0) mbar_arrive(empty((t - 1) % NS));
+        if (t > 0) mbar_arrive(empty((it - 1) % NS));
       }
       wgmma_wait<0>();
       fence_regs(acc);
+      // the tile's last stage: the producer goes on into the next tile
+      mbar_arrive(empty((it - 1) % NS));
 
-      // epilogue: the product (or dY act'(product)) in bf16 over this
-      // warpgroup's A rows of the NS stages (stage cb holds output columns
-      // 64 cb .. 64 cb + 63), then TMA; acc[4j], acc[4j + 1]: row r, columns
-      // 8j + 2 (lane % 4) and the next; acc[4j + 2], acc[4j + 3]: row r + 8
-      const int warp = (tid % 128) / 32;
-      const int lane = tid % 32;
-      const int r = warp * 16 + lane / 4;  // and r + 8: the same swizzle
-      const uint32_t swz = r & 7;
-      const int row = m0 + wg * 64 + r;
+      // epilogue: acc in bf16 over this warpgroup's buffer (column block cb
+      // of the pass at cb O_BLOCK), once the buffer's last store has read
+      // it, then TMA; pass h holds output columns BN / PASSES h onwards
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const uint32_t at = as(j / (ATOM / 8)) + wg * A_BLOCK + r * ROW +
-                            (((j % (ATOM / 8)) ^ swz) << 4) + 4 * (lane % 4);
-        float v0 = acc[4 * j], v1 = acc[4 * j + 1];
-        float v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
-        if constexpr (ACT != kNone) {
-          const int col = n0 + 8 * j + 2 * (lane % 4);
-          const float2 g0 = load_pair(dy, e, M, N, row, col);
-          const float2 g1 = load_pair(dy, e, M, N, row + 8, col);
-          v0 = g0.x * dact<ACT>(v0);
-          v1 = g0.y * dact<ACT>(v1);
-          v2 = g1.x * dact<ACT>(v2);
-          v3 = g1.y * dact<ACT>(v3);
+      for (int h = 0; h < PASSES; ++h) {
+        if (tid % 128 == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < J_P; ++jj) {
+          const int j = h * J_P + jj;
+          const uint32_t at = out + (jj / (ATOM / 8)) * O_BLOCK +
+                              (((jj % (ATOM / 8)) ^ swz) << 4);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                       "r"(pack_bf16(acc[4 * j], acc[4 * j + 1])));
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * ROW),
+                       "r"(pack_bf16(acc[4 * j + 2], acc[4 * j + 3])));
         }
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16(v0, v1)));
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + 8 * ROW),
-                     "r"(pack_bf16(v2, v3)));
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_barrier(1 + wg, 128);
-      if (tid % 128 == 0) {
-        for (int cb = 0; cb < BN / ATOM; ++cb)
-          tma_store(&o_map, as(cb) + wg * A_BLOCK, n0 + cb * ATOM, m0 + wg * 64, e);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier(1 + wg, 128);
+        if (tid % 128 == 0) {
+          for (int cb = 0; cb < CB_P; ++cb)
+            tma_store(&o_map, epi + wg * EPI_P + cb * O_BLOCK,
+                      n0 + (h * CB_P + cb) * ATOM, m0 + wg * 64, e);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
       }
     }
+    if (tid % 128 == 0)
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -419,51 +485,79 @@ bool make_map(CUtensorMap* map, const void* ptr, int n, int rows, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool A_MN, bool B_K, int ACT>
+// The current device's SMs, 0 where the query fails.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <bool A_MN, bool B_K, int NS, int PASSES>
 int launch(const CUtensorMap& a_map, const CUtensorMap& b_map,
-           const CUtensorMap& o_map, const void* dy, int E, int M, int N,
-           int K, cudaStream_t stream) {
+           const CUtensorMap& o_map, int E, int M, int N, int K,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<NS, PASSES>();
+  static_assert(smem <= 232448, "past the 227 KB a block can use");
   const cudaError_t err = cudaFuncSetAttribute(
-      gmm_bwd_kernel<A_MN, B_K, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(SMEM));
+      gmm_bwd_kernel<A_MN, B_K, NS, PASSES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const long long blocks =
+  const long long tiles =
       (long long)E * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  gmm_bwd_kernel<A_MN, B_K, ACT><<<unsigned(blocks), THREADS, SMEM, stream>>>(
-      a_map, b_map, o_map, static_cast<const __nv_bfloat16*>(dy), M, N, K);
+  const int sms = sm_count();
+  if (sms < 1) return int(cudaErrorInvalidDevice);
+  if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  const unsigned blocks = unsigned(tiles < sms ? tiles : sms);
+  gmm_bwd_kernel<A_MN, B_K, NS, PASSES><<<blocks, THREADS, smem, stream>>>(
+      a_map, b_map, o_map, E, M, N, K);
+  return int(cudaGetLastError());
+}
+
+template <int ACT>
+int launch_dz(const void* dy, const void* z, void* dz, long long n,
+              cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms < 1) return int(cudaErrorInvalidDevice);
+  const long long want = (n + DZ_THREADS - 1) / DZ_THREADS;
+  const long long most = 8LL * sms;  // a grid-stride loop past that
+  gmm_bwd_dz_kernel<ACT><<<unsigned(want < most ? want : most), DZ_THREADS, 0, stream>>>(
+      static_cast<const uint4*>(dy), static_cast<const uint4*>(z),
+      static_cast<uint4*>(dz), n);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // dX (E, C, D) and dW (E, D, F) of out = act(x @ w) for the cotangent dy
-// (E, C, F), all bf16.  dz is scratch of (E, C, F) bf16 for dY act'(Z),
-// unused (it may be null) where act is 0: dZ is dy then.  Returns the CUDA
-// error of the launches (0 when every one was accepted).  act: 0 none, 1
-// silu, 2 gelu (tanh form).  D and F must be multiples of 8 and every
+// (E, C, F), all bf16.  z is the forward's pre-activation (E, C, F) bf16
+// and dz scratch of its shape for dY act'(Z), both needed where act is not
+// 0 and unused (they may be null) where it is: dZ is dy then.  Returns the
+// CUDA error of the launches (0 when every one was accepted).  act: 0 none,
+// 1 silu, 2 gelu (tanh form).  D and F must be multiples of 8 and every
 // pointer 16-byte aligned (the TMA's rules).
 extern "C" int expert_matmul_bwd_bf16(const void* x, const void* w, const void* dy,
-                                      void* dz, void* dx, void* dw, int E, int C,
-                                      int D, int F, int act, void* stream) {
+                                      const void* z, void* dz, void* dx, void* dw,
+                                      int E, int C, int D, int F, int act,
+                                      void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || D % 8 || F % 8 || act < kNone ||
-      act > kGelu || (act != kNone && dz == nullptr))
+      act > kGelu || (act != kNone && (z == nullptr || dz == nullptr)))
     return int(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dz) |
-       reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(dw)) % 16)
+       reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(z) |
+       reinterpret_cast<uintptr_t>(dz) | reinterpret_cast<uintptr_t>(dx) |
+       reinterpret_cast<uintptr_t>(dw)) % 16)
     return int(cudaErrorMisalignedAddress);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* g = act == kNone ? dy : dz;
   int err = 0;
   if (act != kNone) {
-    // dZ = dY act'(X W): B3's operands (X K-major, W N-major), out (E, C, F)
-    CUtensorMap x_map, w_map, z_map;
-    if (!make_map(&x_map, x, E, C, D, BM) || !make_map(&w_map, w, E, D, F, BK) ||
-        !make_map(&z_map, dz, E, C, F, 64))
-      return int(cudaErrorInvalidValue);
-    err = act == kSilu ? launch<false, false, kSilu>(x_map, w_map, z_map, dy, E, C, F, D, s)
-                       : launch<false, false, kGelu>(x_map, w_map, z_map, dy, E, C, F, D, s);
+    // dZ = dY act'(Z): E C F / 8 words of eight (F is a multiple of 8)
+    const long long n = (long long)E * C * F / 8;
+    err = act == kSilu ? launch_dz<kSilu>(dy, z, dz, n, s)
+                       : launch_dz<kGelu>(dy, z, dz, n, s);
     if (err != 0) return err;
   }
   {
@@ -472,7 +566,7 @@ extern "C" int expert_matmul_bwd_bf16(const void* x, const void* w, const void* 
     if (!make_map(&z_map, g, E, C, F, BM) || !make_map(&w_map, w, E, D, F, BN) ||
         !make_map(&o_map, dx, E, C, D, 64))
       return int(cudaErrorInvalidValue);
-    err = launch<false, true, kNone>(z_map, w_map, o_map, nullptr, E, C, D, F, s);
+    err = launch<false, true, 3, 1>(z_map, w_map, o_map, E, C, D, F, s);
     if (err != 0) return err;
   }
   // dW = X^T dZ: X M-major (rows C of depth, D contiguous), dZ N-major
@@ -480,5 +574,5 @@ extern "C" int expert_matmul_bwd_bf16(const void* x, const void* w, const void* 
   if (!make_map(&x_map, x, E, C, D, BK) || !make_map(&z_map, g, E, C, F, BK) ||
       !make_map(&o_map, dw, E, D, F, 64))
     return int(cudaErrorInvalidValue);
-  return launch<true, false, kNone>(x_map, z_map, o_map, nullptr, E, D, F, C, s);
+  return launch<true, false, 4, 2>(x_map, z_map, o_map, E, D, F, C, s);
 }

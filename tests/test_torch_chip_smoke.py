@@ -408,15 +408,22 @@ class _PlainWithBackward(torch.autograd.Function):
 def route_backward(monkeypatch, gmm_bwd, rglru_bwd):
     """The model's expert matmul and RG-LRU scan (``layers.expert_matmul``,
     ``layers.rglru_scan``, as they stand) with their backward taken through
-    ``gmm_bwd(x, w, dy, activation=...)`` and ``rglru_bwd(a, h, g)``
+    ``gmm_bwd(x, w, dy, activation=..., z=...)`` (z the forward's
+    pre-activation in the operands' type, as the card's forward keeps it;
+    None without an activation) and ``rglru_bwd(a, h, g)``
     (``_PlainWithBackward``), as the card's autograd Functions take
     theirs."""
+    from repro_torch.kernels import moe_gmm
+
     gmm_site, rglru_site = ML.expert_matmul, ML.rglru_scan
 
     def gmm(x, w, activation="none"):
+        z = (moe_gmm.reference_expert_matmul(
+            x.detach(), w.detach(), activation=activation, keep_z=True)[1]
+            if activation != "none" else None)
         return _PlainWithBackward.apply(
             gmm_site, lambda saved, cot, kw: gmm_bwd(*saved[:2], cot[0],
-                                                     **kw),
+                                                     z=z, **kw),
             {"activation": activation}, x, w)
 
     def scan(a, b):
@@ -679,12 +686,16 @@ def test_ssd_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
 
 
 @pytest.mark.parametrize("fault", [None, "dW without act'",
-                                   "dX through W un-transposed"])
+                                   "dX through W un-transposed",
+                                   "act' of Y instead of Z",
+                                   "the kernel given Y as Z",
+                                   "the kernel given the next expert's Z"])
 def test_gmm_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
     """The expert matmul's backward check (with its float64 witness)
     passes the plain version and fails each wrong gradient of
-    ``_gmm_bwd_wrong_outputs`` standing in for the kernel, at a ragged D
-    and F with silu."""
+    ``_gmm_bwd_wrong_outputs`` and ``_gmm_bwd_wrong_z`` standing in for the
+    kernel, at a ragged D and F with silu, z the forward's pre-activation
+    in bf16 (the plain version forms its own)."""
     from repro_torch.kernels import moe_gmm
 
     args, kw = cs._gmm_bwd_operands(torch.Generator().manual_seed(10),
@@ -694,10 +705,44 @@ def test_gmm_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
         assert cs._gmm_bwd_check(moe_gmm, [(args, kw)], "plain",
                                  witness=True) >= 0.0
         return
-    wrong = cs._gmm_bwd_wrong_outputs(moe_gmm, args, kw)[fault]
+    wrong = {**cs._gmm_bwd_wrong_outputs(moe_gmm, args, kw),
+             **cs._gmm_bwd_wrong_z(moe_gmm, args, kw)}[fault]
     monkeypatch.setattr(moe_gmm, "expert_matmul_bwd", lambda *a, **k: wrong)
     with pytest.raises(AssertionError, match="past a limit"):
         cs._gmm_bwd_check(moe_gmm, [(args, kw)], "wrong", witness=True)
+
+
+@pytest.mark.parametrize("fault", [None, "the case's Z is Y",
+                                   "the launch writes Y as Z",
+                                   "the launch writes the next expert's Z"])
+def test_gmm_keep_z_check_rejects_a_wrong_z(fault, monkeypatch):
+    """The check of the forward's launch that keeps Z passes the plain
+    version's Z (skipping the product without an activation) and fails a
+    case whose Z is the output Y, and a launch that writes Y or the next
+    expert's Z as its Z."""
+    from repro_torch.kernels import moe_gmm
+
+    gen = torch.Generator().manual_seed(11)
+    cases = [cs._gmm_bwd_operands(gen, s, "cpu") for s in (
+        (3, 70, 50, 33, "silu"), (2, 64, 48, 40, "gelu"),
+        (2, 16, 32, 24, "none"))]
+    if fault is None:
+        assert cs._gmm_keep_z_check(moe_gmm, cases) >= 0.0
+        return
+    if fault == "the case's Z is Y":
+        (x, w, dy), kw = cases[0]
+        cases[0] = ((x, w, dy), {**kw, "z": moe_gmm.expert_matmul(
+            x, w, kw["activation"])})
+    else:
+        right = cs._gmm_forward_with_z
+
+        def launch(gmm, x, w, act):
+            y, z = right(gmm, x, w, act)
+            return y, (y if "Y" in fault else torch.roll(z, 1, dims=0))
+
+        monkeypatch.setattr(cs, "_gmm_forward_with_z", launch)
+    with pytest.raises(AssertionError, match="cases failed"):
+        cs._gmm_keep_z_check(moe_gmm, cases)
 
 
 @pytest.mark.parametrize("fault", [None, "da_t = lambda_t h_t (the shift "
@@ -724,13 +769,15 @@ def test_rglru_bwd_check_rejects_wrong_outputs(fault, monkeypatch):
 
 def test_new_backward_bounds_at_the_path_shapes():
     """The expert matmul's backward at qwen3-moe-30b-a3b's gate product:
-    three products with silu (Z recomputed), 386.5 GFLOP, bound by
-    operations at 0.391 ms; two without, bound by the 1.20 GB of x, w, dY,
-    dX and dW at 0.359 ms.  The RG-LRU backward at recurrentgemma-9b's
-    shape: a, h, g read and da, db written, 335.5 MB, 0.100 ms."""
+    two products with silu (Z read from the forward), 257.7 GFLOP, bound by
+    the 1.27 GB of x, w, dY, Z, dX and dW at 0.378 ms; without silu, bound
+    by the 1.20 GB of x, w, dY, dX and dW at 0.359 ms.  The RG-LRU backward
+    at recurrentgemma-9b's shape: a, h, g read and da, db written, 335.5 MB,
+    0.100 ms."""
     ms, by, n_ops, n_bytes = cs._gmm_bwd_bound((128, 320, 2048, 768, "silu"))
-    assert n_ops == 3 * 2 * 128 * 320 * 2048 * 768 == 386_547_056_640
-    assert by == "operations" and ms == pytest.approx(0.3909, rel=1e-3)
+    assert n_ops == 2 * 2 * 128 * 320 * 2048 * 768 == 257_698_037_760
+    assert n_bytes == 1_266_679_808
+    assert by == "bytes" and ms == pytest.approx(0.3781, rel=1e-3)
     ms, by, n_ops, n_bytes = cs._gmm_bwd_bound((128, 320, 2048, 768, "none"))
     assert n_bytes == 1_203_765_248 and by == "bytes"
     assert ms == pytest.approx(0.3593, rel=1e-3)

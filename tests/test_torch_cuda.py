@@ -840,10 +840,13 @@ def test_ssd_autograd_reaches_the_backward_kernel(cuda):
         assert _within(g.cpu(), w, SSD_BWD_TOL)
 
 
-# The expert matmul's backward in bf16: the kernel rounds dZ = dY act'(Z)
-# to bf16 as the operand of its two products, where the plain version keeps
-# it fp32, and rounds each gradient once to bf16: each of dX and dW within
-# 2**-6 of its largest magnitude (chip_smoke.py's GMM_BWD_TOL).  The RG-LRU
+# The expert matmul's backward in bf16, from the Z that the forward kernel
+# keeps under grad (its pre-activation in bf16; the plain version forms Z
+# from x and w in float32, as autograd through the plain forward does): the
+# kernel rounds dZ = dY act'(Z) to bf16 as the operand of its
+# two products, where the plain version keeps it fp32, and rounds each
+# gradient once to bf16: each of dX and dW within 2**-6 of its largest
+# magnitude (chip_smoke.py's GMM_BWD_TOL).  The RG-LRU
 # backward in float32: the kernel's sequential reverse chunks and the plain
 # version's doubling scan round the same recurrence in other orders, 1e-5 of
 # each gradient's largest magnitude (chip_smoke.py's RGLRU_BWD_TOL).  The
@@ -872,16 +875,19 @@ def _gmm_bwd_operands(cuda, E, C, D, F, seed):
 
 @pytest.mark.parametrize("E,C,D,F,act", GMM_BWD_CASES)
 def test_expert_matmul_bwd_matches_plain_autograd(cuda, E, C, D, F, act):
-    """dX and dW of the backward kernel within GMM_BWD_TOL of autograd
-    through the plain version, in bf16 and of the operands' shapes; two
-    launches give the same bits."""
+    """dX and dW of the backward kernel, from the forward kernel's Z,
+    within GMM_BWD_TOL of the plain version from Z formed in float32, in
+    bf16 and of the operands' shapes; two launches give the same bits."""
     x, w, dy = _gmm_bwd_operands(cuda, E, C, D, F, C + D + F)
+    z = moe_gmm._launch_forward(x, w, act, keep_z=True)[1]
     before = moe_gmm.bwd_launch_count
-    got = moe_gmm.expert_matmul_bwd(x, w, dy, act)
-    again = moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    got = moe_gmm.expert_matmul_bwd(x, w, dy, act, z=z)
+    again = moe_gmm.expert_matmul_bwd(x, w, dy, act, z=z)
     torch.cuda.synchronize()
     assert moe_gmm.bwd_launch_count == before + 2
-    want = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act)
+    z32 = (torch.einsum("ecd,edf->ecf", x.float(), w.float())
+           if act != "none" else None)
+    want = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act, z=z32)
     for g, a, wn, t in zip(got, again, want, (x, w)):
         assert g.shape == t.shape and g.dtype == torch.bfloat16
         assert torch.isfinite(g).all() and torch.equal(g, a)
@@ -909,7 +915,44 @@ def test_rglru_bwd_matches_plain(cuda, B, S, W):
         assert torch.equal(gr, ag) and _within(gr, wn, RGLRU_BWD_TOL)
 
 
-@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("E,C,D,F", [(4, 64, 96, 80), (3, 70, 50, 33),
+                                     (1, 200, 136, 264), (8, 320, 2048, 768),
+                                     (2, 320, 40, 512)])
+def test_expert_matmul_keeps_z_bit_for_bit(cuda, E, C, D, F, act):
+    """The forward kernel's variant that also writes Z: its output has the
+    bits of the launch without Z, and its Z those of a launch without the
+    activation (the same sums, rounded once to bf16)."""
+    x, w, _ = _gmm_bwd_operands(cuda, E, C, D, F, D + F)
+    before = moe_gmm.launch_count
+    y, z = moe_gmm._launch_forward(x, w, act, keep_z=True)
+    torch.cuda.synchronize()
+    assert moe_gmm.launch_count == before + 1
+    assert z.shape == y.shape == (E, C, F) and z.dtype == torch.bfloat16
+    assert torch.equal(y, moe_gmm.expert_matmul(x, w, act))
+    assert torch.equal(z, moe_gmm.expert_matmul(x, w, "none"))
+
+
+def test_expert_matmul_bwd_needs_z_with_an_activation(cuda):
+    """On the card the backward with an activation takes the forward's Z
+    and raises without it: nothing recomputes Z.  Without an activation it
+    needs none.  A dy or z left on the CPU raises before any launch."""
+    x, w, dy = _gmm_bwd_operands(cuda, 2, 64, 64, 64, 1)
+    before = moe_gmm.bwd_launch_count
+    for act in ("silu", "gelu"):
+        with pytest.raises(ValueError, match="pre-activation z"):
+            moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    assert moe_gmm.bwd_launch_count == before
+    moe_gmm.expert_matmul_bwd(x, w, dy, "none")
+    assert moe_gmm.bwd_launch_count == before + 1
+    z = moe_gmm._launch_forward(x, w, "silu", keep_z=True)[1]
+    for dy_, z_ in ((dy.cpu(), z), (dy, z.cpu())):
+        with pytest.raises(ValueError, match="the operands on cuda"):
+            moe_gmm.expert_matmul_bwd(x, w, dy_, "silu", z=z_)
+    assert moe_gmm.bwd_launch_count == before + 1
+
+
+@pytest.mark.parametrize("act", ["silu", "none", "gelu"])
 def test_expert_matmul_autograd_reaches_the_backward_kernel(cuda, act):
     """``expert_matmul`` on bf16 operands that require grad, a ragged D and
     F: one forward and one backward launch, and the operands' gradients

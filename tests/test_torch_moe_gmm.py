@@ -18,16 +18,20 @@ cases stress the dispatch: 2 x MOE_GROUP tokens, so that the groups fold
 into the kernel's buffer axis, and capacity factor 0.5, so that slots are
 dropped.
 
-The backward's plain version ``reference_expert_matmul_bwd`` (autograd
-through the plain forward) is held against ``jax.vjp`` of the JAX oracle
-for each activation, a ragged D and F and C = 1: within 1e-5 of each
-gradient's largest magnitude in float32, and in bf16 (both packages sum in
-fp32 in other orders and round once to bf16) within one bf16 ulp of the
-largest, 2**-7 of it.  The autograd Function ``_ExpertMatmul``, which CUDA
-operands take under grad, is run on the CPU with its forward launch
-standing in by the plain version: its backward goes through
-``expert_matmul_bwd`` (here the plain version) and gives autograd's
-gradients through the plain forward.
+The backward's plain version ``reference_expert_matmul_bwd`` forms dZ =
+dY act'(z) from the forward's pre-activation ``z``, as the backward kernel
+does, and needs it with an activation.  Given z in float32, as the plain
+forward forms it, it is held against ``jax.vjp`` of the JAX oracle for each
+activation, a ragged D and F and C = 1: within 1e-5 of each gradient's
+largest magnitude in float32, and in bf16 (both packages sum in fp32 in
+other orders and round once to bf16) within one bf16 ulp of the largest,
+2**-7 of it.  So is it given z in the operands' type
+(``reference_expert_matmul(..., keep_z=True)``: bf16 where the kernel keeps
+Z in bf16).  The autograd Function
+``_ExpertMatmul``, which CUDA operands take under grad, is run on the CPU
+with its forward launch standing in by the plain version: its backward goes
+through ``expert_matmul_bwd`` (here the plain version) with the forward's
+pre-activation and gives autograd's gradients through the plain forward.
 """
 from __future__ import annotations
 
@@ -236,6 +240,14 @@ BWD_SHAPES = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
               (3, 1, 40, 24, "gelu"), (2, 9, 13, 8, "none")]
 
 
+def _plain_z(x, w, act, dtype=torch.float32):
+    """The pre-activation formed from x and w in ``dtype`` (None without an
+    activation), as the plain forward forms it."""
+    if act == "none":
+        return None
+    return torch.einsum("ecd,edf->ecf", x.to(dtype), w.to(dtype))
+
+
 def _within(got, want, tol):
     want = np.asarray(jnp.asarray(want, jnp.float32))
     err = np.abs(got.float().numpy() - want).max()
@@ -246,9 +258,9 @@ def _within(got, want, tol):
 @pytest.mark.parametrize("E,C,D,F,act", BWD_SHAPES)
 def test_expert_matmul_bwd_matches_jax_vjp(E, C, D, F, act, dtype,
                                           monkeypatch):
-    """reference_expert_matmul_bwd against jax.vjp of the JAX oracle;
-    expert_matmul_bwd on CPU tensors is that plain version, with no
-    launch counted."""
+    """reference_expert_matmul_bwd, given the pre-activation in float32,
+    against jax.vjp of the JAX oracle; expert_matmul_bwd on CPU tensors is
+    that plain version, with no launch counted."""
     (jx, jw), (x, w) = _operands(E + C + D + F, E, C, D, F, dtype)
     jdt, tdt = DTYPES[dtype]
     g = np.random.default_rng(E * C).standard_normal((E, C, F))
@@ -259,7 +271,7 @@ def test_expert_matmul_bwd_matches_jax_vjp(E, C, D, F, act, dtype,
     want = vjp(jg)
     plain = _spy(monkeypatch, moe_gmm, "reference_expert_matmul_bwd")
     before = moe_gmm.bwd_launch_count
-    got = moe_gmm.expert_matmul_bwd(x, w, dy, act)
+    got = moe_gmm.expert_matmul_bwd(x, w, dy, act, z=_plain_z(x, w, act))
     assert moe_gmm.bwd_launch_count == before
     assert len(plain) == 1 and got is plain[0]
     for gr, wn, t in zip(got, want, (x, w)):
@@ -269,14 +281,17 @@ def test_expert_matmul_bwd_matches_jax_vjp(E, C, D, F, act, dtype,
 
 @pytest.mark.parametrize("act", ["none", "silu", "gelu"])
 def test_expert_matmul_bwd_float64_is_the_exact_witness(act):
-    """dtype=float64 gives float64 gradients that the float32 plain
-    version approaches to 1e-6 of their largest magnitude."""
+    """dtype=float64, given Z formed in float64, gives float64 gradients
+    that the float32 plain version (Z in float32) approaches to 1e-6 of
+    their largest magnitude."""
     _, (x, w) = _operands(3, 2, 20, 24, 16, "float32")
     dy = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 20, 16)).astype(np.float32))
-    exact = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act,
-                                                dtype=torch.float64)
-    f32 = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act)
+    exact = moe_gmm.reference_expert_matmul_bwd(
+        x, w, dy, act, z=_plain_z(x, w, act, torch.float64),
+        dtype=torch.float64)
+    f32 = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act,
+                                              z=_plain_z(x, w, act))
     for e, g in zip(exact, f32):
         assert e.dtype == torch.float64 and g.dtype == torch.float32
         assert float((g.double() - e).abs().max()) <= 1e-6 * float(
@@ -294,15 +309,26 @@ def test_function_routes_its_backward_through_the_wrapper(E, C, D, F, act,
     _, (x, w) = _operands(C + F, E, C, D, F, "float32")
     dy = torch.from_numpy(np.random.default_rng(D).standard_normal(
         (E, C, F)).astype(np.float32))
-    monkeypatch.setattr(moe_gmm, "_launch_forward", lambda a, b, act_: (
-        moe_gmm.reference_expert_matmul(a, b, activation=act_)))
+    def launch(a, b, act_, keep_z=False):
+        y, z = moe_gmm.reference_expert_matmul(a, b, activation=act_,
+                                               keep_z=True)
+        return y, (z if keep_z and act_ != "none" else None)
+
+    monkeypatch.setattr(moe_gmm, "_launch_forward", launch)
     calls = []
     bwd = moe_gmm.expert_matmul_bwd
     monkeypatch.setattr(moe_gmm, "expert_matmul_bwd", lambda *a, **kw: (
         calls.append(kw), bwd(*a, **kw))[1])
     leaves = [t.clone().requires_grad_() for t in (x, w)]
     moe_gmm._ExpertMatmul.apply(*leaves, act).backward(dy)
-    assert calls == [{"activation": act}]
+    assert len(calls) == 1 and sorted(calls[0]) == ["activation", "z"]
+    assert calls[0]["activation"] == act
+    # the forward's pre-activation reaches the backward (none needs none)
+    if act == "none":
+        assert calls[0]["z"] is None
+    else:
+        assert torch.equal(calls[0]["z"], moe_gmm.reference_expert_matmul(
+            x, w, activation="none"))
     ref_leaves = [t.clone().requires_grad_() for t in (x, w)]
     moe_gmm.reference_expert_matmul(*ref_leaves, activation=act).backward(dy)
     for a, b in zip(leaves, ref_leaves):
@@ -321,3 +347,86 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
         moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 3)), "relu")
     with pytest.raises(ValueError, match="devices"):
         moe_gmm.expert_matmul_bwd(x, w.to("meta"), torch.zeros((2, 4, 3)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,act", BWD_SHAPES)
+def test_expert_matmul_bwd_with_z_matches_jax_vjp(E, C, D, F, act, dtype,
+                                                 monkeypatch):
+    """reference_expert_matmul_bwd given the forward's pre-activation z (in
+    the operands' type) against jax.vjp of the JAX oracle, at the
+    tolerances of the form without z; expert_matmul_bwd on CPU tensors is
+    that plain version with z, with no launch counted."""
+    (jx, jw), (x, w) = _operands(E + C + D + F, E, C, D, F, dtype)
+    jdt, tdt = DTYPES[dtype]
+    jg = jnp.asarray(np.random.default_rng(E * C).standard_normal(
+        (E, C, F)), jdt)
+    dy = torch.from_numpy(np.array(jg, np.float32)).to(tdt)
+    _, vjp = jax.vjp(lambda a, b: ref.reference_expert_matmul(
+        a, b, activation=act), jx, jw)
+    want = vjp(jg)
+    y, z = moe_gmm.reference_expert_matmul(x, w, activation=act,
+                                           keep_z=True)
+    assert z.dtype == x.dtype and z.shape == (E, C, F)
+    assert torch.equal(y, moe_gmm.reference_expert_matmul(x, w,
+                                                          activation=act))
+    plain = _spy(monkeypatch, moe_gmm, "reference_expert_matmul_bwd")
+    before = moe_gmm.bwd_launch_count
+    got = moe_gmm.expert_matmul_bwd(x, w, dy, act, z=z)
+    assert moe_gmm.bwd_launch_count == before
+    assert len(plain) == 1 and got is plain[0]
+    for gr, wn, t in zip(got, want, (x, w)):
+        assert gr.dtype == t.dtype and gr.shape == t.shape
+        _within(gr, wn, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+def test_expert_matmul_bwd_float64_witness_holds_with_z(act):
+    """Given z, dtype=float64 forms dZ from z widened to float64: the
+    float32 plain version with the same z approaches it to 1e-6 of its
+    largest magnitude, and so does it the exact witness (Z formed in
+    float64), z being the float32 forward's pre-activation."""
+    _, (x, w) = _operands(5, 2, 20, 24, 16, "float32")
+    dy = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 20, 16)).astype(np.float32))
+    z = moe_gmm.reference_expert_matmul(x, w, activation=act,
+                                        keep_z=True)[1]
+    with_z = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act, z=z,
+                                                 dtype=torch.float64)
+    exact = moe_gmm.reference_expert_matmul_bwd(
+        x, w, dy, act, z=_plain_z(x, w, act, torch.float64),
+        dtype=torch.float64)
+    f32 = moe_gmm.reference_expert_matmul_bwd(x, w, dy, act, z=z)
+    for zw, e, g in zip(with_z, exact, f32):
+        assert zw.dtype == torch.float64 and g.dtype == torch.float32
+        top = float(e.abs().max())
+        assert float((g.double() - zw).abs().max()) <= 1e-6 * top
+        assert float((zw - e).abs().max()) <= 1e-6 * top
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_bwd_with_an_activation_needs_z(act):
+    """With an activation the backward, plain version and wrapper alike,
+    raises without the forward's pre-activation: nothing recomputes Z."""
+    _, (x, w) = _operands(7, 2, 24, 40, 32, "bfloat16")
+    dy = torch.zeros((2, 24, 32), dtype=torch.bfloat16)
+    for bwd in (moe_gmm.reference_expert_matmul_bwd,
+                moe_gmm.expert_matmul_bwd):
+        with pytest.raises(ValueError, match="pre-activation z"):
+            bwd(x, w, dy, act)
+
+
+def test_bwd_wrapper_rejects_a_z_of_another_shape():
+    x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 3))
+    with pytest.raises(ValueError, match="z"):
+        moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 3)), "silu",
+                                  z=torch.zeros((2, 4, 4)))
+
+
+def test_bwd_wrapper_rejects_dy_or_z_on_another_device():
+    x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 3))
+    with pytest.raises(ValueError, match="dy on meta"):
+        moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 3), device="meta"))
+    with pytest.raises(ValueError, match="z on meta"):
+        moe_gmm.expert_matmul_bwd(x, w, torch.zeros((2, 4, 3)), "silu",
+                                  z=torch.zeros((2, 4, 3), device="meta"))
