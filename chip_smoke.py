@@ -96,7 +96,9 @@ Phases, in order; any failure exits non-zero:
    longer launched on a path) held with ``==`` against its plain version
    (ties, +inf holes, off-tile shapes, EXTRA_SHAPE); flash attention in bf16 at FLASH_TOL, SSD in float32 at
    SSD_TOL, the expert matmul in bf16 at GMM_TOL and the RG-LRU scan at
-   RGLRU_TOL, at ``tests/test_kernels.py``'s shapes and a few more; the
+   RGLRU_TOL (two launches the same bits), at ``tests/test_kernels.py``'s
+   shapes and a few more (for the RG-LRU scan a W off 4, an S off its
+   stage and a base off 16 bytes, which take its ``cp.async`` route); the
    backward kernels against autograd through the plain versions, flash at
    FLASH_BWD_TOL on FLASH_GENERIC, SSD at SSD_BWD_TOL on SSD_GENERIC, the
    expert matmul at GMM_BWD_TOL on GMM_GENERIC and the RG-LRU scan at
@@ -217,7 +219,9 @@ Phases, in order; any failure exits non-zero:
    float64 witness, at SSD_WITNESS and RGLRU_WITNESS times the plain
    version's own error (random operands at SSD_TOL and RGLRU_TOL), and the
    SSD witness must also reject two wrong outputs (one head with its
-   neighbour's dt and A, each query tile's diagonal score tile dropped); the
+   neighbour's dt and A, each query tile's diagonal score tile dropped), and
+   both RG-LRU gates three (the state restarted every RGLRU_STAGE steps, a
+   slab carrying the previous slab's state, the last stage unwritten); the
    expert matmul at GMM_TOL, which must also reject two wrong outputs (one
    GMM_TILE slice of D left out, one counted twice); then each shape timed
    by ``torch.profiler`` device time (a time on a held stream by CUDA
@@ -318,14 +322,18 @@ FP32_EPS = 2.0 ** -23
 # within GMM_TOL of |want| plus GMM_TOL of max |want|.
 GMM_TOL = 2.0 ** -7
 GMM_TILE = 64  # depth of one ring stage of csrc/moe_gmm.cu (BK)
-# RG-LRU, float32: the kernel's sequential chunks and the plain version's
-# doubling scan round the same recurrence in other orders: max |got - want|
+# RG-LRU, float32: the kernel's sequential recurrence and the plain
+# version's doubling scan round it in other orders: max |got - want|
 # at most RGLRU_TOL of max |want| (tests/test_kernels.py's 1e-5).  On the
 # path's recorded operands both are held to the float64 witness: the
 # kernel's largest error at most RGLRU_WITNESS times the plain version's
 # (or eps of the largest value, where the plain version is exact).
 RGLRU_TOL = 1e-5
 RGLRU_WITNESS = 4.0
+# csrc/rglru.cu's ring stage (SB steps) and slab (WB channels): the wrong
+# outputs its gates must reject lose a carry where a stage or a slab ends
+RGLRU_STAGE = 128
+RGLRU_SLAB = 64
 CHECK_TOL = 2e-2  # path 2, card vs CPU, first two groups: of the largest
 #                   magnitude (PERF.md gives the readings it was set from)
 # The backward kernels against autograd through their plain versions.
@@ -502,10 +510,12 @@ GMM_GENERIC = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
                (8, 40, 72, 200, "gelu"), (3, 70, 50, 33, "silu"),
                (2, 256, 2048, 768, "none"), (3, 1, 40, 24, "gelu"),
                (1, 200, 136, 100, "silu")]
-# (B, S, W): tests/test_kernels.py's cases, one step, a chunk and a half;
-# the backward's cases too
+# (B, S, W): tests/test_kernels.py's cases, one step, a stage and a half;
+# W off a multiple of 4 with S off the stage, and (B, S, W, offset) a base
+# ``offset`` floats into its storage (off 16 bytes): the last two take the
+# forward kernel's cp.async route; the backward's cases too
 RGLRU_GENERIC = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
-                 (1, 192, 1000)]
+                 (1, 192, 1000), (2, 77, 75), (3, 130, 96, 1)]
 
 
 def _smi(query: str) -> str:
@@ -1974,9 +1984,20 @@ def _gmm_rejects_wrong_outputs(gmm, args, kw) -> None:
 
 
 def _rglru_operands(gen, shape, device):
-    """a in [0.7, 0.999) and b of an RG-LRU scan at ``(B, S, W)``."""
-    return ((torch.rand(shape, generator=gen) * 0.299 + 0.7).to(device),
-            (torch.randn(shape, generator=gen) * 0.1).to(device))
+    """a in [0.7, 0.999) and b of an RG-LRU scan at ``(B, S, W)``; at
+    ``(B, S, W, offset)`` each a contiguous view ``offset`` floats into
+    its storage."""
+    shape, offset = tuple(shape[:3]), (shape[3] if len(shape) > 3 else 0)
+
+    def placed(t):
+        if not offset:
+            return t.to(device)
+        flat = torch.empty(offset + t.numel(), device=device)
+        flat[offset:] = t.reshape(-1).to(device)
+        return flat[offset:].view(shape)
+
+    return (placed(torch.rand(shape, generator=gen) * 0.299 + 0.7),
+            placed(torch.randn(shape, generator=gen) * 0.1))
 
 
 def _rglru_check(rglru, cases, what: str) -> float:
@@ -1985,13 +2006,15 @@ def _rglru_check(rglru, cases, what: str) -> float:
     max_abs_err."""
     failures, max_err, worst = 0, 0.0, 0.0
     for a, b in cases:
-        got, want = rglru.rglru_scan(a, b), rglru.reference_rglru_scan(a, b)
+        got, again = rglru.rglru_scan(a, b), rglru.rglru_scan(a, b)
+        want = rglru.reference_rglru_scan(a, b)
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        failures += not rel <= RGLRU_TOL
+        failures += not (rel <= RGLRU_TOL and torch.equal(got, again))
         max_err, worst = max(max_err, err), max(worst, rel)
     line = (f"rglru {what}: {len(cases)} float32 cases, max error {worst!r} "
-            f"of the largest |h| (limit {RGLRU_TOL}), max_abs_err {max_err!r}")
+            f"of the largest |h| (limit {RGLRU_TOL}), two launches the same "
+            f"bits, max_abs_err {max_err!r}")
     if failures:
         raise AssertionError(f"{line}: {failures} cases past the limit")
     print(line)
@@ -2006,23 +2029,92 @@ def _rglru_check_witness(rglru, cases, what: str) -> float:
     the plain version."""
     failures, max_err = 0, 0.0
     for n, (a, b) in enumerate(cases):
-        got, want = rglru.rglru_scan(a, b), rglru.reference_rglru_scan(a, b)
+        got, again = rglru.rglru_scan(a, b), rglru.rglru_scan(a, b)
+        want = rglru.reference_rglru_scan(a, b)
         exact = rglru.reference_rglru_scan(a, b, dtype=torch.float64)
-        top = float(exact.abs().max())
-        err_k = float((got.double() - exact).abs().max())
-        err_p = float((want.double() - exact).abs().max())
-        limit = RGLRU_WITNESS * max(err_p, FP32_EPS * top)
-        failures += not err_k <= limit
+        err_k, limit, err_p = _rglru_witness(got, want, exact)
+        same = torch.equal(got, again)
+        failures += not (err_k <= limit and same)
         vs_plain = float((got - want).abs().max())
         max_err = max(max_err, vs_plain)
         print(f"rglru {what}, case {n}, against float64: kernel {err_k!r} "
               f"(limit {limit!r}), plain {err_p!r}; kernel vs plain "
-              f"{vs_plain!r}; largest |h| {top!r}, a in "
+              f"{vs_plain!r}; two launches the same bits: {same}; largest "
+              f"|h| {float(exact.abs().max())!r}, a in "
               f"[{float(a.min())!r}, {float(a.max())!r}]")
     if failures:
         raise AssertionError(f"rglru {what}: {failures} cases past the "
                              f"limit")
     return max_err
+
+
+def _rglru_witness(got, want, exact) -> tuple[float, float, float]:
+    """(the largest error of ``got`` against the float64 values ``exact``,
+    its limit: RGLRU_WITNESS times the plain version ``want``'s own largest
+    error, or eps of the largest value where the plain version is exact,
+    the plain version's error)."""
+    err_k = float((got.double() - exact).abs().max())
+    err_p = float((want.double() - exact).abs().max())
+    return err_k, RGLRU_WITNESS * max(
+        err_p, FP32_EPS * float(exact.abs().max())), err_p
+
+
+def _rglru_from(rglru, a, b, h0):
+    """The plain version of the scan from the state ``h0`` (B, W) instead
+    of 0: ``b_1`` takes ``a_1 h0`` in."""
+    b = b.clone()
+    b[:, 0] += a[:, 0] * h0
+    return rglru.reference_rglru_scan(a, b)
+
+
+def _rglru_wrong_outputs(rglru, args) -> dict:
+    """Three deliberately wrong outputs on these operands, built from the
+    plain version by RGLRU_STAGE-step stages: the state restarting from 0
+    at every stage (a carry lost where a stage ends); each slab of
+    RGLRU_SLAB channels but the first taking the previous slab's state
+    into every stage (a channel offset slipped by a slab); the last stage
+    left unwritten (zeros)."""
+    a, b = args
+    S, W = a.shape[1], a.shape[2]
+    stages = range(0, S, RGLRU_STAGE)
+    restarted = torch.cat([rglru.reference_rglru_scan(
+        a[:, t:t + RGLRU_STAGE], b[:, t:t + RGLRU_STAGE]) for t in stages],
+        dim=1)
+    parts, h0 = [], torch.zeros_like(a[:, 0])
+    for t in stages:
+        if W > RGLRU_SLAB:
+            h0 = torch.cat([h0[:, :RGLRU_SLAB], h0[:, :-RGLRU_SLAB]], dim=1)
+        part = _rglru_from(rglru, a[:, t:t + RGLRU_STAGE],
+                           b[:, t:t + RGLRU_STAGE], h0)
+        parts.append(part)
+        h0 = part[:, -1]
+    unwritten = rglru.reference_rglru_scan(a, b)
+    unwritten[:, (S - 1) // RGLRU_STAGE * RGLRU_STAGE:] = 0
+    return {"the state restarted every stage": restarted,
+            "a slab carrying the previous slab's state": torch.cat(parts,
+                                                                   dim=1),
+            "the last stage unwritten": unwritten}
+
+
+def _rglru_rejects_wrong_outputs(rglru, args) -> None:
+    """RGLRU_TOL against the plain version and the float64 witness at
+    RGLRU_WITNESS must each reject the three wrong outputs of
+    ``_rglru_wrong_outputs`` on these operands; prints the error of
+    each."""
+    want = rglru.reference_rglru_scan(*args)
+    exact = rglru.reference_rglru_scan(*args, dtype=torch.float64)
+    top = float(want.abs().max())
+    for what, out in _rglru_wrong_outputs(rglru, args).items():
+        rel = float((out - want).abs().max()) / top
+        err_k, limit, _ = _rglru_witness(out, want, exact)
+        if rel <= RGLRU_TOL or err_k <= limit:
+            raise AssertionError(f"an RG-LRU gate passes a wrong output "
+                                 f"({what}): {rel!r} of the largest |h| "
+                                 f"(limit {RGLRU_TOL}), {err_k!r} against "
+                                 f"float64 (limit {limit!r})")
+        print(f"rglru check rejects a wrong output ({what}; "
+              f"{tuple(args[0].shape)}): {rel!r} of the largest |h| (limit "
+              f"{RGLRU_TOL}), {err_k!r} against float64 (limit {limit!r})")
 
 
 # ------------------------------------------------------ backward kernels --
@@ -2476,7 +2568,7 @@ def _rglru_bwd_operands(gen, shape, device):
 
     a, b = _rglru_operands(gen, shape, device)
     return (a, reference_rglru_scan(a, b),
-            torch.randn(shape, generator=gen).to(device))
+            torch.randn(a.shape, generator=gen).to(device))
 
 
 RGLRU_GRADS = ("da", "db")
@@ -4616,6 +4708,7 @@ def _gmm_path_check(gmm, recorded, random) -> tuple[float, None]:
 def _rglru_path_check(rglru, recorded, random) -> tuple[float, None]:
     err = _rglru_check_witness(rglru, [args for args, _ in recorded],
                                "recorded at path 2's shapes")
+    _rglru_rejects_wrong_outputs(rglru, recorded[0][0])
     return max(err, _rglru_check(rglru, [args for args, _ in random],
                                  "random at path 2's shapes")), None
 
@@ -4670,6 +4763,14 @@ def _rglru_bwd_path_check(rglru, recorded, random) -> tuple[float, dict]:
                                "random at path 4's shapes"))
     _rglru_bwd_rejects_wrong_outputs(rglru, recorded[0][0])
     return err, _witness_summary(readings)
+
+
+def _rglru_same_bytes(args, kw):
+    """``torch.add(a, b, out=h)``: a and b read and h written once, the
+    RG-LRU scan's 12 bytes an element without its recurrence."""
+    a, b = args
+    h = torch.empty_like(a)
+    return lambda: torch.add(a, b, out=h)
 
 
 def _flash_library(args, kw):
@@ -4748,6 +4849,9 @@ class Kernel(NamedTuple):
     check: Callable | None = None
     bound: Callable | None = None  # key -> (ms, by, operations, bytes)
     library: Callable = lambda args, kw: None  # noqa: E731
+    # (args, kw) -> a call that moves the kernel's bytes without its work,
+    # timed beside it (``same_bytes_ms``): what the card reaches on them
+    same_bytes: Callable = lambda args, kw: None  # noqa: E731
     # key -> (ms, by) of the same work at the fp32 rate, or None
     fp32_bound: Callable = lambda key: None  # noqa: E731
     module: str = ""  # module of repro_torch.kernels, if not the kernel's name
@@ -4817,9 +4921,9 @@ KERNELS = {
         "src/repro_torch/kernels/csrc/rglru.cu",
         "src/repro/kernels/rglru.py:23",
         ("repro_torch.models.layers", "rglru_scan"), _rglru_key,
-        "rglru_chunk", "rglru_scan", "reference_rglru_scan",
+        "rglru_scan_kernel", "rglru_scan", "reference_rglru_scan",
         lambda gen, s, kw, device: (_rglru_operands(gen, s, device), kw),
-        _rglru_path_check, _rglru_bound),
+        _rglru_path_check, _rglru_bound, same_bytes=_rglru_same_bytes),
     # the backward kernels (path 4): the gradients of the TPU kernels, which
     # have none of their own
     "flash_attention_bwd": Kernel(
@@ -4905,6 +5009,12 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
             library_ms = _kernel_device_ms(library, 20, None)
             print(f"{name} {s}: library yardstick (never called by the port) "
                   f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
+        same_bytes = spec.same_bytes(args, kw)
+        same_ms = None
+        if same_bytes is not None:
+            same_ms = _kernel_device_ms(same_bytes, 20, None)
+            print(f"{name} {s}: the same bytes without the work "
+                  f"{same_ms!r} ms: {bound / same_ms!r} of the bound")
         rate, share = n_ops / (ms * 1e-3), bound / ms
         byte_rate = n_bytes / (ms * 1e-3)
         rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
@@ -4912,7 +5022,9 @@ def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": library_ms, "ops_per_s": rate,
                    "bytes_per_s": byte_rate, "bound_share": share,
-                   **({"grad_ms": grad_ms} if grad_ms is not None else {})}
+                   **({"grad_ms": grad_ms} if grad_ms is not None else {}),
+                   **({"same_bytes_ms": same_ms} if same_ms is not None
+                      else {})}
         fp32 = spec.fp32_bound(s)
         if fp32 is not None:
             rows[s].update(fp32_bound_ms=fp32[0], fp32_bound_by=fp32[1],
@@ -5102,7 +5214,8 @@ def main() -> int:
 
     order = ["name", "route", "source", "replaces", "launches", "mismatches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "grad_ms", "ops_per_s", "bytes_per_s",
+             "library_ms", "same_bytes_ms", "grad_ms", "ops_per_s",
+             "bytes_per_s",
              "bound_share", "fp32_bound_ms", "fp32_bound_by",
              "fp32_bound_share", "shape", "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
              "note", "witness_float64", "shapes"]

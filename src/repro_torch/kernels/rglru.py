@@ -5,10 +5,12 @@
 channel on its own.  On CUDA tensors it launches the hand-written kernel in
 ``csrc/rglru.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, see
 :mod:`.build`) and raises if the build or the launch fails; the kernel takes
-float32, the type the model path gives it.  Where grad mode is on and an
-operand requires grad, the launch goes through the autograd Function
-``_RGLRUScan``, which keeps h, and whose backward is the hand-written kernel
-in ``csrc/rglru_bwd.cu`` (:func:`rglru_scan_bwd`): the reverse scan
+float32, the type the model path gives it, and reads a and b once: its TMA
+instantiation where :func:`tma_route` allows it, else its ``cp.async``
+one.  Where grad mode is on and an operand requires grad, the launch goes
+through the autograd Function ``_RGLRUScan``, which keeps h, and whose
+backward is the hand-written kernel in ``csrc/rglru_bwd.cu``
+(:func:`rglru_scan_bwd`): the reverse scan
 ``lambda_t = g_t + a_{t+1} lambda_{t+1}`` of the cotangent g, with ``db =
 lambda`` and ``da_t = lambda_t h_{t-1}``.  On CPU tensors it computes
 :func:`reference_rglru_scan`, the plain PyTorch version, and autograd
@@ -23,9 +25,8 @@ import torch
 from . import build as _build
 
 LIBRARY = _build.KernelLibrary("rglru", {
-    "rglru_scan_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p],
-    "rglru_chunks": [ctypes.c_int]})
+    "rglru_scan_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]})
 BWD_LIBRARY = _build.KernelLibrary("rglru_bwd", {
     "rglru_scan_bwd_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p],
@@ -108,6 +109,16 @@ def _check_launch(operands, what: str) -> None:
                          f"operands")
 
 
+def tma_route(*operands) -> bool:
+    """Whether the forward kernel takes these (B, S, W) float32 operands
+    through its TMA instantiation: W a multiple of 4 (16-byte row strides)
+    and every base 16-byte aligned, the tensor maps' rules.  Any other W or
+    base (a view with a storage offset) takes its ``cp.async``
+    instantiation, the same hand-written scan."""
+    return (operands[0].shape[-1] % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in operands))
+
+
 def _launch_forward(a, b):
     global launch_count
     _check_launch((a, b), "forward")
@@ -115,15 +126,11 @@ def _launch_forward(a, b):
     if out.numel() == 0:
         return out
     B, S, W = a.shape
-    chunks = LIBRARY.entry("rglru_chunks")(S)
-    summaries = torch.empty((2, B, chunks, W), dtype=torch.float32,
-                            device=a.device)
     fn = LIBRARY.entry("rglru_scan_f32")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 summaries[0].data_ptr(), summaries[1].data_ptr(), B, S, W,
-                 stream)
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, S, W,
+                 int(tma_route(a, b, out)), stream)
     if err != 0:
         raise RuntimeError(f"RG-LRU kernel launch failed: CUDA error {err}")
     launch_count += 1

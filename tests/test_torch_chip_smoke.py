@@ -156,6 +156,107 @@ def test_ssd_witness_rejects_wrong_outputs(fault):
     assert within == (fault is None)
 
 
+# ------------------------------------------------------------- RG-LRU ---
+def test_rglru_bound_at_the_path_shape():
+    """recurrentgemma-9b's scan, (1, 4096, 4096) float32: a and b read and
+    h written once, 201,326,592 bytes, 60.1 us at 3.35 TB/s; its two flops
+    an element are far below the fp32 rate."""
+    ms, by, n_ops, n_bytes = cs._rglru_bound((1, 4096, 4096))
+    assert n_bytes == 201_326_592 and n_ops == 2 * 4096 * 4096
+    assert by == "bytes"
+    assert ms == pytest.approx(0.0601, rel=1e-3)
+    assert cs.KERNELS["rglru"].profiled == "rglru_scan_kernel"
+    assert not any(cs.KERNELS["rglru"].profiled in name for name in (
+        "rglru_bwd_chunk_summaries", "rglru_bwd_chunk_scan"))
+
+
+RGLRU_FAULTS = ["the state restarted every stage",
+                "a slab carrying the previous slab's state",
+                "the last stage unwritten"]
+
+
+@pytest.mark.parametrize("fault", [None, *RGLRU_FAULTS],
+                         ids=["plain", "restart", "slab", "unwritten"])
+def test_rglru_checks_reject_wrong_outputs(fault, monkeypatch):
+    """Both RG-LRU gates pass the plain version standing in for the kernel
+    and each fails every wrong output of ``_rglru_wrong_outputs``, over
+    three stages, the last one partial, and three slabs, the last one
+    partial.  On the CPU the wrapper is the plain version itself."""
+    from repro_torch.kernels import rglru
+
+    args = cs._rglru_operands(torch.Generator().manual_seed(12),
+                              (2, 300, 150), "cpu")
+    assert 2 * cs.RGLRU_STAGE < 300 < 3 * cs.RGLRU_STAGE
+    assert 2 * cs.RGLRU_SLAB < 150 < 3 * cs.RGLRU_SLAB
+    wrong = cs._rglru_wrong_outputs(rglru, args)
+    assert list(wrong) == RGLRU_FAULTS
+    cs._rglru_rejects_wrong_outputs(rglru, args)
+    if fault is None:
+        assert cs._rglru_check(rglru, [args], "plain") >= 0.0
+        assert cs._rglru_check_witness(rglru, [args], "plain") >= 0.0
+        return
+    monkeypatch.setattr(rglru, "rglru_scan", lambda *a: wrong[fault])
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._rglru_check(rglru, [args], "wrong")
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._rglru_check_witness(rglru, [args], "wrong")
+
+
+def test_rglru_checks_reject_a_scan_that_changes_its_bits(monkeypatch):
+    """Two launches on the same operands must give the same bits: a scan
+    whose second result is one ulp off in one element fails both gates,
+    though it is well within their limits."""
+    from repro_torch.kernels import rglru
+
+    args = cs._rglru_operands(torch.Generator().manual_seed(13),
+                              (1, 70, 40), "cpu")
+    want = rglru.reference_rglru_scan(*args)
+    nudged = want.clone()
+    nudged[0, 5, 7] = torch.nextafter(nudged[0, 5, 7],
+                                      torch.tensor(float("inf")))
+    results = iter([want, nudged] * 2)
+    monkeypatch.setattr(rglru, "rglru_scan", lambda *a: next(results))
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._rglru_check(rglru, [args], "changing")
+    with pytest.raises(AssertionError, match="past the limit"):
+        cs._rglru_check_witness(rglru, [args], "changing")
+
+
+def test_rglru_generic_cases_reach_both_routes():
+    """RGLRU_GENERIC holds a W off a multiple of 4 with S off the stage and
+    a base off 16 bytes: both take the forward kernel's cp.async route,
+    every other case its TMA route, and each operand is the contiguous
+    (B, S, W) asked for."""
+    from repro_torch.kernels import rglru
+
+    gen = torch.Generator().manual_seed(2)
+    routes = {}
+    for shape in cs.RGLRU_GENERIC:
+        a, b = cs._rglru_operands(gen, shape, "cpu")
+        assert a.shape == b.shape == tuple(shape[:3])
+        assert a.is_contiguous() and b.is_contiguous()
+        assert a.storage_offset() == (shape[3] if len(shape) > 3 else 0)
+        routes[tuple(shape)] = rglru.tma_route(a, b, torch.empty_like(a))
+    assert routes[(2, 77, 75)] is False and 77 % cs.RGLRU_STAGE
+    assert routes[(3, 130, 96, 1)] is False
+    assert sum(routes.values()) == len(routes) - 2
+
+
+def test_rglru_generic_checks_run_on_the_cpu():
+    """Phase 3's RG-LRU checks, forward and backward, over every
+    RGLRU_GENERIC case (a base off 16 bytes among them), with the plain
+    versions standing in for the kernels."""
+    from repro_torch.kernels import rglru
+
+    gen = torch.Generator().manual_seed(2)
+    assert cs._rglru_check(rglru, [cs._rglru_operands(gen, s, "cpu")
+                                   for s in cs.RGLRU_GENERIC],
+                           "generic") >= 0.0
+    assert cs._rglru_bwd_check(rglru, [cs._rglru_bwd_operands(gen, s, "cpu")
+                                       for s in cs.RGLRU_GENERIC],
+                               "generic") >= 0.0
+
+
 # ---------------------------------------------------- MoE routing gate ---
 def _routes(logits, idx):
     """One MoE layer's routing of 8 tokens (2 sequences of 4) to 1 of 4

@@ -512,6 +512,56 @@ def test_rglru_matches_plain(cuda, B, S, W):
     assert torch.allclose(h, want, atol=1e-5, rtol=1e-5)
 
 
+# Off the path: one step; one step past a ring stage of csrc/rglru.cu (128
+# steps) with a partial slab (64 channels); three batch rows; W 75 (the
+# cp.async route), within a stage and one step past two
+RGLRU_EDGES = [(1, 1, 256), (1, 129, 96), (3, 200, 160), (2, 77, 75),
+               (1, 257, 75)]
+
+
+def _rglru_ab(device, B, S, W, offset=0):
+    """a in [0.7, 0.999) and b, each a contiguous (B, S, W) view ``offset``
+    floats into its own storage."""
+    gen = torch.Generator(device=device).manual_seed(S + W + offset)
+    n = B * S * W
+    a = torch.rand(offset + n, generator=gen, device=device) * 0.299 + 0.7
+    b = torch.randn(offset + n, generator=gen, device=device) * 0.1
+    return a[offset:].view(B, S, W), b[offset:].view(B, S, W)
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_EDGES + [(1, 4096, 4096)])
+def test_rglru_two_launches_same_bits(cuda, B, S, W):
+    """The scan is the sequential recurrence, no atomics: two launches on
+    the same operands give the same bits, within 1e-5 of the plain
+    version."""
+    a, b = _rglru_ab(cuda, B, S, W)
+    before = rglru.launch_count
+    h, again = rglru.rglru_scan(a, b), rglru.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru.launch_count == before + 2
+    assert torch.equal(h, again)
+    want = rglru.reference_rglru_scan(a, b)
+    assert torch.allclose(h, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,W,offset", [(2, 77, 75, 0), (1, 300, 128, 1),
+                                          (2, 64, 64, 2), (1, 1, 8, 3)])
+def test_rglru_takes_any_width_and_base(cuda, B, S, W, offset):
+    """W off a multiple of 4 and views with a storage offset (bases off 16
+    bytes) take the kernel's cp.async route, counted as a launch, within
+    1e-5 of the plain version."""
+    a, b = _rglru_ab(cuda, B, S, W, offset)
+    assert a.is_contiguous() and a.storage_offset() == offset
+    assert not rglru.tma_route(a, b)
+    before = rglru.launch_count
+    h = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru.launch_count == before + 1
+    want = rglru.reference_rglru_scan(a, b)
+    assert h.shape == (B, S, W)
+    assert torch.allclose(h, want, atol=1e-5, rtol=1e-5)
+
+
 def test_rglru_rejects_what_it_does_not_take(cuda):
     a = torch.zeros((1, 8, 4), device=cuda)
     with pytest.raises(TypeError, match="float32"):
