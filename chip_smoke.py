@@ -24,11 +24,13 @@ from a seed, one after the other (MODELS):
   local attention cuts keys), its ``rglru`` blocks through the RG-LRU kernel
   and its ``local_attn`` blocks through flash attention at head width 256.
 
-Path 3 is serving, inside the turns of qwen2-1.5b, mamba2-370m and
-recurrentgemma-9b on the same weights (SERVE; MoE decode is not ported):
-``repro_torch.serving.prefill`` of left-padded prompts through the flash,
-SSD and RG-LRU kernels, then greedy ``decode_step``s in plain PyTorch over
-the KV rings and the SSD and RG-LRU states, then ``ServingEngine.generate``
+Path 3 is serving, inside the turns of all four models on the same
+weights (SERVE): ``repro_torch.serving.prefill`` of left-padded prompts
+through the flash, SSD, RG-LRU and expert-matmul kernels, then greedy
+``decode_step``s over the KV rings and the SSD and RG-LRU states, in plain
+PyTorch but for qwen3-moe-30b-a3b's expert products (three expert-matmul
+launches an MoE layer in every step: 32 prompts of 128-960 tokens, each
+step routing its 32 tokens at capacity 2), then ``ServingEngine.generate``
 on the same prompts.
 
 Path 4 is training (float32 weights, bf16 compute; TRAIN): inside the
@@ -158,8 +160,25 @@ Phases, in order; any failure exits non-zero:
    greedy token that forward's argmax or a near tie) and, at full depth,
    within FLOOR_FACTOR of the floor between that forward through the
    kernels and through the plain versions; ``generate``'s tokens ``==``
-   the loop's, every logit finite; its
-   prefill ms, decode ms a step (p50, p90), tokens/s, cache bytes and peak
+   the loop's, every logit finite.  An MoE layer takes its capacity over
+   a call's own tokens, so for qwen3-moe a cached decode and a cache-free
+   forward rightly drop other slots, and the gates know the routing: the
+   launches call by call (the prefill flash once and the expert matmul
+   three times a layer, every decode step the expert matmul three times a
+   layer and flash never), every layer call's capacity and drops the
+   reference's over its own tokens; at full depth the served logits
+   within FLOOR_FACTOR of the floor of the same cached decode through the
+   plain versions with the served picks replayed; once the other layers'
+   weights are freed (``run_moe_serve_cut``), at SERVE_CHECK_DEPTH
+   repetitions with ``capacity_factor`` E / k (no slot can drop) on as
+   many rows as fit, the cached decode against the teacher-forced forward
+   route-aware (``_moe_gate``: the forward with the decode's picks
+   replayed for every output), and card against CPU at the config's
+   capacity over all rows, the CPU's plain prefill and first
+   SERVE_CPU_STEPS decode steps fed the card's tokens, with its own
+   routing and with the card's picks replayed call by call; its prefill
+   ms, decode ms a step (p50, p90) beside the step's byte bound (weights,
+   head and cache at HBM_BYTES_PER_S), tokens/s, cache bytes and peak
    memory printed beside the card; then path 4 where the model trains
    (``run_train_path``; for qwen3-moe and recurrentgemma after path 7's
    forward, ``run_fresh_train_path``: the training state counted and held
@@ -411,15 +430,30 @@ class ServeTraffic(NamedTuple):
     cache_len: int
 
 
-# path 3, inside its model's turn of path 2 (MoE decode is ROADMAP A17):
-# qwen2 fills a KV cache of 0.5 GB; mamba2's prompts are 7 SSD chunks and
-# its teacher-forced forward 8; recurrentgemma's 2048-slot local ring wraps
-# at every decode step
+# path 3, inside its model's turn of path 2: qwen2 fills a KV cache of 0.5
+# GB; mamba2's prompts are 7 SSD chunks and its teacher-forced forward 8;
+# qwen3-moe's 32 prompts pad to 960 tokens, 30 whole MoE groups of 1,024
+# at C 80 (a 1.27 GB dispatch buffer), its 48 KV rings hold 3.2 GB beside
+# the 61.1 GB of weights, a decode step routes its 32 tokens at C 2, and
+# prompt and generated tokens make 1,024 a row (whole groups for any rows);
+# recurrentgemma's 2048-slot local ring wraps at every decode step
 SERVE = {
     "qwen2-1.5b": ServeTraffic(8, 256, 2048, 128, 2176),
     "mamba2-370m": ServeTraffic(8, 256, 1792, 256, 2048),
+    "qwen3-moe-30b-a3b": ServeTraffic(32, 128, 960, 64, 1024),
     "recurrentgemma-9b": ServeTraffic(1, 4096, 4096, 64, 4160),
 }
+# path 3's MoE card-vs-CPU gate at 2 layers runs the last SERVE_CPU_TOKENS
+# tokens of every padded prompt (2 whole groups of 1,024 at C 80 over the
+# 32 rows; every row's are its own prompt's, none shorter than 128) and the
+# first SERVE_CPU_STEPS decode steps (N): the CPU's plain expert products
+# run in float32 at 70-97 GFLOP/s on the card's host (PERF.md), so the
+# whole prefill's 2.9 TFLOP a layer would take the CPU's two runs about
+# 230 s, and at 128 tokens and 4 steps they took 44 s
+SERVE_CPU_TOKENS = 64
+SERVE_CPU_STEPS = 4
+# rows at a time of path 3's MoE plain forwards (and their float32 scores)
+SERVE_PLAIN_ROWS = 8
 # path 3's teacher-forced check at CHECK_TOL runs on the first
 # SERVE_CHECK_DEPTH pattern repetitions (path 2's card-vs-CPU check takes as
 # many).  At full depth the models amplify bf16 rounding past CHECK_TOL: the
@@ -2738,14 +2772,17 @@ def _rglru_bwd_key(a, h, g):
 
 
 @contextlib.contextmanager
-def record_routes(replay=None, own=None):
+def record_routes(replay=None, own=None, slim: bool = False):
     """Record every MoE layer's routing inside the block: yields a list of
     ``layers.Routing``, one per layer call in order.  With ``replay``
     (another run's routings of the same layer calls) each call sends its
     tokens to that run's experts instead, through
     ``layers.routing_of_picks``, whose buffer places and capacity drops
     must then be ``==`` that run's; the router's own routing is appended to
-    ``own`` where a list is given."""
+    ``own`` where a list is given.  ``slim`` keeps of each routing only its
+    picks, places, drops and capacity, all that a replay reads (a prefill
+    of path 3's MoE model routes 30,720 tokens at each of 48 layers, whose
+    float32 logits and probabilities would take 1.5 GB)."""
     from repro_torch.models import layers as ML
 
     routes: list = []
@@ -2764,7 +2801,8 @@ def record_routes(replay=None, own=None):
                 raise AssertionError(f"MoE layer {len(routes)}: the replayed "
                                      f"picks give other buffer places or "
                                      f"drops")
-        routes.append(r)
+        routes.append(r._replace(logits=None, probs=None, gates=None)
+                      if slim else r)
         return r
 
     ML.moe_route = recorder
@@ -2782,9 +2820,11 @@ def _rel(out, ref) -> float:
 
 
 def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int,
-              names: tuple[str, str] = ("card", "CPU")) -> str:
+              names: tuple[str, str] = ("card", "CPU"), at=None) -> str:
     """The card-vs-CPU gate of a model with MoE layers, on the tokens
-    (rows of ``rows`` sequences, each a row of ``got``): ``own`` is the
+    (rows of ``rows`` sequences, each a row of ``got``; with ``at``, the
+    outputs at those positions of each sequence only, sequence by
+    sequence, where the routings cover every position): ``own`` is the
     CPU's output with its own routing, ``replayed`` with the card's expert
     picks.  Every pick of the card that the CPU's router would not make
     must be a near tie there (within CHECK_TOL of the largest |logit|),
@@ -2800,21 +2840,26 @@ def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int,
 
     ra = ML.routing_agreement([(r.logits, r.idx, r.keep) for r in card_routes],
                               [(r.logits, r.idx, r.keep) for r in cpu_routes])
-    first = ((~ra.agree).reshape(rows, -1).cumsum(1) == 0).flatten()
+    first = (~ra.agree).reshape(rows, -1).cumsum(1) == 0
+    if at is not None:
+        first = first[:, at]
+    first = first.flatten()
     err_first = _rel(got[first], own[first])
     err_all = _rel(got, replayed)
+    n_tok = ra.agree.numel()
     line = (f"routing: {ra.flips} of {ra.picks} expert picks differ by slot, "
-            f"{ra.diverged} of {len(own)} tokens keep other experts at some "
+            f"{ra.diverged} of {n_tok} tokens keep other experts at some "
             f"layer, each first at a near tie (the largest distance of a "
             f"differing expert from the {cpu}'s top-k cut {ra.worst_gap!r} "
             f"of the largest |logit|, limit {CHECK_TOL}), "
             f"{int(ra.agree.sum())} keep the same experts at every layer; "
-            f"the {int(first.sum())} tokens before their sequence's first "
-            f"that routes otherwise {err_first!r}, every token with the "
-            f"{card}'s picks replayed on the {cpu} {err_all!r} of the "
-            f"largest magnitude (limit {CHECK_TOL})")
+            f"the {int(first.sum())} {'outputs' if at is not None else 'tokens'}"
+            f" before their sequence's first token that routes otherwise "
+            f"{err_first!r}, every one with the {card}'s picks replayed on "
+            f"the {cpu} {err_all!r} of the largest magnitude (limit "
+            f"{CHECK_TOL})")
     if not ra.flips_are_near_ties(CHECK_TOL) \
-            or 2 * int(ra.agree.sum()) < len(own):
+            or 2 * int(ra.agree.sum()) < n_tok:
         raise AssertionError(f"the {card}'s routing is not the {cpu}'s up "
                              f"to near ties; {line}")
     if not (err_first < CHECK_TOL and err_all < CHECK_TOL):
@@ -2961,18 +3006,25 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     torch.cuda.empty_cache()
     pipeline = run_pipeline_path(name, cfg, params, PIPELINE[name], mods,
                                  device)
-    serve = train = pipeline_train = None
+    serve = train = pipeline_train = cut = None
     fresh = name in TRAIN and TRAIN[name].layers is not None
+    for run in ({"recorded": recorded}, pipeline):
+        park(run)  # the recorded operands wait on the host from here on
     if name in SERVE:
         serve = run_serve_path(name, cfg, params, SERVE[name], spec.kernels,
                                mods, device)
+        if cfg.n_experts:
+            cut = serve_cut(cfg, params)
     if name in TRAIN and not fresh:
         train = run_train_path(name, cfg, params, TRAIN[name], mods, device)
     del params  # path 7's steps draw the seeded weights again
     torch.cuda.empty_cache()
+    if cut is not None:
+        serve.update(run_moe_serve_cut(name, *cut, SERVE[name], device))
+        del cut
+        torch.cuda.empty_cache()
     if fresh:
-        for run in ({"recorded": recorded}, pipeline, serve):
-            park(run)
+        park(serve)
         train = run_fresh_train_path(name, mods, device)
     elif name in TRAIN:
         pipeline_train = run_pipeline_train_path(name, cfg, TRAIN[name],
@@ -3019,18 +3071,24 @@ def _logits_at(params, cfg, tokens, first: int, n: int, memory=None):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(rows: int | None = None):
     """Inside the block the model calls each kernel's plain version at the
     site path 2 records (flash attention with fp32 p, SSD and RG-LRU in
-    their plain summation orders)."""
+    their plain summation orders).  With ``rows``, flash attention's plain
+    version takes at most that many batch rows at a time (each row
+    attends on its own): its float32 scores are Hq x Sq x Skv x 4 bytes a
+    row, 3.8 GB a copy for path 3's 32 MoE prompts of 960 tokens."""
     saved = []
     for name, spec in KERNELS.items():
         if spec.plain:
             site = importlib.import_module(spec.site[0])
             kernel = importlib.import_module(
                 f"repro_torch.kernels.{_module(name)}")
+            plain = getattr(kernel, spec.plain)
+            if rows is not None and name == "flash_attention":
+                plain = _by_rows(plain, rows)
             saved.append((site, spec.site[1], getattr(site, spec.site[1])))
-            setattr(site, spec.site[1], getattr(kernel, spec.plain))
+            setattr(site, spec.site[1], plain)
     try:
         yield
     finally:
@@ -3038,16 +3096,30 @@ def plain_kernels():
             setattr(site, name, fn)
 
 
+def _by_rows(fn, rows: int):
+    """``fn`` over its operands' first ``rows`` batch rows at a time, the
+    results concatenated."""
+    def by_rows(*args, **kw):
+        return torch.cat([fn(*(a[i:i + rows] for a in args), **kw)
+                          for i in range(0, args[0].shape[0], rows)])
+
+    return by_rows
+
+
 def serve_loop(params, cfg, toks, traffic: ServeTraffic, device,
-               memory=None) -> dict:
+               memory=None, feed=None, counts=None) -> dict:
     """``prefill`` of the padded prompts (and of ``memory``, for a
     cross-attention model), then ``max_new - 1`` greedy ``decode_step``s:
     the served logits (B, max_new, V), the generated tokens (B, max_new),
     the last cache and the host times (the host reads each step's tokens
-    once)."""
+    once).  With ``feed`` (B, max_new) step t is fed its column t - 1
+    instead of the greedy token (another run's tokens).  With ``counts``
+    (the kernels' launch counts, read on the host) the launches of each
+    call, the prefill's first, are ``launches_by_call``."""
     from repro_torch import serving as SV
 
     B, S = toks.shape
+    snaps = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = SV.prefill(params, cfg, toks, traffic.cache_len,
@@ -3055,18 +3127,26 @@ def serve_loop(params, cfg, toks, traffic: ServeTraffic, device,
     cur = torch.argmax(logits[:, -1], dim=-1)
     tokens = [cur.tolist()]
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    if counts is not None:
+        snaps.append(counts())
     served, steps_ms = [logits[:, -1]], []
     for t in range(1, traffic.max_new):
         t1 = time.perf_counter()
         pos = torch.full((B, 1), S + t - 1, device=device)
-        logits, cache = SV.decode_step(params, cfg, cache, cur[:, None], pos)
+        fed = cur[:, None] if feed is None else feed[:, t - 1:t].to(device)
+        logits, cache = SV.decode_step(params, cfg, cache, fed, pos)
         cur = torch.argmax(logits[:, -1], dim=-1)
         tokens.append(cur.tolist())
         steps_ms.append((time.perf_counter() - t1) * 1e3)
+        if counts is not None:
+            snaps.append(counts())
         served.append(logits[:, -1])
+    by_call = snaps[:1] + [{k: b[k] - a[k] for k in b}
+                           for a, b in zip(snaps, snaps[1:])]
     return {"served": torch.stack(served, dim=1),
             "generated": torch.tensor(tokens, device=device).T,
-            "cache": cache, "prefill_ms": prefill_ms, "steps_ms": steps_ms}
+            "cache": cache, "prefill_ms": prefill_ms, "steps_ms": steps_ms,
+            "launches_by_call": by_call}
 
 
 def teacher_forced(params, cfg, toks, run: dict, memory=None) -> dict:
@@ -3083,12 +3163,219 @@ def teacher_forced(params, cfg, toks, run: dict, memory=None) -> dict:
     if not torch.isfinite(want).all():
         raise AssertionError("the teacher-forced forward's logits are not "
                              "finite")
-    gap = (want.amax(-1) - torch.gather(want, -1, generated[..., None])[
-        ..., 0]) / want.abs().amax(-1)
-    other = generated != want.argmax(-1)
-    return {"want": want, "err": _row_err(served, want),
-            "off": int(other.sum()),
-            "worst_gap": float(gap[other].max()) if other.any() else 0.0}
+    off, worst_gap = _greedy_gap(want, generated)
+    return {"want": want, "err": _row_err(served, want), "off": off,
+            "worst_gap": worst_gap}
+
+
+def _moe_layers(cfg) -> int:
+    """The MoE layers of the model (each routes once a call)."""
+    from repro_torch.models import transformer as MT
+
+    return sum(kind in KERNEL_KINDS["moe_gmm"]
+               for kind in MT.layer_kinds(cfg.n_layers, cfg.pattern))
+
+
+def _serve_launches(name, cfg, by_call) -> str:
+    """An MoE model's launches in path 3, call by call: the prefill
+    launches flash attention once a layer of the attention kinds and the
+    expert matmul KERNEL_CALLS times an MoE layer; every decode step the
+    expert matmul as often and flash attention never (decode attention is
+    the plain ``_decode_attention``); no other kernel launches."""
+    from repro_torch.models import transformer as MT
+
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    attn = sum(kind in KERNEL_KINDS["flash_attention"] for kind in kinds)
+    gmm = KERNEL_CALLS["moe_gmm"] * _moe_layers(cfg)
+    for i, got in enumerate(by_call):
+        want = {k: 0 for k in got}
+        want.update(flash_attention=0 if i else attn, moe_gmm=gmm)
+        if got != want:
+            raise AssertionError(f"{name}: path 3's "
+                                 f"{'decode step ' + str(i) if i else 'prefill'}"
+                                 f" launched {got}, not {want}")
+    return (f"the prefill launched flash {attn} and moe_gmm {gmm} times, "
+            f"each of the {len(by_call) - 1} decode steps moe_gmm {gmm} and "
+            f"flash 0 times")
+
+
+def _first_picks(idx, n_experts: int, capacity: int):
+    """The reference's drops, counted from the picks alone: in each group
+    (idx (G, g, k)) an expert keeps its first ``capacity`` picks in (slot,
+    token) order (``layers.py:404-412`` of the JAX package)."""
+    G, g, k = idx.shape
+    order = idx.transpose(1, 2).reshape(G, k * g)
+    seen = F.one_hot(order, n_experts)
+    before = (seen.cumsum(1) - seen).gather(2, order[..., None])[..., 0]
+    return (before < capacity).reshape(G, k, g).transpose(1, 2)
+
+
+def _capacity_gate(name, cfg, routes, tokens) -> str:
+    """Every MoE layer call of a serving run takes its capacity over the
+    call's own tokens, as the reference does: ``tokens[i]`` is call i's
+    token count (B * S for the prefill, B for a decode step), routed in
+    groups of g = min(MOE_GROUP, tokens) at C = max(1, int(g k / E
+    capacity_factor)), and its kept picks are each expert's first C
+    (``_first_picks``)."""
+    from repro_torch.models import layers as ML
+
+    E, k = cfg.n_experts, cfg.moe_top_k
+    n = _moe_layers(cfg)
+    if len(routes) != n * len(tokens):
+        raise AssertionError(f"{name}: {len(routes)} MoE layer calls, "
+                             f"{n} a call over {len(tokens)} calls")
+    dropped = 0
+    for i, r in enumerate(routes):
+        T_ = tokens[i // n]
+        g = min(ML.MOE_GROUP, T_)
+        C = max(1, int(g * k / E * cfg.capacity_factor))
+        if r.capacity != C or tuple(r.idx.shape) != (T_ // g, g, k) \
+                or not torch.equal(r.keep, _first_picks(r.idx, E, C)):
+            raise AssertionError(f"{name}: MoE layer call {i} routes "
+                                 f"{tuple(r.idx.shape)} picks at capacity "
+                                 f"{r.capacity}, not the reference's "
+                                 f"groups of {g} at C {C} with its drops")
+        if i >= n:
+            dropped += int((~r.keep).sum())
+    g_step = min(ML.MOE_GROUP, tokens[-1])
+    return (f"every one of the {len(routes)} MoE layer calls routes its own "
+            f"tokens (the prefill's {tokens[0]} in groups of "
+            f"{min(ML.MOE_GROUP, tokens[0])}, a decode step's {tokens[-1]} "
+            f"at C {max(1, int(g_step * k / E * cfg.capacity_factor))}) and "
+            f"keeps each expert's first C picks; the decode steps dropped "
+            f"{dropped} of {(len(routes) - n) * tokens[-1] * k} picks")
+
+
+def _routes_by_token(routes, cfg, rows: int) -> list:
+    """A serving run's routings (a prefill's, then its decode steps', each
+    call every MoE layer in order) per layer, each covering every position
+    of each of the ``rows`` sequences in order: (logits, idx, keep) of
+    (rows x positions, .), as ``_moe_gate`` reads them."""
+    import types
+
+    n = _moe_layers(cfg)
+    out = []
+    for layer in range(n):
+        calls = routes[layer::n]
+        out.append(types.SimpleNamespace(**{
+            f: torch.cat([getattr(r, f).reshape(rows, -1, getattr(
+                r, f).shape[-1]) for r in calls], dim=1).flatten(0, 1)
+            for f in ("logits", "idx", "keep")}))
+    return out
+
+
+def _decode_bytes(params, cfg, cache) -> int:
+    """The bytes a decode step must read at least: every layer's weights
+    (the reference's expert products read every expert's), the head, and
+    the whole cache (its KV rings and states); the embedding's B rows are
+    left out."""
+    from repro_torch.models import transformer as MT
+
+    def size(tree):
+        return sum(t.numel() * t.element_size() for t in MT.tree_leaves(tree))
+
+    return (size(params["stack"]) + size(MT.head_matrix(params, cfg))
+            + size(cache["stack"]))
+
+
+def _row_blocks(B: int, L: int) -> int:
+    """Rows of L tokens that a forward of path 3's MoE checks takes at
+    once, at most SERVE_PLAIN_ROWS: each block whole MoE groups, so that
+    it routes its tokens in the groups the whole batch's forward would
+    (the whole batch where it is one group)."""
+    from repro_torch.models import layers as ML
+
+    if B * L <= ML.MOE_GROUP:
+        return B
+    for r in range(min(B, SERVE_PLAIN_ROWS), 0, -1):
+        if B % r == 0 and r * L % ML.MOE_GROUP == 0:
+            return r
+    return B
+
+
+def _moe_full_depth(name, cfg, params, toks, traffic, run, routes,
+                    device) -> None:
+    """Path 3's full-depth gate of an MoE model, whose cached decode and
+    cache-free forward rightly drop other slots (each call takes its
+    capacity over its own tokens): the served logits against the same
+    cached decode (prefill, then steps fed the served tokens) through the
+    plain versions on the card with the served run's picks replayed,
+    within FLOOR_FACTOR of the floor (the teacher-forced forward through
+    the kernels against through the plain versions, the kernels'
+    forward's picks replayed), never tighter than CHECK_TOL.  The served
+    logits against that forward are printed, not gated.  The forwards run
+    ``_row_blocks`` rows at a time and the plain attention SERVE_PLAIN_ROWS
+    rows at a time, the logits compared on the host: the 61.1 GB of
+    weights leave the card too little room for the plain versions' float32
+    operands at once."""
+    B, S = toks.shape
+    n_new = traffic.max_new
+    seq = torch.cat([toks, run["generated"]], dim=1)
+    r = _row_blocks(B, seq.shape[1])
+    with record_routes(slim=True) as fw_routes:
+        want = torch.cat([_logits_at(params, cfg, seq[i:i + r], S - 1,
+                                     n_new).cpu() for i in range(0, B, r)])
+    with plain_kernels(SERVE_PLAIN_ROWS), \
+            record_routes(replay=fw_routes, slim=True):
+        plain = torch.cat([_logits_at(params, cfg, seq[i:i + r], S - 1,
+                                      n_new).cpu() for i in range(0, B, r)])
+    floor = float(_row_err(want, plain).max())
+    del plain, fw_routes
+    served = run["served"].cpu()
+    off, gap = _greedy_gap(want, run["generated"].cpu())
+    err_fw = float(_row_err(served, want).max())
+    del want
+    with plain_kernels(SERVE_PLAIN_ROWS), \
+            record_routes(replay=routes, slim=True):
+        replay = serve_loop(params, cfg, toks, traffic, device,
+                            feed=run["generated"])
+    del replay["cache"]
+    plain_served = replay.pop("served").cpu()
+    err = float(_row_err(served, plain_served).max())
+    limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
+    print(f"{name}: path 3 at full depth: served logits vs the same cached "
+          f"decode through the plain versions on the card, the served picks "
+          f"replayed, {err!r} of each row's largest (prefill "
+          f"{float(_row_err(served[:, 0], plain_served[:, 0]).max())!r}); "
+          f"the floor, the teacher-forced forward through the kernels vs "
+          f"the plain versions with its picks replayed ({r} rows a forward), "
+          f"{floor!r} (limit {FLOOR_FACTOR} x floor, at least {CHECK_TOL}: "
+          f"{limit!r}); not gated, as the two drop other slots: served vs "
+          f"that forward {err_fw!r}, {off} of {B * n_new} greedy tokens off "
+          f"its argmax (largest gap {gap!r})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: path 3's cached decode differs from "
+                             f"its replay through the plain versions past "
+                             f"{limit!r}")
+
+
+def _moe_peak_bytes(cfg, tokens: int) -> int:
+    """An MoE layer's largest live buffers at capacity C = g (no drops)
+    over ``tokens`` tokens, in the compute type: the dispatch buffer
+    (E + 1 experts), the hidden products, the expert outputs, and the
+    picked rows with their float32 combine."""
+    E, D, F_, k = (cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.moe_top_k)
+    return tokens * (2 * ((2 * E + 1) * D + E * F_) + 10 * k * D)
+
+
+def _no_drop_rows(cfg, B: int, S: int, n_new: int, device) -> tuple:
+    """The most rows, at most B, for the no-drop check: every call of
+    theirs (the prefill's r x S tokens, the forward's r x (S + n_new)) a
+    single MoE group or whole groups of it, and the forward's
+    ``_moe_peak_bytes`` within 0.8 of the card's free memory (every row
+    on the CPU).  Returns (rows, those bytes, the free bytes or None)."""
+    from repro_torch.models import layers as ML
+
+    free = (torch.cuda.mem_get_info()[0]
+            if torch.device(device).type == "cuda" else None)
+    for r in range(B, 0, -1):
+        need = _moe_peak_bytes(cfg, r * (S + n_new))
+        whole = all(t <= ML.MOE_GROUP or t % ML.MOE_GROUP == 0
+                    for t in (r * S, r * (S + n_new)))
+        if whole and (free is None or need <= 0.8 * free):
+            return r, need, free
+    raise AssertionError(f"no batch of rows of {S} + {n_new} tokens is "
+                         f"whole MoE groups within the card's {free} B free")
 
 
 def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
@@ -3115,23 +3402,54 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
        JAX package's cannot serve one either;
     5. every logit is finite.
 
-    Returns the counts, the recorded kernel calls and the numbers."""
+    An MoE layer takes its capacity over a call's own tokens, so a cached
+    decode and a cache-free forward rightly drop other slots; for an MoE
+    model the gates are instead:
+
+    1. the launches call by call (``_serve_launches``: the prefill flash
+       once and the expert matmul three times an MoE layer, every decode
+       step the expert matmul three times a layer and flash never), and
+       every layer call's capacity and drops the reference's over the
+       call's own tokens (``_capacity_gate``);
+    2. as above (both route the same tokens in the same groups);
+    3. at full depth, ``_moe_full_depth``: the served logits against the
+       same cached decode through the plain versions with the served picks
+       replayed, within FLOOR_FACTOR of the floor (the forward through the
+       kernels against through the plain versions, picks replayed), never
+       tighter than CHECK_TOL; the teacher-forced forward at
+       SERVE_CHECK_DEPTH repetitions, with no slot dropped, and card
+       against CPU at the config's capacity are ``run_moe_serve_cut``'s,
+       which the caller runs once the other layers' weights are freed;
+    4. and 5. as above.
+
+    Prints the prefill ms, the decode step's p50 and p90 beside its byte
+    bound (``_decode_bytes`` at HBM_BYTES_PER_S), tokens/s, the cache's
+    bytes, the peak memory and the launches.  The kernel calls are
+    recorded on the card (one operand set a shape for an MoE model: the
+    expert weights are 403 MB a call) and parked on the host right after
+    the run.  Returns the counts, the recorded kernel calls and the
+    numbers."""
     from repro_torch import serving as SV
     from repro_torch.models import transformer as MT
 
     t_path = time.perf_counter()
     B, n_new = traffic.batch, traffic.max_new
+    moe = bool(cfg.n_experts)
     prompts = serve_prompts(traffic, cfg.vocab_size)
     toks = torch.from_numpy(SV.left_pad(prompts, B)).to(device)
     S = toks.shape[1]
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         recorded = {k: stack.enter_context(record_calls(
-            importlib.import_module(ks.site[0]), ks.site[1], ks.key))
+            importlib.import_module(ks.site[0]), ks.site[1], ks.key,
+            keep=1 if moe else RECORDED_OPERANDS))
             for k, ks in KERNELS.items()}
+        routes = stack.enter_context(record_routes(slim=True))
         _zero_counts(mods)
-        run = serve_loop(params, cfg, toks, traffic, device, memory)
+        run = serve_loop(params, cfg, toks, traffic, device, memory,
+                         counts=lambda: _counts(mods))
         launches = _counts(mods)
+    park({"recorded": recorded})
     for k in kernels:
         if launches[k] == 0:
             raise AssertionError(f"{name}: path 3's prefill launched no {k} "
@@ -3144,8 +3462,13 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
     if not torch.isfinite(run["served"]).all():
         raise AssertionError(f"{name}: path 3 served logits that are not "
                              f"finite")
+    if moe:
+        print(f"{name}: path 3's launches: "
+              f"{_serve_launches(name, cfg, run['launches_by_call'])}; "
+              f"capacity: {_capacity_gate(name, cfg, routes, [B * S] + [B] * (n_new - 1))}")
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in MT.tree_leaves(run["cache"]))
+    step_bytes = _decode_bytes(params, cfg, run.pop("cache"))
     peak = torch.cuda.max_memory_allocated()
 
     t2 = time.perf_counter()
@@ -3155,45 +3478,16 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
         raise AssertionError(f"{name}: the prefill's logits differ from the "
                              f"cache-free forward's by {err_prefill!r} of "
                              f"the largest (limit {CHECK_TOL})")
-    full = teacher_forced(params, cfg, toks, run, memory)
-    seq = torch.cat([toks, run["generated"]], dim=1)
-    with plain_kernels():
-        plain = _logits_at(params, cfg, seq, S - 1, n_new, memory)
-    floor = float(_row_err(full["want"], plain).max())
-    limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
-    err_full = float(full["err"].max())
-    print(f"{name}: path 3 at full depth, teacher-forced over {S} + {n_new} "
-          f"tokens: served logits vs the cache-free forward {err_full!r} of "
-          f"each row's largest (prefill {float(full['err'][:, 0].max())!r}); "
-          f"the floor, that forward through the kernels vs the plain "
-          f"versions, {floor!r} (limit {FLOOR_FACTOR} x floor, at least "
-          f"{CHECK_TOL}: {limit!r}); {full['off']} of {B * n_new} greedy "
-          f"tokens off the forward's argmax (largest gap "
-          f"{full['worst_gap']!r}); the prefill vs a forward over the "
-          f"prompts alone {err_prefill!r}")
-    if not err_full <= limit:
-        raise AssertionError(f"{name}: path 3's cached decode differs from "
-                             f"the teacher-forced forward past {limit!r}")
-    del full, plain
-
-    n_cut = min(cfg.n_layers, SERVE_CHECK_DEPTH * len(cfg.pattern))
-    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
-    cut_params = dict(params, stack={"layers": params["stack"]["layers"][
-        :n_cut]})
-    cut = teacher_forced(cut_params, cut_cfg, toks, serve_loop(
-        cut_params, cut_cfg, toks, traffic, device, memory), memory)
-    err_cut = float(cut["err"].max())
-    print(f"{name}: path 3 at {n_cut} layers, teacher-forced: served logits "
-          f"vs the cache-free forward {err_cut!r} of each row's largest "
-          f"(limit {CHECK_TOL}); {cut['off']} of {B * n_new} greedy tokens "
-          f"off the forward's argmax, each a near tie (largest gap "
-          f"{cut['worst_gap']!r}, limit {CHECK_TOL}); checks in "
-          f"{time.perf_counter() - t2!r} s")
-    if not (err_cut < CHECK_TOL and cut["worst_gap"] <= CHECK_TOL):
-        raise AssertionError(f"{name}: path 3's cached decode at {n_cut} "
-                             f"layers differs from the teacher-forced "
-                             f"forward past {CHECK_TOL}")
-    del cut
+    print(f"{name}: path 3's prefill vs a forward over the prompts alone "
+          f"{err_prefill!r} of each row's largest (limit {CHECK_TOL})")
+    if moe:
+        _moe_full_depth(name, cfg, params, toks, traffic, run, routes,
+                        device)
+    else:
+        _serve_depth_checks(name, cfg, params, toks, traffic, run, device,
+                            memory)
+    del routes
+    print(f"{name}: path 3's checks in {time.perf_counter() - t2!r} s")
 
     engine = SV.ServingEngine(cfg, params, B, traffic.cache_len, eos_id=-1,
                               device=device)
@@ -3224,19 +3518,212 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
     n_tok = sum(len(row) for row in outs)
     deciles = statistics.quantiles(run["steps_ms"], n=10, method="inclusive")
     p50, p90 = deciles[4], deciles[8]
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     print(f"{name}: path 3 on {_card_line()}: B {B}, prompts "
           f"{[len(p) for p in prompts]} padded to {S}, {n_new} new tokens, "
           f"cache_len {traffic.cache_len}; prefill {run['prefill_ms']!r} ms; "
           f"decode step (one token for each of the {B} rows) p50 {p50!r} "
-          f"ms, p90 {p90!r} ms over {len(run['steps_ms'])} steps; "
+          f"ms, p90 {p90!r} ms over {len(run['steps_ms'])} steps, beside "
+          f"its byte bound {bound_ms!r} ms ({step_bytes} B: the weights, "
+          f"the head and the cache, at {HBM_BYTES_PER_S} B/s; "
+          f"{B / bound_ms * 1e3!r} tokens/s at most); "
           f"{how} {n_tok} tokens in {gen_s!r} s = "
           f"{n_tok / gen_s!r} tokens/s{same}; cache "
           f"{cache_bytes} B; peak device memory {peak} B; launches "
-          f"{launches}; path 3 in {time.perf_counter() - t_path!r} s")
+          f"{launches} (a decode step's: {run['launches_by_call'][-1]}); "
+          f"path 3 in {time.perf_counter() - t_path!r} s")
     return {"launches": launches, "recorded": recorded,
             "prefill_ms": run["prefill_ms"], "decode_ms_p50": p50,
-            "decode_ms_p90": p90, "tokens_per_s": n_tok / gen_s,
-            "cache_bytes": cache_bytes, "peak_bytes": peak}
+            "decode_ms_p90": p90, "decode_bound_ms": bound_ms,
+            "tokens_per_s": n_tok / gen_s, "cache_bytes": cache_bytes,
+            "peak_bytes": peak}
+
+
+def _serve_depth_checks(name, cfg, params, toks, traffic, run, device,
+                        memory) -> None:
+    """Gate 3 of ``run_serve_path`` for a model without MoE layers: the
+    teacher-forced forward at full depth within FLOOR_FACTOR of the floor,
+    then at SERVE_CHECK_DEPTH repetitions within CHECK_TOL."""
+    B, n_new = traffic.batch, traffic.max_new
+    S = toks.shape[1]
+    full = teacher_forced(params, cfg, toks, run, memory)
+    seq = torch.cat([toks, run["generated"]], dim=1)
+    with plain_kernels():
+        plain = _logits_at(params, cfg, seq, S - 1, n_new, memory)
+    floor = float(_row_err(full["want"], plain).max())
+    limit = max(CHECK_TOL, FLOOR_FACTOR * floor)
+    err_full = float(full["err"].max())
+    print(f"{name}: path 3 at full depth, teacher-forced over {S} + {n_new} "
+          f"tokens: served logits vs the cache-free forward {err_full!r} of "
+          f"each row's largest (prefill {float(full['err'][:, 0].max())!r}); "
+          f"the floor, that forward through the kernels vs the plain "
+          f"versions, {floor!r} (limit {FLOOR_FACTOR} x floor, at least "
+          f"{CHECK_TOL}: {limit!r}); {full['off']} of {B * n_new} greedy "
+          f"tokens off the forward's argmax (largest gap "
+          f"{full['worst_gap']!r})")
+    if not err_full <= limit:
+        raise AssertionError(f"{name}: path 3's cached decode differs from "
+                             f"the teacher-forced forward past {limit!r}")
+    del full, plain
+
+    cut_cfg, cut_params = serve_cut(cfg, params)
+    n_cut = cut_cfg.n_layers
+    cut = teacher_forced(cut_params, cut_cfg, toks, serve_loop(
+        cut_params, cut_cfg, toks, traffic, device, memory), memory)
+    err_cut = float(cut["err"].max())
+    print(f"{name}: path 3 at {n_cut} layers, teacher-forced: served logits "
+          f"vs the cache-free forward {err_cut!r} of each row's largest "
+          f"(limit {CHECK_TOL}); {cut['off']} of {B * n_new} greedy tokens "
+          f"off the forward's argmax, each a near tie (largest gap "
+          f"{cut['worst_gap']!r}, limit {CHECK_TOL})")
+    if not (err_cut < CHECK_TOL and cut["worst_gap"] <= CHECK_TOL):
+        raise AssertionError(f"{name}: path 3's cached decode at {n_cut} "
+                             f"layers differs from the teacher-forced "
+                             f"forward past {CHECK_TOL}")
+
+
+def serve_cut(cfg, params) -> tuple:
+    """The first SERVE_CHECK_DEPTH pattern repetitions of a model, with its
+    embedding, final norm and head: (config, parameters) sharing the
+    tensors of ``params``."""
+    n_cut = min(cfg.n_layers, SERVE_CHECK_DEPTH * len(cfg.pattern))
+    return (dataclasses.replace(cfg, n_layers=n_cut),
+            dict(params, stack={"layers": params["stack"]["layers"][:n_cut]}))
+
+
+def _greedy_gap(want, generated) -> tuple:
+    """The greedy tokens off ``want``'s argmax (B, n, V): how many, and
+    the largest gap between its top logit and its logit of the token,
+    over the row's largest |logit| (0 where there is none)."""
+    gap = (want.amax(-1) - torch.gather(want, -1, generated[..., None])[
+        ..., 0]) / want.abs().amax(-1)
+    other = generated != want.argmax(-1)
+    return int(other.sum()), float(gap[other].max()) if other.any() else 0.0
+
+
+def run_moe_serve_cut(name: str, cfg, params, traffic: ServeTraffic,
+                      device) -> dict:
+    """Path 3's gates at SERVE_CHECK_DEPTH pattern repetitions for an MoE
+    model, on ``serve_cut`` of the weights path 2 ran (the caller has freed
+    the other layers, so that the no-drop check has the card's memory):
+
+    1. no drops: ``capacity_factor`` set to E / k, so that C >= g in every
+       call and no slot can drop, on the most rows of path 3's prompts that
+       fit (``_no_drop_rows``, printed): the served logits against the
+       teacher-forced cache-free forward over prompt + generated, route
+       aware (``_moe_gate`` over every position: each pick of the cached
+       decode that the forward's router would not make a near tie there,
+       the outputs before their sequence's first token that routes
+       otherwise within CHECK_TOL of the forward, every output within
+       CHECK_TOL of the forward with the decode's picks replayed), and each
+       greedy token that replay's argmax or within CHECK_TOL of it;
+    2. card against CPU at the config's own capacity, every row, on the
+       last SERVE_CPU_TOKENS tokens of each padded prompt (whole MoE
+       groups): the card serves their prefill and SERVE_CPU_STEPS greedy
+       decode steps; the CPU runs its plain cached prefill and decode
+       steps fed the card's tokens, once with its own routing and once
+       with the card's picks replayed call by call, decode steps included
+       (the places and drops ``==`` the card's); ``_moe_gate`` over the
+       prefill's and the steps' logits.
+
+    Returns the readings."""
+    from repro_torch import serving as SV
+    from repro_torch.models import layers as ML
+    from repro_torch.models import transformer as MT
+
+    t0 = time.perf_counter()
+    prompts = serve_prompts(traffic, cfg.vocab_size)
+    toks = torch.from_numpy(SV.left_pad(prompts, traffic.batch)).to(device)
+    B, S = toks.shape
+    n_new, V = traffic.max_new, cfg.vocab_size
+    E, k = cfg.n_experts, cfg.moe_top_k
+
+    nd_cfg = dataclasses.replace(cfg, capacity_factor=E / k)
+    rows, need, free = _no_drop_rows(nd_cfg, B, S, n_new, device)
+    print(f"{name}: path 3's no-drop check takes {rows} of {B} rows")
+    sub = toks[:rows]
+    with record_routes() as served_routes:
+        nd = serve_loop(params, nd_cfg, sub, traffic._replace(batch=rows),
+                        device)
+    with record_routes() as fw_routes:
+        tf = teacher_forced(params, nd_cfg, sub, nd)
+    served_tok = _routes_by_token(served_routes, nd_cfg, rows)
+    fw_tok = _routes_by_token(fw_routes, nd_cfg, rows)
+    P = S + n_new - 1  # the positions the served run routed
+    replay = []
+    for fw, sv, ft in zip(fw_routes, served_tok, fw_tok):
+        idx = torch.cat([sv.idx.reshape(rows, P, k),
+                         ft.idx.reshape(rows, P + 1, k)[:, P:]], dim=1)
+        replay.append(ML.routing_of_picks(fw.logits, fw.probs, idx.reshape(
+            fw.idx.shape), fw.capacity))
+    for ft in fw_tok:
+        for f in ("logits", "idx", "keep"):
+            t = getattr(ft, f)
+            setattr(ft, f, t.reshape(rows, P + 1, -1)[:, :P].flatten(0, 1))
+    seq = torch.cat([sub, nd["generated"]], dim=1)
+    with record_routes(replay=replay):
+        replayed = _logits_at(params, nd_cfg, seq, S - 1, n_new)
+    off, gap = _greedy_gap(replayed, nd["generated"])
+    at = list(range(S - 1, S - 1 + n_new))
+    try:
+        line = _moe_gate(nd["served"].reshape(-1, V), tf["want"].reshape(
+            -1, V), replayed.reshape(-1, V), served_tok, fw_tok, rows,
+            ("cached decode", "cache-free forward"), at)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: path 3's no-drop teacher-forced check "
+                             f"at {cfg.n_layers} layers: {e}") from None
+    print(f"{name}: path 3 at {cfg.n_layers} layers with capacity_factor "
+          f"{E / k} (no slot drops), {rows} of {B} rows ({need} B planned "
+          f"for an MoE layer of the forward, {free} B free), cached decode "
+          f"vs the teacher-forced forward over {S} + {n_new} tokens: {line}; "
+          f"{off} of {rows * n_new} greedy tokens off the argmax of the "
+          f"forward with the decode's picks, each a near tie (largest gap "
+          f"{gap!r}, limit {CHECK_TOL})")
+    if not gap <= CHECK_TOL:
+        raise AssertionError(f"{name}: path 3's no-drop check: a greedy "
+                             f"token {gap!r} of the largest |logit| off the "
+                             f"forward's argmax")
+    del nd, tf, replayed, served_routes, fw_routes, replay
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    n_cpu = min(SERVE_CPU_STEPS, n_new - 1)
+    short = traffic._replace(max_new=n_cpu + 1)
+    toks = toks[:, -min(S, SERVE_CPU_TOKENS):]
+    S = toks.shape[1]
+    with record_routes() as card_routes:
+        card = serve_loop(params, cfg, toks, short, device)
+    cpu_params = MT.tree_map(lambda t: t.cpu(), params)
+    fed = card["generated"].cpu()
+    runs = {}
+    for how, replay_of in (("own", None), ("replayed", card_routes)):
+        t2 = time.perf_counter()
+        with record_routes(replay=replay_of) as cpu_routes:
+            runs[how] = serve_loop(cpu_params, cfg, toks.cpu(), short, "cpu",
+                                   feed=fed)
+        runs[how]["routes"], runs[how]["s"] = (cpu_routes,
+                                              time.perf_counter() - t2)
+    at = list(range(S - 1, S + n_cpu))
+    try:
+        line = _moe_gate(
+            card["served"].float().cpu().reshape(-1, V),
+            runs["own"]["served"].reshape(-1, V),
+            runs["replayed"]["served"].reshape(-1, V),
+            _routes_by_token(card_routes, cfg, B),
+            _routes_by_token(runs["own"]["routes"], cfg, B), B, at=at)
+    except AssertionError as e:
+        raise AssertionError(f"{name}: path 3 card vs CPU at "
+                             f"{cfg.n_layers} layers: {e}") from None
+    print(f"{name}: path 3 at {cfg.n_layers} layers, capacity_factor "
+          f"{cfg.capacity_factor}, all {B} rows of their last {S} prompt "
+          f"tokens: the card's prefill and first {n_cpu} decode steps (N) "
+          f"vs the CPU's plain ones fed the card's tokens: {line}; the "
+          f"CPU's runs {runs['own']['s']!r} and "
+          f"{runs['replayed']['s']!r} s, the checks in "
+          f"{time.perf_counter() - t0!r} s ({time.perf_counter() - t1!r} s "
+          f"of them card vs CPU)")
+    return {"no_drop_rows": rows, "cpu_steps": n_cpu}
+
 
 
 # ------------------------------------------------------------------ path 4 --

@@ -9,8 +9,13 @@ weights from seed 0, prompts and padding).  For each model: the prefill,
 ends in the host reading its tokens, as the serving loop does), the same
 for the model cut to its first pattern repetition and for the head alone
 (``logits_last`` and the argmax), and one step under ``torch.profiler``:
-its wall, the device's busy time and share, the launches, and the ops
-with the most host time and the kernels with the most device time.
+its wall, the device's busy time and share, the launches, the expert
+matmul's device time, and the ops with the most host time and the kernels
+with the most device time.  For an MoE model also every MoE FFN of one
+step alone, on the inputs that step gave it, under the profiler: the
+expert matmul's device time and that of the routing glue (every other
+kernel the FFN launches: the router product, softmax, sort, one-hot and
+cumsums, the dispatch scatter, the combine's gather and sum).
 """
 from __future__ import annotations
 
@@ -38,12 +43,30 @@ def step_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def main(names: list[str]) -> int:
+def _device_split(prof, name: str) -> tuple:
+    """The profiled window's device events: (busy us, launches, us of the
+    kernels whose name holds ``name``, their launches, us by kernel)."""
     from torch.autograd import DeviceType
+
+    busy, launches, mine, n_mine, kernels = 0.0, 0, 0.0, 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            launches += 1
+            kernels[e.name] = kernels.get(e.name, 0.0) + us
+            if name in e.name:
+                mine += us
+                n_mine += 1
+    return busy, launches, mine, n_mine, kernels
+
+
+def main(names: list[str]) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import serving as SV
     from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as ML
     from repro_torch.models import transformer as MT
 
     if not torch.cuda.is_available():
@@ -96,17 +119,38 @@ def main(names: list[str]) -> int:
                 t0 = time.perf_counter()
                 step()
                 wall = (time.perf_counter() - t0) * 1e6
-            busy, kernels = 0.0, {}
-            launches = 0
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    busy += e.time_range.elapsed_us()
-                    kernels[e.name] = kernels.get(e.name, 0.0) + \
-                        e.time_range.elapsed_us()
-                    launches += 1
+            gmm = cs.KERNELS["moe_gmm"].profiled
+            busy, launches, b3, n_b3, kernels = _device_split(prof, gmm)
             print(f"{name}: one step under the profiler: wall {wall!r} us, "
                   f"device busy {busy!r} us (share {busy / wall!r}), "
-                  f"{launches} device events")
+                  f"{launches} device events; the expert matmul {b3!r} us "
+                  f"in {n_b3} launches")
+            if cfg.n_experts:
+                inputs, ffn = [], ML.moe_ffn
+
+                def keep(p_, c_, x):
+                    inputs.append((p_, x.clone()))
+                    return ffn(p_, c_, x)
+
+                ML.moe_ffn = keep
+                try:
+                    step()
+                finally:
+                    ML.moe_ffn = ffn
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for p_, x in inputs:
+                        ML.moe_ffn(p_, cfg, x)
+                    torch.cuda.synchronize()
+                    ffn_wall = (time.perf_counter() - t0) * 1e6
+                f_busy, f_n, f_b3, f_nb3, _ = _device_split(prof, gmm)
+                print(f"{name}: the {len(inputs)} MoE FFNs of one step "
+                      f"alone under the profiler: wall {ffn_wall!r} us, "
+                      f"device busy {f_busy!r} us in {f_n} launches; the "
+                      f"expert matmul {f_b3!r} us in {f_nb3}, the routing "
+                      f"glue {f_busy - f_b3!r} us in {f_n - f_nb3}")
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
             print(f"{name}: top device time: "
                   f"{[(k[:80], v) for k, v in top]}")

@@ -82,7 +82,9 @@ def main(names: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs._card_line()}; torch {torch.__version__}")
-    for name in names or list(cs.SERVE):
+    # an MoE model's cached decode drops other slots than the forward
+    # (chip_smoke.run_serve_path), so it is left out unless named
+    for name in names or [n for n in cs.SERVE if not ARCHS[n].n_experts]:
         spec, traffic = cs.MODELS[name], cs.SERVE[name]
         cfg = dataclasses.replace(ARCHS[name], **spec.overrides)
         params = MT.init_params(torch.Generator(device=device).manual_seed(0),

@@ -5,9 +5,8 @@ prompts, as the JAX package's ``repro.launch.serve``.
       --requests 8 [--device cuda|cpu]
 
 It runs on the card unless ``--device cpu`` is given; without a card it
-exits 2.  MoE configs raise: their decode is ROADMAP A17.  So do configs
-with cross-attention: ``ServingEngine.generate`` passes no memory, as the
-JAX package's does not.  ``--reduced`` is ``cfg.reduced()``, as the
+exits 2.  Configs with cross-attention raise: ``ServingEngine.generate``
+passes no memory, as the JAX package's does not.  ``--reduced`` is ``cfg.reduced()``, as the
 training launcher's.
 """
 from __future__ import annotations
@@ -33,7 +32,6 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..configs import get_config
     from ..core.torch_solvers import resolve_device
-    from ..models import layers as L
     from ..models import transformer as T
     from ..serving import ServingEngine
 
@@ -44,8 +42,6 @@ def main(argv: list[str] | None = None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: {L.MOE_CACHE_ITEM}")
     if T.has_cross(cfg):
         raise ValueError(f"{cfg.name} attends to a memory, which "
                          f"ServingEngine.generate does not take, as the JAX "

@@ -10,7 +10,8 @@ dict per layer in layer order, so layer ``r * len(pattern) + i`` is
 repetition ``r`` of slot ``i``.  A serving cache (``{"stack": {"groups",
 "rem"}}`` in the JAX package, ``{"stack": {"layers"}}`` in the port) is
 laid out the same way; its ``pos`` leaves are int32 there and int64 here,
-and a ``dec_block``'s cache nests ``{"self", "cross"}`` in both.  An
+an MoE layer's cache is the KV ring of ``attn`` in both, and a
+``dec_block``'s cache nests ``{"self", "cross"}`` in both.  An
 encoder (``params["encoder"]``, one ``attn`` slot stacked over
 ``cfg.enc_layers``) crosses as the decoder's stack does, and a cache's
 ``enc_memory`` as it is.

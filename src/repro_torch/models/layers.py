@@ -22,8 +22,10 @@ package runs its ``blocked_attention`` there.  The caches: a KV ring buffer
 of ``attn`` and ``local_attn``, written in place; the cross K/V of
 ``xattn`` and ``dec_block``, projected from the memory once at prefill; the
 RG-LRU's and SSD's float32 state with the conv's trailing inputs, replaced
-at every call.  MoE with a cache is not ported and raises
-``NotImplementedError`` naming its ROADMAP item.
+at every call.  An MoE block's attention half takes the KV ring of
+``attn``; its FFN routes the call's own tokens, so a decode step of B
+sequences routes B tokens as one group, with the capacity taken over them
+(``max(1, int(B * k / E * capacity_factor))``), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -41,11 +43,6 @@ from ..kernels.ops import ssd_forward
 from ..kernels.rglru import rglru_scan
 
 Params = dict
-
-# ROADMAP items of what is not ported yet, named by the errors that say so.
-MOE_CACHE_ITEM = ("ROADMAP A17: MoE decode (the capacity is taken over a "
-                  "call's own tokens)")
-
 
 @dataclasses.dataclass
 class Ctx:
@@ -407,12 +404,20 @@ def moe_ffn(p, cfg: ModelConfig, x):
     index scatter and gather with the same values.  The groups are folded
     into the buffer axis, (E, G * C, D), so each expert product is one launch
     of the expert-matmul kernel that reads each expert's weights once.
+
+    The call's own B * S tokens are routed, in groups of MOE_GROUP (one
+    group where they are fewer), each expert taking C of a group's tokens;
+    past MOE_GROUP they must be whole groups of it, where the JAX package's
+    reshape fails and this raises ``ValueError``.
     """
     B, S, D = x.shape
     E = cfg.n_experts
     T_ = B * S
     g = min(MOE_GROUP, T_)
     G = max(1, T_ // g)
+    if G * g != T_:
+        raise ValueError(f"B * S = {T_} tokens are not whole groups of "
+                         f"MOE_GROUP = {MOE_GROUP} tokens")
     toks = x.reshape(G, g, D)
     r = moe_route(p["router"], cfg, toks)
     C = r.capacity

@@ -78,19 +78,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
-def _check_cache_kind(kind: str) -> None:
-    if kind in ("moe", "moe_dense"):
-        raise NotImplementedError(f"block kind {kind!r} with a cache is not "
-                                  f"ported yet: {L.MOE_CACHE_ITEM}")
-
-
 def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
     """Pre-norm block; returns (x, new_cache, aux_loss), the aux loss being
     the MoE load-balance loss of a ``moe`` / ``moe_dense`` block and 0
     otherwise.  A decode step needs the block's cache."""
     _check_kind(kind)
-    if cache is not None or ctx.decoding:
-        _check_cache_kind(kind)
     if ctx.decoding and cache is None:
         raise ValueError(f"a decode step of a {kind!r} block needs its cache")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,12 +155,12 @@ def init_cross_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
                      *, device) -> dict:
     """An empty cache of one block for ``length`` tokens: a KV ring of
-    ``length`` slots (``min(length, window)`` for ``local_attn``), the
-    cross K/V (``xattn``; ``dec_block`` has both, ``{"self", "cross"}``),
-    or the RG-LRU's or SSD's state."""
+    ``length`` slots (``attn``, ``moe`` and ``moe_dense``, whose attention
+    half takes it as ``attn`` does; ``min(length, window)`` for
+    ``local_attn``), the cross K/V (``xattn``; ``dec_block`` has both,
+    ``{"self", "cross"}``), or the RG-LRU's or SSD's state."""
     _check_kind(kind)
-    _check_cache_kind(kind)
-    if kind == "attn":
+    if kind in ("attn", "moe", "moe_dense"):
         return L.init_kv_cache(cfg, batch, length, device=device)
     if kind == "xattn":
         return init_cross_cache(cfg, batch, device=device)

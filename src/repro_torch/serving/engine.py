@@ -12,6 +12,16 @@ which encodes it once and keeps it in the cache (``enc_memory``).
 and decodes greedily until ``max_new`` tokens or ``eos_id``.  Everything
 runs eagerly under ``torch.inference_mode()``; the caches' KV rings are
 written in place.
+
+Every config serves, MoE too (``moe`` and ``moe_dense`` blocks keep the KV
+ring of ``attn``).  An MoE layer routes a call's own tokens: the prefill's
+B * S in groups of ``MOE_GROUP`` (whole groups of it past it), a decode
+step's B as one group with capacity ``max(1, int(B * k / E *
+capacity_factor))``, so a cached decode and a cache-free forward over the
+same tokens can rightly drop different slots.  The pad tokens of the
+left-padded prompts and the rows past the requests are routed like any
+other token and take expert capacity from the real ones; the JAX package
+does the same, and the port keeps it.
 """
 from __future__ import annotations
 

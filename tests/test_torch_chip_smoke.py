@@ -373,11 +373,16 @@ def test_host_split_times_each_part_and_restores_the_functions():
 
 # ------------------------------------------------------------- path 3 ---
 # reduced traffic: qwen2 and mamba2 pad to 32 (two SSD chunks of 16) and
-# decode 16 (the forward over 48 is three); recurrentgemma's 40-token
-# prompt overfills its 32-slot ring, which every decode step wraps
+# decode 16 (the forward over 48 is three); qwen3-moe's four prompts pad to
+# 12, so that with MoE groups of 16 (``moe_groups``) the prefill's 48
+# tokens are three groups and the forward's 4 x 20 five, as the card's are
+# whole groups of 1,024, and a decode step routes its 4 tokens at C 2;
+# recurrentgemma's 40-token prompt overfills its 32-slot ring, which every
+# decode step wraps
 SERVE_REHEARSAL = {
     "qwen2-1.5b": cs.ServeTraffic(2, 20, 32, 16, 48),
     "mamba2-370m": cs.ServeTraffic(2, 20, 32, 16, 48),
+    "qwen3-moe-30b-a3b": cs.ServeTraffic(4, 8, 12, 8, 24),
     "recurrentgemma-9b": cs.ServeTraffic(1, 40, 40, 8, 48),
 }
 
@@ -411,40 +416,95 @@ def cpu_launches(monkeypatch):
 
 
 def _serve(name, mods):
+    """run_serve_path, and for an MoE model run_moe_serve_cut on its cut,
+    as run_model_path runs them."""
     cfg = ARCHS[name].reduced()
     params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    return cs.run_serve_path(name, cfg, params, SERVE_REHEARSAL[name],
-                             cs.MODELS[name].kernels, mods, "cpu")
+    run = cs.run_serve_path(name, cfg, params, SERVE_REHEARSAL[name],
+                            cs.MODELS[name].kernels, mods, "cpu")
+    if cfg.n_experts:
+        run.update(cs.run_moe_serve_cut(name, *cs.serve_cut(cfg, params),
+                                        SERVE_REHEARSAL[name], "cpu"))
+    return run
 
 
+@pytest.mark.usefixtures("moe_groups")
 @pytest.mark.parametrize("name", list(SERVE_REHEARSAL))
-def test_serve_path_rehearsed_on_the_cpu(name, cpu_launches, capsys):
+def test_serve_path_rehearsed_on_the_cpu(name, cpu_launches, capsys,
+                                        monkeypatch):
     """run_serve_path at reduced size in bf16, the plain versions standing
     in for the kernels: every gate passes, the prefill's kernel calls are
-    counted and recorded, one call a layer of each kind, and the serving
-    numbers are printed."""
+    counted and recorded, one call a layer of each kind (the expert matmul
+    three an MoE layer in the prefill and in every decode step), and the
+    serving numbers are printed; for qwen3-moe the no-drop check takes
+    every row and the CPU gate SERVE_CPU_STEPS decode steps after a
+    prefill of the prompts' last 8 tokens (two groups of 16 over the 4
+    rows, as the card's 128 are four of 1,024 over 32)."""
     cfg = ARCHS[name].reduced()
+    traffic = SERVE_REHEARSAL[name]
+    monkeypatch.setattr(cs, "SERVE_CPU_TOKENS", 8)
     run = _serve(name, cpu_launches)
     kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
-    per_layer = {"flash_attention": ("attn", "local_attn"), "ssd": ("ssd",),
-                 "rglru": ("rglru",)}
+    per_layer = {"flash_attention": ("attn", "local_attn", "moe"),
+                 "ssd": ("ssd",), "rglru": ("rglru",)}
     for k in cs.KERNELS:
         want = sum(kind in per_layer.get(k, ()) for kind in kinds)
+        if k == "moe_gmm":
+            want = 3 * kinds.count("moe") * traffic.max_new
         assert run["launches"][k] == want
         assert sum(run["recorded"][k][0].values()) == want
     out = capsys.readouterr().out
     assert "the same tokens as the loop" in out
-    assert "tokens/s" in out and "p90" in out
+    assert "tokens/s" in out and "p90" in out and "byte bound" in out
     assert run["cache_bytes"] > 0 and run["tokens_per_s"] > 0
     assert run["decode_ms_p50"] <= run["decode_ms_p90"]
+    assert run["decode_bound_ms"] > 0
+    if cfg.n_experts:
+        assert "each of the 7 decode steps moe_gmm 6" in out
+        assert run["no_drop_rows"] == traffic.batch
+        assert run["cpu_steps"] == min(cs.SERVE_CPU_STEPS,
+                                       traffic.max_new - 1)
+        assert "(no slot drops), 4 of 4 rows" in out
+        assert "all 4 rows of their last 8 prompt tokens" in out
 
 
-@pytest.mark.parametrize("fault", ["attention", "ssd"])
+@pytest.mark.usefixtures("moe_groups")
+@pytest.mark.parametrize("fault", ["attention", "ssd", "moe", "capacity"])
 def test_serve_path_rejects_a_wrong_decode(fault, cpu_launches,
                                            monkeypatch):
     """The teacher-forced gate fails a decode whose attention masks out
-    the new token's own key, and one whose SSD prefill hands the decode
-    steps a zero state."""
+    the new token's own key, one whose SSD prefill hands the decode steps
+    a zero state, and one whose decode steps leave out the MoE FFN's
+    output (the no-drop check at 2 layers); the capacity gate fails a
+    decode step whose MoE capacity is taken over the cache's length
+    instead of the step's own tokens (it then drops no slot, which no
+    comparison of two runs of the same code can see)."""
+    if fault == "moe":
+        ffn = ML.moe_ffn
+
+        def wrong(p, cfg, x):
+            y, aux = ffn(p, cfg, x)
+            return (torch.zeros_like(y) if x.shape[1] == 1 else y), aux
+
+        monkeypatch.setattr(ML, "moe_ffn", wrong)
+        with pytest.raises(AssertionError, match="no-drop teacher-forced"):
+            _serve("qwen3-moe-30b-a3b", cpu_launches)
+        return
+    if fault == "capacity":
+        traffic, route = SERVE_REHEARSAL["qwen3-moe-30b-a3b"], ML.moe_route
+
+        def wrong(router, cfg, toks):
+            r = route(router, cfg, toks)
+            if toks.shape[1] != traffic.batch:  # not a decode step's group
+                return r
+            C = max(1, int(traffic.cache_len * cfg.moe_top_k
+                           / cfg.n_experts * cfg.capacity_factor))
+            return ML.routing_of_picks(r.logits, r.probs, r.idx, C)
+
+        monkeypatch.setattr(ML, "moe_route", wrong)
+        with pytest.raises(AssertionError, match="not the reference's"):
+            _serve("qwen3-moe-30b-a3b", cpu_launches)
+        return
     if fault == "attention":
         attend = ML._decode_attention
 

@@ -3,7 +3,8 @@ flash-attention, SSD, expert-matmul and RG-LRU kernels against their plain
 versions, ``dfts_torch`` / ``bcd_torch`` on ``cuda`` against the NumPy
 oracles, a planned chain of a reduced model through the kernels against
 the same chain on the CPU, the serving engine's prefill and decode
-steps on the card against the same on the CPU, the serving control plane
+steps on the card against the same on the CPU (MoE with the card's expert
+picks replayed), the serving control plane
 and the sweep engine on the card against the host's oracles.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
@@ -712,6 +713,85 @@ def test_prefill_and_decode_on_cuda_match_the_cpu(cuda, arch):
     for m, n in zip(mods, before):
         assert m.launch_count == n + _launches_per_layer(cfg, m)
     want, want_cache = serve(MT.tree_map(lambda t: t.cpu(), params), "cpu")
+    assert torch.isfinite(got).all()
+    row = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    assert float(row.max()) < SERVE_TOL
+    for g, w in zip(MT.tree_leaves(got_cache), MT.tree_leaves(want_cache)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        if w.dtype == torch.int64:
+            assert torch.equal(g.cpu(), w)
+        else:
+            err = (g.float().cpu() - w.float()).abs().max()
+            assert float(err / w.float().abs().max()) < SERVE_TOL
+
+
+def test_moe_prefill_and_decode_on_cuda_match_the_cpu(cuda, monkeypatch):
+    """Reduced qwen3-moe-30b-a3b serves two prompts of 12 and 32 tokens
+    into caches of 48 slots, then 8 decode steps fed the same tokens, on
+    the card (the prefill through flash attention once and the expert
+    matmul three times a layer; every decode step through the expert
+    matmul three times a layer and flash attention never) and on the CPU
+    (plain versions), in bf16.  The CPU replays the card's expert picks
+    call by call, decode steps included (``routing_of_picks``; its buffer
+    places and drops ``==`` the card's: a decode step routes its 2 tokens
+    at capacity 1), so that a near tie routed otherwise cannot move the
+    comparison; its own router's picks may differ only at near ties.  Each
+    row's logits within SERVE_TOL of its largest |logit|, every float
+    cache leaf within SERVE_TOL of its largest magnitude, ``pos``
+    ``==``."""
+    cfg = ARCHS["qwen3-moe-30b-a3b"].reduced()
+    params = MT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(SV.left_pad(
+        [rng.integers(1, cfg.vocab_size, n) for n in (12, 32)], 2))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 2, 1)))
+    card, cpu_own, replayed = [], [], []
+    route = ML.moe_route
+
+    def record_or_replay(router, cfg_, t):
+        r = route(router, cfg_, t)
+        if t.device.type == "cuda":
+            card.append(r)
+            return r
+        cpu_own.append((r.logits, r.idx, r.keep))
+        c = card[len(replayed)]
+        picked = ML.routing_of_picks(r.logits, r.probs, c.idx.cpu(),
+                                     r.capacity)
+        assert torch.equal(picked.pos, c.pos.cpu())
+        assert torch.equal(picked.keep, c.keep.cpu())
+        replayed.append(picked)
+        return picked
+
+    monkeypatch.setattr(ML, "moe_route", record_or_replay)
+    counts = []
+
+    def serve(p, device):
+        logits, cache = SV.prefill(p, cfg, toks.to(device), 48)
+        counts.append((fa.launch_count, moe_gmm.launch_count))
+        out = [logits]
+        for i, f in enumerate(fed):
+            pos = torch.full((2, 1), toks.shape[1] + i, device=device)
+            logits, cache = SV.decode_step(p, cfg, cache, f.to(device), pos)
+            counts.append((fa.launch_count, moe_gmm.launch_count))
+            out.append(logits)
+        return torch.cat(out, dim=1).float().cpu(), cache
+
+    before = (fa.launch_count, moe_gmm.launch_count)
+    got, got_cache = serve(params, cuda)
+    n = _launches_per_layer(cfg, fa)
+    steps = [(b[0] - a[0], b[1] - a[1])
+             for a, b in zip([before] + counts, counts)]
+    assert steps == [(n, 3 * n)] + [(0, 3 * n)] * len(fed)
+    assert len(card) == n * (1 + len(fed))
+    assert card[-1].idx.shape == (1, 2, cfg.moe_top_k) \
+        and card[-1].capacity == 1
+    want, want_cache = serve(MT.tree_map(lambda t: t.cpu(), params), "cpu")
+    assert len(replayed) == len(card)
+    for i in range(0, len(card), n):  # call by call: one token set each
+        ra = ML.routing_agreement(
+            [(r.logits, r.idx, r.keep) for r in card[i:i + n]],
+            cpu_own[i:i + n])
+        assert ra.flips_are_near_ties(SERVE_TOL)
     assert torch.isfinite(got).all()
     row = (got - want).abs().amax(-1) / want.abs().amax(-1)
     assert float(row.max()) < SERVE_TOL

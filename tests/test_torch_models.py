@@ -340,20 +340,29 @@ def _cached_block_steps(arch, kind, jcache, tcache):
 @pytest.mark.parametrize("arch,kind", [("qwen3-moe-30b-a3b", "moe"),
                                        ("arctic-480b", "moe_dense"),
                                        ("recurrentgemma-9b", "rglru")])
-def test_new_kinds_with_a_cache_name_their_roadmap_item(arch, kind):
-    """The MoE blocks with a cache raise naming ROADMAP A17 (MoE decode);
-    the RG-LRU block takes one: from an empty dict, as the JAX package's
-    does (a prefill from h = 0 that returns its state), then a decode step,
-    both within 1e-5 of the JAX package's in float32."""
+def test_new_kinds_with_a_cache_name_their_roadmap_item(arch, kind,
+                                                        monkeypatch):
+    """Named for the time the MoE blocks with a cache raised naming ROADMAP
+    A17 (MoE decode); now they take the KV ring of ``attn`` (2S slots, the
+    JAX package's ``init_kv_cache``) and the RG-LRU block takes one from an
+    empty dict, as the JAX package's does (a prefill from h = 0 that
+    returns its state).  A prefill, then a decode step, each within 1e-5 of
+    the JAX package's in float32, every MoE call routing every token alike
+    (the decode step's B tokens as one group at capacity 1)."""
     if kind == "rglru":
         assert max(_cached_block_steps(arch, kind, {}, {})) < 1e-5
         return
-    cfg = ARCHS[arch].reduced()
-    p = T.init_block(torch.Generator().manual_seed(0), cfg, kind)
-    _, tctx = _contexts()
-    x = torch.zeros((B, S, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        T.apply_block(p, cfg, kind, x, tctx, {})
+    jcfg, cfg = _configs(arch, "float32")
+    with recorded_routes(monkeypatch) as (port, ref):
+        errs = _cached_block_steps(
+            arch, kind, JL.init_kv_cache(jcfg, B, 2 * S),
+            T.init_block_cache(cfg, kind, B, 2 * S, device="cpu"))
+    assert max(errs) < 1e-5
+    assert len(port) == len(ref) == 2
+    for got, want in zip(port, ref):
+        ra = L.routing_agreement([got], [want])
+        assert ra.flips == 0 and bool(ra.agree.all()), ra
+    assert port[1][1].shape == (1, B, cfg.moe_top_k)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "recurrentgemma-9b"])

@@ -2,22 +2,33 @@
 
 JAX parameters go through ``params_from_jax`` and JAX caches through
 ``cache_from_jax`` (``cache_to_jax_layout`` brings the port's back, leaf by
-leaf).  Four reduced models (qwen2-1.5b, qwen3-14b with its qk-norm,
-mamba2-370m, recurrentgemma-9b) serve a batch of two prompts of 12 and 32
-tokens, left-padded to 32 (two SSD chunks of 16), into caches of 48 slots:
-recurrentgemma's local-attention ring has min(48, window 32) = 32 slots, so
-its decode steps wrap it.
+leaf).  Six reduced models (qwen2-1.5b, qwen3-14b with its qk-norm,
+mamba2-370m, recurrentgemma-9b, and the MoE models qwen3-moe-30b-a3b and
+arctic-480b) serve a batch of two prompts of 12 and 32 tokens, left-padded
+to 32 (two SSD chunks of 16), into caches of 48 slots: recurrentgemma's
+local-attention ring has min(48, window 32) = 32 slots, so its decode steps
+wrap it.  An MoE layer routes a call's own tokens: the prefill's 64 as one
+group, a decode step's 2 as one group at capacity max(1, int(2 * 2 / 4 *
+1.25)) = 1, so its steps drop a slot wherever the two tokens pick the same
+expert.
 
-In float32 compute the port's logits and every cache leaf lie within 1e-5
-of the JAX package's largest magnitude (``pos`` ``==``), after the prefill
-and after each of 8 decode steps fed the same tokens, and
+In float32 compute every MoE layer call routes every token alike in the two
+packages (each side's routing recorded, the JAX package's through
+``test_torch_models.jax_route`` and an ordered callback, decode steps
+included), and the port's logits and every cache leaf lie within 1e-5 of
+the JAX package's largest magnitude (``pos`` ``==``), after the prefill and
+after each of 8 decode steps fed the same tokens, and
 ``ServingEngine.generate`` gives JAX's tokens, token for token.  In bf16
 the prefill and 4 decode steps lie within 5e-2, the bound of a bf16 stack
-in ``tests/test_torch_models.py``.  The port is also held against itself:
-its cached decode against its own cache-free forward over the same tokens.
+in ``tests/test_torch_models.py``; MoE route-aware: every pick that differs
+is a near tie on the JAX side, and the rows compared are those whose every
+token so far kept the same experts at every layer.  The port is also held
+against itself: its cached decode against its own cache-free forward over
+the same tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -27,6 +38,7 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
+from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.serving import engine as JE
 from repro_torch import serving as S
@@ -34,8 +46,11 @@ from repro_torch.configs import ARCHS
 from repro_torch.models import convert
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from test_torch_models import jax_route
 
-MODELS = ["qwen2-1.5b", "qwen3-14b", "mamba2-370m", "recurrentgemma-9b"]
+MOE = ["qwen3-moe-30b-a3b", "arctic-480b"]
+MODELS = ["qwen2-1.5b", "qwen3-14b", "mamba2-370m", "recurrentgemma-9b",
+          *MOE]
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 B, LENGTHS, CACHE_LEN = 2, (12, 32), 48
 STEPS = {"float32": 8, "bfloat16": 4}
@@ -67,38 +82,110 @@ def _fed_tokens(cfg, steps: int) -> np.ndarray:
                                              (steps, B, 1))
 
 
+@contextlib.contextmanager
+def _routes(package: str, replay=None):
+    """Every MoE layer call's routing inside the block, in call order, as
+    (logits, idx, keep) tensors: the port's ``moe_route`` (``package``
+    "port"), or the JAX package's ``moe_ffn`` recomputed by ``jax_route``
+    and handed out by an ordered callback, also from inside ``lax.scan``
+    and ``jit`` ("jax"; ``jax.effects_barrier`` waits for them).  With
+    ``replay`` (the JAX package's routings of the same calls) the port's
+    calls send their tokens to the JAX package's experts instead
+    (``routing_of_picks``), which must keep the same slots; the port's own
+    router's routings are still the ones recorded."""
+    routes: list = []
+    if package == "port":
+        route = L.moe_route
+
+        def port_route(router, cfg, toks):
+            r = route(router, cfg, toks)
+            routes.append((r.logits, r.idx, r.keep))
+            if replay is not None:
+                _, idx, keep = replay[len(routes) - 1]
+                r = L.routing_of_picks(r.logits, r.probs, idx.long(),
+                                       r.capacity)
+                assert torch.equal(r.keep, keep)
+            return r
+
+        L.moe_route = port_route
+        try:
+            yield routes
+        finally:
+            L.moe_route = route
+        return
+    ffn = JL.moe_ffn
+
+    def keep(*arrays):
+        routes.append(tuple(torch.from_numpy(np.array(a)) for a in arrays))
+
+    def jax_ffn(p, cfg, x):
+        jax.debug.callback(keep, *jax_route(p["router"], cfg, x),
+                           ordered=True)
+        return ffn(p, cfg, x)
+
+    JL.moe_ffn = jax_ffn
+    try:
+        yield routes
+        jax.effects_barrier()
+    finally:
+        JL.moe_ffn = ffn
+
+
 @functools.cache
 def _jax_run(arch: str, compute_dtype: str):
     """The JAX package's prefill of the padded prompts, then its decode
-    steps: [(logits, cache)], numpy leaves."""
+    steps: [(logits, cache, routes)], numpy leaves, ``routes`` the call's
+    MoE routings (empty without MoE layers)."""
     jcfg, cfg, jp, _ = _models(arch, compute_dtype)
     toks = S.left_pad(_prompts(cfg), B)
-    logits, cache = JE.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32),
-                               CACHE_LEN)
-    runs = [(np.asarray(logits), jax.tree.map(np.asarray, cache))]
-    step = jax.jit(lambda p, c, t, pos: JE.decode_step(p, jcfg, c, t, pos))
-    for i, fed in enumerate(_fed_tokens(cfg, STEPS[compute_dtype])):
-        pos = np.full((B, 1), toks.shape[1] + i, np.int32)
-        logits, cache = step(jp, cache, jnp.asarray(fed, jnp.int32),
-                             jnp.asarray(pos))
-        runs.append((np.asarray(logits), jax.tree.map(np.asarray, cache)))
-    return runs
+    with _routes("jax") as routes:
+        logits, cache = JE.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32),
+                                   CACHE_LEN)
+        runs = [(np.asarray(logits), jax.tree.map(np.asarray, cache))]
+        step = jax.jit(lambda p, c, t, pos: JE.decode_step(p, jcfg, c, t,
+                                                           pos))
+        for i, fed in enumerate(_fed_tokens(cfg, STEPS[compute_dtype])):
+            pos = np.full((B, 1), toks.shape[1] + i, np.int32)
+            logits, cache = step(jp, cache, jnp.asarray(fed, jnp.int32),
+                                 jnp.asarray(pos))
+            runs.append((np.asarray(logits),
+                         jax.tree.map(np.asarray, cache)))
+    return _with_routes(cfg, runs, routes)
 
 
-def _port_run(arch: str, compute_dtype: str):
+def _with_routes(cfg, runs: list, routes: list) -> list:
+    """Each call's (logits, cache) with its own MoE routings appended."""
+    n = sum(kind in ("moe", "moe_dense")
+            for kind in T.layer_kinds(cfg.n_layers, cfg.pattern))
+    assert len(routes) == n * len(runs)
+    return [(*run, routes[i * n:(i + 1) * n]) for i, run in enumerate(runs)]
+
+
+def _port_run(arch: str, compute_dtype: str, replay=None):
     """The port's prefill and decode steps on the same inputs, each cache
     in the JAX layout as it was after its step (the KV rings are written
-    in place)."""
+    in place), with each call's MoE routings (see ``_routes`` for
+    ``replay``)."""
     _, cfg, _, tp = _models(arch, compute_dtype)
     toks = torch.from_numpy(S.left_pad(_prompts(cfg), B))
-    logits, cache = S.prefill(tp, cfg, toks, CACHE_LEN)
-    runs = [(logits, convert.cache_to_jax_layout(cache, cfg))]
-    for i, fed in enumerate(_fed_tokens(cfg, STEPS[compute_dtype])):
-        pos = torch.full((B, 1), toks.shape[1] + i)
-        logits, cache = S.decode_step(tp, cfg, cache, torch.from_numpy(fed),
-                                      pos)
-        runs.append((logits, convert.cache_to_jax_layout(cache, cfg)))
-    return runs
+    with _routes("port", replay) as routes:
+        logits, cache = S.prefill(tp, cfg, toks, CACHE_LEN)
+        runs = [(logits, convert.cache_to_jax_layout(cache, cfg))]
+        for i, fed in enumerate(_fed_tokens(cfg, STEPS[compute_dtype])):
+            pos = torch.full((B, 1), toks.shape[1] + i)
+            logits, cache = S.decode_step(tp, cfg, cache,
+                                          torch.from_numpy(fed), pos)
+            runs.append((logits, convert.cache_to_jax_layout(cache, cfg)))
+    return _with_routes(cfg, runs, routes)
+
+
+def _assert_routed_alike(routes, want_routes) -> None:
+    """A float32 call routes every token of every MoE layer as the JAX
+    package's does."""
+    assert len(routes) == len(want_routes)
+    if want_routes:
+        ra = L.routing_agreement(routes, want_routes)
+        assert ra.flips == 0 and bool(ra.agree.all()), ra
 
 
 def _assert_caches_match(got, want, tol: float) -> None:
@@ -116,8 +203,9 @@ def _assert_caches_match(got, want, tol: float) -> None:
 
 @pytest.mark.parametrize("arch", MODELS)
 def test_prefill_matches_jax(arch):
-    logits, cache = _port_run(arch, "float32")[0]
-    want_logits, want_cache = _jax_run(arch, "float32")[0]
+    logits, cache, routes = _port_run(arch, "float32")[0]
+    want_logits, want_cache, want_routes = _jax_run(arch, "float32")[0]
+    _assert_routed_alike(routes, want_routes)
     assert logits.shape == want_logits.shape
     assert logits.dtype == torch.float32
     assert _rel(logits, want_logits) < TOL["float32"]
@@ -128,7 +216,9 @@ def test_prefill_matches_jax(arch):
 def test_decode_steps_match_jax(arch):
     got, want = _port_run(arch, "float32"), _jax_run(arch, "float32")
     assert len(got) == len(want) == 1 + STEPS["float32"]
-    for (logits, cache), (want_logits, want_cache) in zip(got[1:], want[1:]):
+    for (logits, cache, routes), (want_logits, want_cache, want_routes) \
+            in zip(got[1:], want[1:]):
+        _assert_routed_alike(routes, want_routes)
         assert _rel(logits, want_logits) < TOL["float32"]
         _assert_caches_match(cache, want_cache, TOL["float32"])
 
@@ -136,7 +226,7 @@ def test_decode_steps_match_jax(arch):
 def test_recurrentgemma_ring_wraps():
     """The local-attention ring of 32 slots holds positions 8..39 after 8
     decode steps from 32 prompt tokens: the steps overwrote slots 0..7."""
-    _, cache = _port_run("recurrentgemma-9b", "float32")[-1]
+    _, cache, _ = _port_run("recurrentgemma-9b", "float32")[-1]
     cfg = _models("recurrentgemma-9b", "float32")[1]
     slot = cfg.pattern.index("local_attn")
     pos = cache["stack"]["groups"][slot]["pos"]  # (reps, B, 32)
@@ -170,8 +260,24 @@ def test_generate_matches_jax(arch, eos):
 
 @pytest.mark.parametrize("arch", MODELS)
 def test_bf16_prefill_and_decode_within_the_stack_bound(arch):
-    got, want = _port_run(arch, "bfloat16"), _jax_run(arch, "bfloat16")
-    for (logits, cache), (want_logits, want_cache) in zip(got, want):
+    """MoE route-aware.  The two packages round the bf16 residual
+    differently, so a token whose experts nearly tie can pick another one,
+    or the same two in the other slot order, which moves the buffer places
+    and so the capacity drops of other tokens of its group.  So the port
+    runs with the JAX package's expert picks replayed, dropping the same
+    slots, and every logit and cache leaf is held to 5e-2; its own router's
+    picks in that run may differ from the JAX package's only at near ties
+    (within 5e-2 of the largest |logit|), half the tokens of each call at
+    least keeping the same experts at every layer."""
+    want = _jax_run(arch, "bfloat16")
+    got = _port_run(arch, "bfloat16",
+                    replay=[r for run in want for r in run[2]])
+    for (logits, cache, routes), (want_logits, want_cache, want_routes) \
+            in zip(got, want):
+        if want_routes:
+            ra = L.routing_agreement(routes, want_routes)
+            assert ra.flips_are_near_ties(TOL["bfloat16"]), ra
+            assert 2 * int(ra.agree.sum()) >= ra.agree.numel(), ra
         assert _rel(logits, want_logits) < TOL["bfloat16"]
         _assert_caches_match(cache, want_cache, TOL["bfloat16"])
 
@@ -182,8 +288,19 @@ def test_cached_decode_matches_the_cache_free_forward(arch):
     steps) against one cache-free forward over the prompt and the tokens it
     generated.  The logits at position S-1+t are the prefill's (t = 0) and
     decode step t's, within 1e-5, and each greedy token is that forward's
-    argmax, or its logit lies within 1e-5 of the largest (a near tie)."""
-    _, cfg, _, tp = _models(arch, "float32")
+    argmax, or its logit lies within 1e-5 of the largest (a near tie).
+
+    The MoE models run with ``capacity_factor`` E / k: an MoE layer takes
+    its capacity over a call's own tokens, so at the config's 1.25 a decode
+    step (2 tokens, capacity 1) and the forward (96 tokens, capacity 60)
+    rightly drop different slots, and the two runs compute different
+    functions.  At E / k the capacity is the group's length in both runs
+    and no slot can drop."""
+    over = {}
+    if arch in MOE:
+        c = ARCHS[arch].reduced()
+        over["capacity_factor"] = c.n_experts / c.moe_top_k
+    _, cfg, _, tp = _models(arch, "float32", **over)
     n_new = 16  # 32 + 16 tokens: three SSD chunks, and the ring wraps
     toks = torch.from_numpy(S.left_pad(_prompts(cfg), B))
     Sp = toks.shape[1]
@@ -229,16 +346,48 @@ def test_ssd_prefill_with_a_ragged_length_raises():
         S.prefill(tp, cfg, torch.from_numpy(toks), CACHE_LEN)
 
 
+def test_moe_prefill_of_partial_groups_raises():
+    """A prefill of B * S = 1,200 tokens, over MOE_GROUP (1,024) and not a
+    multiple of it, raises in both packages: the JAX package's reshape into
+    groups fails, the port names the tokens and MOE_GROUP."""
+    jcfg, cfg, jp, tp = _models("qwen3-moe-30b-a3b", "float32")
+    assert L.MOE_GROUP == JL.MOE_GROUP == 1024
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (B, 600))
+    with pytest.raises(TypeError, match="reshape"):
+        JE.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), 640)
+    with pytest.raises(ValueError, match="1200 tokens.*MOE_GROUP = 1024"):
+        S.prefill(tp, cfg, torch.from_numpy(toks), 640)
+
+
 @pytest.mark.parametrize("arch,kind", [("qwen3-moe-30b-a3b", "moe"),
                                        ("arctic-480b", "moe_dense")])
 def test_moe_caches_name_a17(arch, kind):
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="A17"):
-        T.init_block_cache(cfg, kind, B, CACHE_LEN, device="cpu")
-    tp = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        S.prefill(tp, cfg, torch.zeros((B, 8), dtype=torch.int64),
-                  CACHE_LEN)
+    """Named for the time MoE caches raised naming ROADMAP A17; now an MoE
+    block's cache is the KV ring of ``attn`` (``k``, ``v`` of (B, length,
+    Hkv, hd) in the compute type, ``pos`` -1), as the JAX package's, and
+    the JAX package's MoE serving cache after a prefill crosses through
+    ``cache_from_jax`` and back through ``cache_to_jax_layout`` leaf for
+    leaf."""
+    jcfg, cfg, jp, _ = _models(arch, "float32")
+    ring = T.init_block_cache(cfg, kind, B, CACHE_LEN, device="cpu")
+    want = jax.tree.map(np.asarray, JT.init_block_cache(jcfg, kind, B,
+                                                        CACHE_LEN))
+    assert set(ring) == set(want) == {"k", "v", "pos"}
+    for name, t in ring.items():
+        assert tuple(t.shape) == want[name].shape
+        np.testing.assert_array_equal(t.numpy(), want[name])
+    assert ring["pos"].dtype == torch.int64
+    toks = S.left_pad(_prompts(cfg), B)
+    _, jcache = JE.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32), CACHE_LEN)
+    jcache = jax.tree.map(np.asarray, jcache)
+    got = convert.cache_from_jax(jcache, cfg, "cpu")
+    empty = {"stack": T.init_cache(cfg, B, CACHE_LEN, device="cpu")}
+    assert T.tree_map(lambda t: (t.shape, t.dtype), got) == \
+        T.tree_map(lambda t: (t.shape, t.dtype), empty)
+    back = convert.cache_to_jax_layout(got, cfg)
+    assert jax.tree.structure(back) == jax.tree.structure(jcache)
+    for g, w in zip(jax.tree.leaves(back), jax.tree.leaves(jcache)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_engine_runs_on_the_card_unless_asked_otherwise(monkeypatch):
