@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's eight paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's nine paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -87,6 +87,19 @@ Sq != Skv), serving (``prefill(memory=...)``, then greedy ``decode_step``s
 over the cross K/V the prefill projected, one flash launch at Sq 1 a cross
 block), and whisper's training (AdamW steps with memory, through the flash
 backward).
+
+Path 9 is the dry run of H100 clusters (``repro_torch.launch.dryrun``),
+after path 8, on the host and never on the card: two full-width cells of
+the single mesh (DRYRUN_CELLS: 256 cards over a fake process group),
+each ``ok`` with FLOPs, bytes and collective bytes above 0 and its
+per-card FLOPs within DRYRUN_BAND of the model's share; and path 4's
+qwen2-1.5b step and path 3's qwen3-moe-30b-a3b decode step dry-run on a
+one-rank mesh, their argument bytes ``==`` the storages of the card's
+arguments, their compute term at least the model's FLOPs at the card's
+peak over ONE_CARD_SLACK, and the card's p50 at least the dry run's
+bound (the larger of its compute and memory terms).  The four dry runs
+run in subprocesses started together just before path 8, on the host
+while the card runs path 8; their gates come after it.
 
 Phases, in order; any failure exits non-zero:
 
@@ -284,6 +297,7 @@ import importlib
 import json
 import math
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -830,13 +844,16 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     return ms
 
 
+def _kernel_work():
+    """``repro_torch.roofline.kernel_work``: the work formulas the dry run
+    counts the kernels by (imported once ``src`` is on the path)."""
+    from repro_torch.roofline import kernel_work
+
+    return kernel_work
+
+
 def _bound_ms(shape) -> tuple[float, str, int]:
-    batch, m, k, n = shape
-    nb = 1
-    for d in batch:
-        nb *= d
-    n_bytes = 8 * nb * (m * k + k * n) + (8 + 4) * nb * m * n
-    n_ops = 2 * nb * m * n * k  # one add and one compare per (b, m, n, k)
+    n_ops, n_bytes = _kernel_work().minplus_work(shape)
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     op_ms = n_ops / FP64_OPS_PER_S * 1e3
     return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else
@@ -844,14 +861,8 @@ def _bound_ms(shape) -> tuple[float, str, int]:
 
 
 def _scan_bound(key) -> tuple[float, str, int, int]:
-    """The fused scan at (N, K, S): comp, D and tail read once, total,
-    tail_src (int64) and srcs (int32) written once; an add and a compare
-    per candidate of each step (S per output), an add of comp per output,
-    and the tail's add and the last minimum's compare per candidate."""
-    N, K, S = key
-    n_bytes = (8 * N * (K * S + (K - 1) * S * S + S) + 16 * N
-               + 4 * (K - 1) * N * S)
-    n_ops = 2 * N * (K - 1) * S * S + N * (K - 1) * S + 2 * N * S
+    """The fused scan at (N, K, S), ``kernel_work.scan_work``."""
+    n_ops, n_bytes = _kernel_work().scan_work(key)
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     op_ms = n_ops / FP64_OPS_PER_S * 1e3
     return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else
@@ -3146,7 +3157,8 @@ def serve_loop(params, cfg, toks, traffic: ServeTraffic, device,
     return {"served": torch.stack(served, dim=1),
             "generated": torch.tensor(tokens, device=device).T,
             "cache": cache, "prefill_ms": prefill_ms, "steps_ms": steps_ms,
-            "launches_by_call": by_call}
+            "launches_by_call": by_call,
+            "step_inputs": (fed, pos) if traffic.max_new > 1 else ()}
 
 
 def teacher_forced(params, cfg, toks, run: dict, memory=None) -> dict:
@@ -3468,6 +3480,8 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
               f"capacity: {_capacity_gate(name, cfg, routes, [B * S] + [B] * (n_new - 1))}")
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in MT.tree_leaves(run["cache"]))
+    # a decode step's arguments as the card holds them (path 9's gate)
+    arg_bytes = storage_bytes((params, run["cache"], run.pop("step_inputs")))
     step_bytes = _decode_bytes(params, cfg, run.pop("cache"))
     peak = torch.cuda.max_memory_allocated()
 
@@ -3535,6 +3549,7 @@ def run_serve_path(name: str, cfg, params, traffic: ServeTraffic,
     return {"launches": launches, "recorded": recorded,
             "prefill_ms": run["prefill_ms"], "decode_ms_p50": p50,
             "decode_ms_p90": p90, "decode_bound_ms": bound_ms,
+            "decode_bytes": step_bytes, "decode_arg_bytes": arg_bytes,
             "tokens_per_s": n_tok / gen_s, "cache_bytes": cache_bytes,
             "peak_bytes": peak}
 
@@ -4071,6 +4086,8 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
     step = make_train_step(cfg, opt)
     stream = SyntheticLM(BatchSpec(B, S, cfg.vocab_size), seed=0)
     batches = [shard_batch(stream.batch_at(i), device) for i in range(2)]
+    # a step's arguments as the card holds them (path 9's gate)
+    arg_bytes = storage_bytes((params, state, batches[0]))
     torch.cuda.reset_peak_memory_stats()
 
     def steps():
@@ -4124,7 +4141,7 @@ def run_train_path(name: str, cfg, params, traffic: TrainTraffic, mods: dict,
             "round_trip_measured_s": measured, "round_trip_peak": rt_peak,
             "losses": losses, "grad_norms": norms, "step_ms": step_ms,
             "step_ms_p50": p50, "tokens_per_s": B * S / (p50 * 1e-3),
-            "peak_bytes": peak}
+            "peak_bytes": peak, "arg_bytes": arg_bytes}
 
 
 def run_fresh_train_path(name: str, mods: dict, device) -> dict:
@@ -5025,155 +5042,80 @@ def run_cross_path(name: str, mods: dict, device) -> dict:
             "serve": serve, "train": train}
 
 
-def _flash_bound(key) -> tuple[float, str, int, int]:
-    B, Sq, Hq, Skv, Hkv, hd, causal, window, _ = key
-    qi = torch.arange(Sq)[:, None]
-    ki = torch.arange(Skv)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        mask &= qi >= ki
-    if window is not None:
-        mask &= qi - ki < window
-    pairs = int(mask.sum())
-    n_ops = 4 * B * Hq * hd * pairs  # q.k and p.v, a multiply-add each
-    n_bytes = 2 * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd)
-    op_ms = n_ops / BF16_OPS_PER_S * 1e3
+def _work_bound(work, ops_per_s, passes: int = 1
+                ) -> tuple[float, str, int, int]:
+    n_ops, n_bytes = work
+    op_ms = passes * n_ops / ops_per_s * 1e3
     byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
             "bytes", n_ops, n_bytes)
 
 
+def _flash_bound(key) -> tuple[float, str, int, int]:
+    """``kernel_work.flash_work``: q.k and p.v over the visible pairs."""
+    return _work_bound(_kernel_work().flash_work(key), BF16_OPS_PER_S)
+
+
 def _ssd_work(key) -> tuple[int, int]:
-    """The least work, (operations, bytes): C B^T counted once per (batch,
-    chunk), as the heads share it, and every product over causal pairs
-    only."""
-    B, nc, H, Q, P, N = key
-    pairs = Q * (Q + 1) // 2
-    n_ops = (2 * N * pairs * B * nc + 2 * P * pairs * B * nc * H
-             + 2 * Q * N * P * B * nc * H)
-    n_bytes = 4 * (B * nc * H * Q * P * 2 + 2 * B * nc * Q * N
-                   + 2 * B * nc * H * Q + H + B * nc * H * N * P)
-    return n_ops, n_bytes
+    """The least work, (operations, bytes), ``kernel_work.ssd_work``."""
+    return _kernel_work().ssd_work(key)
 
 
 def _ssd_bound(key) -> tuple[float, str, int, int]:
     """The least work done as the kernel computes it: SSD_TF32_PASSES TF32
     products on the tensor cores for each fp32 product."""
-    n_ops, n_bytes = _ssd_work(key)
-    op_ms = SSD_TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    return _work_bound(_ssd_work(key), TF32_OPS_PER_S, SSD_TF32_PASSES)
 
 
 def _ssd_fp32_bound(key) -> tuple[float, str]:
     """The same work at the fp32 rate outside the tensor cores: not a bound
     of this kernel (it can beat it), the yardstick of a kernel on fp32
     FMAs, printed beside the bound."""
-    n_ops, n_bytes = _ssd_work(key)
-    op_ms = n_ops / FP32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+    return _work_bound(_ssd_work(key), FP32_OPS_PER_S)[:2]
 
 
 def _gmm_bound(key) -> tuple[float, str, int, int]:
     """Every row of the buffers, filled or not, as the function computes
-    them: 2 E C D F operations, x and w read and the output written once."""
-    E, C, D, F_, _ = key
-    n_ops = 2 * E * C * D * F_
-    n_bytes = 2 * (E * C * D + E * D * F_ + E * C * F_)
-    op_ms = n_ops / BF16_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    them (``kernel_work.gmm_work``)."""
+    return _work_bound(_kernel_work().gmm_work(key), BF16_OPS_PER_S)
 
 
 def _rglru_bound(key) -> tuple[float, str, int, int]:
     """a and b read and h written once; a multiply-add per element."""
-    n = key[0] * key[1] * key[2]
-    n_ops, n_bytes = 2 * n, 12 * n
-    op_ms = n_ops / FP32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    return _work_bound(_kernel_work().rglru_work(key), FP32_OPS_PER_S)
 
 
 def _gmm_bwd_bound(key) -> tuple[float, str, int, int]:
-    """The backward's least work from its inputs: dX = dZ W^T and dW = X^T
-    dZ, 2 E C D F operations each; x, w, dY and, with an activation, the
-    forward's Z (for dZ = dY act'(Z)) read once, and dX and dW written
-    once."""
-    E, C, D, F_, act = key
-    n_ops = 2 * 2 * E * C * D * F_
-    n_bytes = 2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_
-                   + (E * C * F_ if act != "none" else 0))
-    op_ms = n_ops / BF16_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    """The backward's least work from its inputs
+    (``kernel_work.gmm_bwd_work``)."""
+    return _work_bound(_kernel_work().gmm_bwd_work(key), BF16_OPS_PER_S)
 
 
 def _rglru_bwd_bound(key) -> tuple[float, str, int, int]:
-    """a, h and g read and da and db written once; an add and two
-    multiplies per element (lambda, the carry, da)."""
-    n = key[0] * key[1] * key[2]
-    n_ops, n_bytes = 3 * n, 20 * n
-    op_ms = n_ops / FP32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    """a, h and g read and da and db written once."""
+    return _work_bound(_kernel_work().rglru_bwd_work(key), FP32_OPS_PER_S)
 
 
 def _flash_bwd_bound(key) -> tuple[float, str, int, int]:
-    """Five products over the visible pairs (S = Q K^T, dP = dO V^T, dV =
-    P^T dO, dQ = dS K, dK = dS^T Q), 2.5 times the forward's operations;
-    q, k, v, dO and lse read and dQ, dK, dV written once."""
-    B, Sq, Hq, Skv, Hkv, hd = key[:6]
-    _, _, fwd_ops, _ = _flash_bound(key)
-    n_ops = fwd_ops * 5 // 2
-    q_bytes, kv_bytes = 2 * B * Sq * Hq * hd, 2 * B * Skv * Hkv * hd
-    n_bytes = (2 * q_bytes + 2 * kv_bytes + 4 * B * Hq * Sq
-               + q_bytes + 2 * kv_bytes)
-    op_ms = n_ops / BF16_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    """Five products over the visible pairs (``kernel_work.flash_bwd_work``)."""
+    return _work_bound(_kernel_work().flash_bwd_work(key), BF16_OPS_PER_S)
 
 
 def _ssd_bwd_work(key) -> tuple[int, int]:
-    """The least work of the backward, its products counted as
-    ``_ssd_work`` counts the forward's (over causal pairs; the head-free
-    C B^T, dC = (sum_h dS) B and dB = (sum_h dS)^T C once per (batch,
-    chunk)): C B^T, dC and dB; G = gy x^T and W^T gy per head; the chunk
-    states' ghc^T B and ghc x per head.  Operands and cotangents read and
-    gradients written once."""
-    B, nc, H, Q, P, N = key
-    pairs = Q * (Q + 1) // 2
-    n_ops = (3 * 2 * N * pairs * B * nc + 2 * 2 * P * pairs * B * nc * H
-             + 2 * 2 * Q * N * P * B * nc * H)
-    reads = (2 * B * nc * H * Q * P + 2 * B * nc * Q * N
-             + 2 * B * nc * H * Q + H + B * nc * H * N * P)
-    writes = B * nc * H * Q * P + 2 * B * nc * Q * N + B * nc * H * Q + H
-    return n_ops, 4 * (reads + writes)
+    """The least work of the backward, ``kernel_work.ssd_bwd_work``."""
+    return _kernel_work().ssd_bwd_work(key)
 
 
 def _ssd_bwd_bound(key) -> tuple[float, str, int, int]:
     """The least work at the forward's rate: SSD_TF32_PASSES TF32 products
     on the tensor cores for each fp32 product (fp32 accuracy)."""
-    n_ops, n_bytes = _ssd_bwd_work(key)
-    op_ms = SSD_TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else
-            "bytes", n_ops, n_bytes)
+    return _work_bound(_ssd_bwd_work(key), TF32_OPS_PER_S, SSD_TF32_PASSES)
 
 
 def _ssd_bwd_fp32_bound(key) -> tuple[float, str]:
     """The same work at the fp32 rate outside the tensor cores, the rate
     the first, plain SIMT version computed at: printed beside the bound."""
-    n_ops, n_bytes = _ssd_bwd_work(key)
-    op_ms = n_ops / FP32_OPS_PER_S * 1e3
-    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+    return _work_bound(_ssd_bwd_work(key), FP32_OPS_PER_S)[:2]
 
 
 def _flash_path_check(fa, recorded, random) -> tuple[float, None]:
@@ -5582,6 +5524,265 @@ def park(run, device="cpu") -> None:
             _operands_to(value, device)
 
 
+def storage_bytes(tree) -> int:
+    """The bytes of the storages of every tensor in ``tree`` (dicts, lists
+    and tuples of them), each storage once: what the arguments of a step
+    hold on their device."""
+    seen = {}
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            seen[(x.device, st.data_ptr())] = st.nbytes()
+
+    walk(tree)
+    return sum(seen.values())
+
+
+# Path 9: the dry run of the production H100 meshes (launch/dryrun.py), two
+# full-width cells of the single mesh (32 x 8 cards), each run in a
+# subprocess of its own as the CLI runs it
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "single"))
+# the per-device FLOPs of a cell against its share of the model's, model
+# FLOPs / cards (the reference's useful_flops_ratio), within these bounds:
+# a train step recomputes its forward (remat, about 0.7); a decode step's
+# attention over the cache is no model FLOP (0.16 at decode_32k); a count
+# of the whole mesh's FLOPs as one card's reads 1/256 of either, one that
+# misses work over 1
+DRYRUN_BAND = {"train": (0.5, 1.0), "decode": (0.05, 1.0)}
+# path 9's one-card cells: the dry run of paths 4's and 3's steps on a
+# one-rank mesh, held to the card's arguments and p50
+ONE_CARD = {"qwen2-1.5b": "train", "qwen3-moe-30b-a3b": "decode"}
+# a one-card cell counts at least 1 / ONE_CARD_SLACK of its model FLOPs (a
+# decode step's embedding lookup is model FLOPs that no product computes)
+ONE_CARD_SLACK = 2.0
+SHAPES_KIND = {"train_4k": "train", "prefill_32k": "prefill",
+               "decode_32k": "decode", "long_500k": "decode"}
+DRYRUN_TIMEOUT_S = 600
+
+DRYRUN_SNIPPET = r"""
+import dataclasses, json, math, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_mesh, start_fake_group
+spec = json.loads(sys.argv[1])
+if isinstance(spec["mesh"], str):
+    out = run_cell(spec["arch"], spec["shape"], spec["mesh"])
+else:
+    dims = tuple(spec["mesh"])
+    start_fake_group(math.prod(dims))
+    mesh = make_mesh(dims, ("data", "model")[-len(dims):] if len(dims) < 3
+                     else ("pod", "data", "model"))
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced") is not None:
+        cfg = cfg.reduced(**spec["reduced"])
+    cfg = dataclasses.replace(cfg, **spec.get("overrides", {}))
+    out = run_cell(cfg, ShapeConfig(*spec["shape"]), mesh)
+print(json.dumps(out))
+"""
+
+
+class DryRuns(NamedTuple):
+    """Dry runs started in subprocesses of their own (``start_dryruns``)."""
+    specs: list
+    procs: list
+    t0: float
+
+    def stop(self) -> None:
+        """Kills those still running (a failure elsewhere ends them)."""
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def start_dryruns(specs: list) -> DryRuns:
+    """Each of ``specs`` started in a subprocess of its own, all together
+    (the fake process group is process-global; none touches the card):
+    {"arch", "shape", "mesh"} names a production cell, as ``python -m
+    repro_torch.launch.dryrun --cell`` runs it; a mesh of dims, a
+    ``shape`` (name, seq_len, global_batch, kind) and ``overrides`` (and
+    ``reduced``, ``ModelConfig.reduced``'s arguments) run the config so
+    changed."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    return DryRuns(specs, [subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SNIPPET, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT)) for spec in specs], t0)
+
+
+def dryrun_cells(runs: DryRuns) -> list:
+    """Each started dry run's artifact; one that fails, or outlasts
+    DRYRUN_TIMEOUT_S, raises (and ends the others)."""
+    out = []
+    try:
+        for spec, proc in zip(runs.specs, runs.procs):
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"path 9: the dry run of {spec} took "
+                                     f"more than {DRYRUN_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"path 9: the dry run of {spec} failed:"
+                                     f" {stderr[-3000:]}")
+            out.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        runs.stop()
+    return out
+
+
+def _flops_ratio(art) -> float:
+    """The cell's model FLOPs over the FLOPs its cards run, from its
+    counts (the reference's useful_flops_ratio)."""
+    total = art["cost"]["flops_per_device"] * art["devices"]
+    return art["roofline"]["model_flops_global"] / total if total else 0.0
+
+
+def _dryrun_gate(art, kind: str) -> str:
+    """A production cell: ``ok``, FLOPs, bytes and collective bytes above
+    0, and its useful_flops_ratio within DRYRUN_BAND[kind]."""
+    name = f"{art['arch']} {art['shape']} {art['mesh']}"
+    if art.get("status") != "ok":
+        raise AssertionError(f"path 9: {name}: status {art.get('status')}: "
+                             f"{art.get('stderr', art.get('reason'))}")
+    cost, coll = art["cost"], art["collectives"]
+    if not (cost["flops_per_device"] > 0 and cost["hbm_bytes_per_device"] > 0
+            and coll["total_bytes_per_device"] > 0):
+        raise AssertionError(f"path 9: {name}: FLOPs, bytes and collective "
+                             f"bytes must be above 0: {cost}, {coll}")
+    lo, hi = DRYRUN_BAND[kind]
+    ratio = _flops_ratio(art)
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"path 9: {name}: the per-device FLOPs are "
+                             f"{ratio!r} of the model's share (band "
+                             f"{DRYRUN_BAND[kind]})")
+    rf = art["roofline"]
+    return (f"{name}: ok on {art['devices']} cards ({art['strategy']}); "
+            f"per device {cost['flops_per_device']!r} FLOP, "
+            f"{cost['hbm_bytes_per_device']!r} B of HBM, "
+            f"{coll['total_bytes_per_device']!r} B of collectives "
+            f"({coll['net_bytes_per_device']!r} across nodes); t_compute "
+            f"{rf['t_compute']!r} s, t_memory {rf['t_memory']!r} s, "
+            f"t_collective {rf['t_collective']!r} s, bottleneck "
+            f"{rf['bottleneck']}; useful FLOPs {ratio!r} (band {lo}-{hi}); "
+            f"peak {art['memory']['per_device_bytes']} B a card, fits "
+            f"{art['memory']['fits_80gb']}")
+
+
+def _one_card_gate(name: str, art, arg_bytes: int, p50_ms: float) -> dict:
+    """A one-card cell against the card: its argument bytes ``==`` the
+    storages of the card's arguments, its compute term at least the
+    model's FLOPs at the card's peak over ONE_CARD_SLACK (BF16_OPS_PER_S:
+    a count at a peak 10 times too high fails), and the card's p50 at least its bound, the larger of its
+    compute and memory terms (a count the card beats is a wrong count)."""
+    rf, mem = art["roofline"], art["memory"]
+    if art.get("status") != "ok":
+        raise AssertionError(f"path 9: {name}: status {art.get('status')}")
+    if mem["argument_bytes"] != arg_bytes:
+        raise AssertionError(f"path 9: {name}: the dry run's arguments hold "
+                             f"{mem['argument_bytes']} B, the card's "
+                             f"{arg_bytes} B")
+    t_compute = art["cost"]["flops_per_device"] / rf["peak_flops"]
+    t_memory = art["cost"]["hbm_bytes_per_device"] / rf["hbm_bw"]
+    least = rf["model_flops_global"] / (rf["chips"] * BF16_OPS_PER_S)
+    if t_compute < least / ONE_CARD_SLACK:
+        raise AssertionError(f"path 9: {name}: the compute term {t_compute!r}"
+                             f" s is below 1/{ONE_CARD_SLACK} of the model's "
+                             f"FLOPs at the card's peak, {least!r} s")
+    bound_ms = max(t_compute, t_memory) * 1e3
+    if not p50_ms >= bound_ms:
+        raise AssertionError(f"path 9: {name}: the card's p50 {p50_ms!r} ms "
+                             f"beats the dry run's bound {bound_ms!r} ms")
+    return {"bound_ms": bound_ms, "t_compute": t_compute,
+            "t_memory": t_memory}
+
+
+def dryrun_specs() -> tuple[list, dict, dict]:
+    """Path 9's cells: DRYRUN_CELLS, and the one-card cells of ONE_CARD,
+    path 4's train step of qwen2-1.5b and path 3's decode step of
+    qwen3-moe-30b-a3b, each on a one-rank mesh with its path's config
+    changes."""
+    moe, qwen2 = SERVE["qwen3-moe-30b-a3b"], TRAIN["qwen2-1.5b"]
+    train = {"arch": "qwen2-1.5b", "mesh": [1, 1],
+             "shape": ["path4_train", qwen2.seq, qwen2.batch, "train"],
+             "overrides": MODELS["qwen2-1.5b"].overrides}
+    decode = {"arch": "qwen3-moe-30b-a3b", "mesh": [1, 1],
+              "shape": ["path3_decode", moe.cache_len, moe.batch, "decode"],
+              "overrides": MODELS["qwen3-moe-30b-a3b"].overrides}
+    return ([{"arch": a, "shape": s, "mesh": m} for a, s, m in DRYRUN_CELLS],
+            train, decode)
+
+
+def start_dryrun_path() -> DryRuns:
+    """Path 9's dry runs started: ``dryrun_specs``' cells in order."""
+    cells, train_spec, decode_spec = dryrun_specs()
+    return start_dryruns(cells + [train_spec, decode_spec])
+
+
+def run_dryrun_path(by_model: dict, card: str,
+                    runs: DryRuns | None = None) -> dict:
+    """Path 9: ``dryrun_specs``' production cells (gated by
+    ``_dryrun_gate``), and its one-card cells beside what paths 4 and 3
+    measured on the card (gated by ``_one_card_gate``), all the dry runs in
+    subprocesses started together: ``runs`` (``start_dryrun_path``'s,
+    started while the card runs path 8), or started here."""
+    t0 = time.perf_counter()
+    train = by_model["qwen2-1.5b"]["train"]
+    serve = by_model["qwen3-moe-30b-a3b"]["serve"]
+    cells, train_spec, decode_spec = dryrun_specs()
+    runs = runs or start_dryrun_path()
+    arts = dryrun_cells(runs)
+    dry_s = time.perf_counter() - runs.t0
+    for art, spec in zip(arts, cells):
+        kind = (SHAPES_KIND[spec["shape"]] if isinstance(spec["shape"], str)
+                else spec["shape"][3])
+        print(f"path 9: {_dryrun_gate(art, kind)}")
+    tr, de = arts[len(cells):]
+    g_tr = _one_card_gate("qwen2-1.5b train step", tr, train["arg_bytes"],
+                          train["step_ms_p50"])
+    g_de = _one_card_gate("qwen3-moe-30b-a3b decode step", de,
+                          serve["decode_arg_bytes"], serve["decode_ms_p50"])
+    share = tr["roofline"]["model_flops_global"] / (
+        train["step_ms_p50"] * 1e-3 * BF16_OPS_PER_S)
+    print(f"path 9 on {card}: qwen2-1.5b's path 4 step (B x S "
+          f"{train_spec['shape'][2]} x {train_spec['shape'][1]}, AdamW) "
+          f"dry-run on one rank: arguments {tr['memory']['argument_bytes']} B == the card's;"
+          f" bound {g_tr['bound_ms']!r} ms (t_compute {g_tr['t_compute']!r}"
+          f" s, t_memory {g_tr['t_memory']!r} s) <= p50 "
+          f"{train['step_ms_p50']!r} ms; the step's share of the peak, model "
+          f"FLOPs / (p50 x peak), {share!r}; dry-run peak "
+          f"{tr['memory']['per_device_bytes']} B beside "
+          f"max_memory_allocated {train['peak_bytes']} B")
+    hbm_share = de["cost"]["hbm_bytes_per_device"] / (
+        serve["decode_ms_p50"] * 1e-3 * HBM_BYTES_PER_S)
+    print(f"path 9 on {card}: qwen3-moe-30b-a3b's path 3 decode step (B "
+          f"{decode_spec['shape'][2]}, cache {decode_spec['shape'][1]}) "
+          f"dry-run on one rank: arguments {de['memory']['argument_bytes']} B == the "
+          f"card's; bound {g_de['bound_ms']!r} ms (t_compute "
+          f"{g_de['t_compute']!r} s, t_memory {g_de['t_memory']!r} s) <= "
+          f"p50 {serve['decode_ms_p50']!r} ms; counted bytes "
+          f"{de['cost']['hbm_bytes_per_device']!r} / (p50 x HBM) = "
+          f"{hbm_share!r}, beside the hand count of the weights, head and "
+          f"cache, {serve['decode_bytes']} B; dry-run peak "
+          f"{de['memory']['per_device_bytes']} B beside "
+          f"max_memory_allocated {serve['peak_bytes']} B")
+    seconds = time.perf_counter() - t0
+    print(f"path 9 in {seconds!r} s after path 8; its dry runs took "
+          f"{dry_s!r} s from their start")
+    return {"cells": arts[:len(cells)], "train": tr, "decode": de,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -5632,9 +5833,15 @@ def main() -> int:
     print(f"path 7 (pipeline forward and training, launchers) took "
           f"{t_pipe!r} s of wall in all")
     cross = {}
-    for name in CROSS:
-        cross[name] = phase(name, run_cross_path, name, mods, device)
-        park(cross[name])
+    # path 9's dry runs on the host while path 8 runs on the card
+    dry = start_dryrun_path()
+    try:
+        for name in CROSS:
+            cross[name] = phase(name, run_cross_path, name, mods, device)
+            park(cross[name])
+        phase("path 9", run_dryrun_path, by_model, card, dry)
+    finally:
+        dry.stop()
     pipe_runs = {f"pipeline/{name}": by_model[name]["pipeline"]
                  for name in MODELS}
     matmul["launches_by_path"] = {

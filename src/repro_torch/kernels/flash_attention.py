@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from ..roofline import kernel_work
 from . import build as _build
 
 LIBRARY = _build.KernelLibrary("flash_attention", {
@@ -210,6 +211,12 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     launch of the forward kernel, which then writes the log-sum-exp too."""
     _check_call(q, k, v, window)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if kernel_work.is_fake(q, k, v):
+        B, Sq, Hq, _ = q.shape
+        key = kernel_work.flash_key(q, k, causal, window, softcap)
+        return kernel_work.standin(
+            "flash_attention", key, None,
+            [(q.shape, q.dtype), ((B, Hq, Sq), torch.float32)], q, k, v)
     with torch.no_grad():
         if q.device.type == "cpu":
             return reference_attention(q, k, v, **kw), reference_lse(q, k,
@@ -294,9 +301,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     contiguous, 16-byte aligned bf16 on one device with a head width in
     ``HEAD_DIMS``; they launch the kernel on the current stream, and
     anything the kernel does not take raises.  Where grad mode is on and an
-    operand requires grad, the result carries the backward kernel.
+    operand requires grad, the result carries the backward kernel.  Fake
+    tensors (the dry run) take ``kernel_work.standin``.
     """
     _check_call(q, k, v, window)
+    if kernel_work.is_fake(q, k, v):
+        key = kernel_work.flash_key(q, k, causal, window, softcap)
+        return kernel_work.standin("flash_attention", key, key,
+                                   [(q.shape, q.dtype)], q, k, v)
     if q.device.type == "cpu":
         return reference_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)

@@ -38,6 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..roofline import kernel_work
 from . import build as _build
 
 LIBRARY = _build.KernelLibrary("moe_gmm", {
@@ -289,9 +290,15 @@ def expert_matmul(x, w, activation: str = "none"):
     launch the kernel on the current stream, and anything the kernel does
     not take raises.  Where grad mode is on and an operand requires grad,
     the result carries the backward kernel (and the launch also writes Z
-    for it where there is an activation).
+    for it where there is an activation).  Fake tensors (the dry run) take
+    ``kernel_work.standin``.
     """
     _check_call(x, w, activation, "expert_matmul")
+    if kernel_work.is_fake(x, w):
+        E, C, _ = x.shape
+        key = (*x.shape, w.shape[2], activation)
+        return kernel_work.standin("moe_gmm", key, key,
+                                   [((E, C, w.shape[2]), x.dtype)], x, w)
     if x.device.type == "cpu":
         return reference_expert_matmul(x, w, activation=activation)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

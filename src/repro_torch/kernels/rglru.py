@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ..roofline import kernel_work
 from . import build as _build
 
 LIBRARY = _build.KernelLibrary("rglru", {
@@ -196,10 +197,14 @@ def rglru_scan(a, b):
     contiguous float32 on one device; they launch the kernel on the current
     stream, and anything the kernel does not take raises.  Where grad mode
     is on and an operand requires grad, the result carries the backward
-    kernel.
+    kernel.  Fake tensors (the dry run) take ``kernel_work.standin``.
     """
     _check(a, b)
     _check_call((a, b), "rglru_scan")
+    if kernel_work.is_fake(a, b):
+        key = tuple(a.shape)
+        return kernel_work.standin("rglru", key, key, [(a.shape, a.dtype)],
+                                   a, b)
     if a.device.type == "cpu":
         return reference_rglru_scan(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..roofline import kernel_work
 from . import build as _build
 
 LIBRARY = _build.KernelLibrary("ssd", {
@@ -230,10 +231,20 @@ def ssd_intra_chunk(x, Bm, Cm, dt, A):
     be contiguous float32 on one device, with P in ``HEAD_WIDTHS`` and N at
     most ``MAX_STATE``; they launch the kernel on the current stream, and
     anything the kernel does not take raises.  Where grad mode is on and an
-    operand requires grad, the results carry the backward kernel.
+    operand requires grad, the results carry the backward kernel.  Fake
+    tensors (the dry run) take ``kernel_work.standin``.
     """
     operands = (x, Bm, Cm, dt, A)
     _check_call(operands)
+    if kernel_work.is_fake(*operands):
+        Bsz, nc, H, Q, P = x.shape
+        N = Bm.shape[-1]
+        key = (Bsz, nc, H, Q, P, N)
+        f32 = torch.float32
+        return kernel_work.standin(
+            "ssd", key, key, [((Bsz, nc, H, Q, P), f32),
+                              ((Bsz, nc, H, N, P), f32),
+                              ((Bsz, nc, H, Q), f32)], *operands)
     if x.device.type == "cpu":
         return reference_ssd_intra_chunk(*operands)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):

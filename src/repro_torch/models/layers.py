@@ -26,6 +26,11 @@ at every call.  An MoE block's attention half takes the KV ring of
 ``attn``; its FFN routes the call's own tokens, so a decode step of B
 sequences routes B tokens as one group, with the capacity taken over them
 (``max(1, int(B * k / E * capacity_factor))``), as the JAX package's does.
+
+Under mesh rules (``models/sharding.py``) on DTensors, the dry run's
+parameters and activations, the reference's constraint sites lay the
+activations out and each kernel runs on a device's shards
+(``sharding.local_call``); without rules the sites are no-ops.
 """
 from __future__ import annotations
 
@@ -41,8 +46,17 @@ from ..kernels.flash_attention import flash_attention
 from ..kernels.moe_gmm import expert_matmul
 from ..kernels.ops import ssd_forward
 from ..kernels.rglru import rglru_scan
+from . import sharding as SH
 
 Params = dict
+
+# Constraint sites of the attention core (q, k, v and o are (B, S, H, hd)):
+# heads over TP, else (q and o) the query positions, as the JAX package's
+# blocked attention constrains them (``layers.py:33-39`` there; the flash
+# kernel keeps no scores, so their spec has no site here); without active
+# rules, and on tensors that are no DTensors, they are no-ops.
+_KV_SPECS = [("batch", None, "tp", None), ("batch", None, None, None)]
+_Q_SPECS = [("batch", None, "tp", None), ("batch", "tp", None, None)]
 
 @dataclasses.dataclass
 class Ctx:
@@ -145,7 +159,7 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv, q_positions, kv_positions,
         y = x @ p[w].to(dt)
         if b_name in p:
             y = y + p[b_name].to(dt)
-        return y.reshape(x.shape[0], x.shape[1], H, hd)
+        return SH.splittable(y, -1, H).reshape(x.shape[0], x.shape[1], H, hd)
 
     q = proj(xq, "wq", "bq", Hq)
     k = proj(xkv, "wk", "bk", Hkv)
@@ -200,7 +214,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, *,
 def _cache_write(cache, k_new, v_new, positions) -> dict:
     """Writes the new K/V in place at the ring slots ``position % length``
     and returns the cache.  A call writes at most ``length`` tokens of
-    consecutive positions, so no slot is written twice."""
+    consecutive positions, so no slot is written twice.  Under mesh rules
+    on a DTensor cache each device writes its own shards
+    (:func:`_sharded_cache_write`)."""
+    if SH.sharded(cache["k"]):
+        return _sharded_cache_write(cache, k_new, v_new, positions)
     length = cache["k"].shape[1]
     if positions.shape[1] > length:
         raise ValueError(f"{positions.shape[1]} tokens written into a ring "
@@ -213,17 +231,36 @@ def _cache_write(cache, k_new, v_new, positions) -> dict:
     return cache
 
 
+def _sharded_cache_write(cache, k_new, v_new, positions) -> dict:
+    """Each device writes its rows of the new K/V (laid out as its cache's
+    shards) and positions into its shards of the cache, in place."""
+    kp = list(cache["k"].placements)
+    pp = list(cache["pos"].placements)
+
+    def local(k, v, pos, kn, vn, ps):
+        c = _cache_write({"k": k, "v": v, "pos": pos}, kn, vn, ps)
+        return c["k"], c["v"], c["pos"]
+
+    k, v, pos = SH.local_call(
+        local, (cache["k"], cache["v"], cache["pos"], k_new, v_new,
+                positions),
+        (kp, kp, pp, kp, kp, SH.like(kp, {0: 0})), (kp, kp, pp))
+    return dict(cache, k=k, v=v, pos=pos)
+
+
 def _cross_kv(p, cfg: ModelConfig, mem):
     """The cross-attention keys and values of the memory (B, M, D): its
     projections with their biases and the keys' qk-norm, no rope, in the
     compute type (``layers.py:302-311`` of the JAX package)."""
     dt = cdt(cfg)
     hd, Hkv = cfg.resolved_head_dim, max(1, cfg.n_kv_heads)
-    k = (mem @ p["wk"].to(dt)).reshape(mem.shape[0], -1, Hkv, hd)
-    v = (mem @ p["wv"].to(dt)).reshape(mem.shape[0], -1, Hkv, hd)
+    k = SH.splittable(mem @ p["wk"].to(dt), -1, Hkv).reshape(
+        mem.shape[0], -1, Hkv, hd)
+    v = SH.splittable(mem @ p["wv"].to(dt), -1, Hkv).reshape(
+        mem.shape[0], -1, Hkv, hd)
     if "bk" in p:
-        k = k + p["bk"].to(dt).reshape(Hkv, hd)
-        v = v + p["bv"].to(dt).reshape(Hkv, hd)
+        k = k + SH.splittable(p["bk"].to(dt), -1, Hkv).reshape(Hkv, hd)
+        v = v + SH.splittable(p["bv"].to(dt), -1, Hkv).reshape(Hkv, hd)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return k.to(dt), v.to(dt)
@@ -240,7 +277,7 @@ def _cross_attention(p, cfg: ModelConfig, x, ctx: Ctx, cache):
     q = x @ p["wq"].to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    q = q.reshape(x.shape[0], x.shape[1], Hq, hd)
+    q = SH.splittable(q, -1, Hq).reshape(x.shape[0], x.shape[1], Hq, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     if cache is not None and ctx.decoding:
@@ -252,9 +289,80 @@ def _cross_attention(p, cfg: ModelConfig, x, ctx: Ctx, cache):
         k, v = _cross_kv(p, cfg, ctx.memory)
         if cache is not None:
             cache = {"k": k, "v": v}
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=False, softcap=cfg.attn_softcap)
+    out = _attend(cfg, q, k, v, causal=False)
     return out, cache
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, window=None):
+    """The flash kernel over q (B, Sq, Hq, hd) and k, v (B, Skv, Hkv, hd).
+    Under mesh rules on DTensors, q, k and v are constrained as the
+    reference's attention is (heads over TP, else q's positions) and the
+    kernel runs on each device's shards (:func:`_sharded_attention`)."""
+    kw = dict(causal=causal, window=window, softcap=cfg.attn_softcap)
+    if SH.sharded(q, k, v):
+        return _sharded_attention(q, k, v, kw)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           **kw)
+
+
+def _q_specs(Hq: int, Hkv: int) -> list:
+    """q's candidate specs: heads over TP only where each device's heads
+    read whole kv heads (its share of heads divides the group, or the
+    group divides it), else the query positions."""
+    rules = SH.active_rules()
+    tp = rules.axes_size(rules.tp)
+    G = Hq // Hkv
+    h = Hq // tp if Hq % tp == 0 else 0
+    return _Q_SPECS if h and (G % h == 0 or h % G == 0) else _Q_SPECS[1:]
+
+
+def _sharded_attention(q, k, v, kw):
+    """The flash kernel on each device's shards: q and the output split
+    over batch rows, heads or query positions, k and v over batch rows and
+    (where they divide) heads.  A device whose q heads read fewer kv heads
+    than it holds takes just those; one holding a slice of the queries
+    counts its share of the causal pairs (``kernel_work.query_split``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..roofline import kernel_work
+
+    mesh = SH.active_rules().mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    q = SH.constrain_first(q, _q_specs(Hq, Hkv))
+    k = SH.constrain_first(k, _KV_SPECS)
+    v = SH.constrain_first(v, _KV_SPECS)
+    qp = SH.kept(q, (0, 1, 2))
+    n_heads, head_idx = SH.split_of(qp, 2, mesh)
+    n_rows, _ = SH.split_of(qp, 1, mesh)
+    kv_heads = Hkv % n_heads == 0
+    kvp = [Shard(0) if p.is_shard(0) else Shard(2)
+           if p.is_shard(2) and kv_heads else Replicate() for p in qp]
+
+    def local(ql, kl, vl):
+        hq, hkv = ql.shape[2], kl.shape[2]
+        if hq * Hkv != hkv * Hq:  # q's heads sharded, k's and v's not
+            G = Hq // Hkv
+            lo = head_idx * hq // G
+            hi = -(-(head_idx + 1) * hq // G)
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        with kernel_work.query_split(n_rows):
+            return flash_attention(ql.contiguous(), kl.contiguous(),
+                                   vl.contiguous(), **kw)
+
+    return SH.local_call(local, (q, k, v), (qp, kvp, kvp), qp)
+
+
+def _merge_heads(out):
+    """(B, S, H, hd) -> (B, S, H * hd); under mesh rules on a DTensor on
+    each device's shards of rows and heads (a merged head-major dim keeps
+    the heads' split), the query positions gathered first: the output
+    projection flattens (B, S), which DTensor cannot do over two split
+    dims."""
+    if not SH.sharded(out):
+        return out.reshape(out.shape[0], out.shape[1], -1)
+    pl = SH.kept(out, (0, 2))
+    return SH.local_call(lambda o: o.reshape(o.shape[0], o.shape[1], -1),
+                         (out,), (pl,), pl)
 
 
 def attention_block(p, cfg: ModelConfig, x, ctx: Ctx, cache, window=None,
@@ -280,15 +388,13 @@ def attention_block(p, cfg: ModelConfig, x, ctx: Ctx, cache, window=None,
                                     ctx.positions, cache["pos"], window)
         else:
             causal = True if cache is not None else ctx.causal
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  window=window, softcap=cfg.attn_softcap)
+            out = _attend(cfg, q, k, v, causal=causal, window=window)
             if cache is not None:
                 tail = min(cache["k"].shape[1], k.shape[1])
                 cache = _cache_write(cache, k[:, -tail:], v[:, -tail:],
                                      ctx.positions[:, -tail:])
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, -1) @ p["wo"].to(cdt(cfg))
+    out = _merge_heads(SH.constrain_first(out, _Q_SPECS))
+    out = out @ p["wo"].to(cdt(cfg))
     if cross and "xgate" in p:
         out = torch.tanh(p["xgate"].float()).to(out.dtype) * out
     return out, cache
@@ -409,9 +515,55 @@ def moe_ffn(p, cfg: ModelConfig, x):
     group where they are fewer), each expert taking C of a group's tokens;
     past MOE_GROUP they must be whole groups of it, where the JAX package's
     reshape fails and this raises ``ValueError``.
+
+    Under mesh rules on DTensors it runs on each device's shards
+    (:func:`_sharded_moe`): the reference's EP layout.
     """
+    if SH.sharded(x, p["w_gate"]):
+        return _sharded_moe(p, cfg, x)
+    return _moe_local(cfg, x, p["router"], p["w_gate"], p["w_up"],
+                      p["w_down"], 0)
+
+
+def _sharded_moe(p, cfg: ModelConfig, x):
+    """The MoE FFN on each device's shards, the JAX package's layout
+    (``layers.py:427-439`` there): token groups on the DP axes as x's rows
+    are, experts on the expert axes, the router whole.  Every device routes
+    its rows' tokens to all E experts and computes its own experts' share;
+    the output is a partial sum over the expert axes (their reduction is
+    the all-to-all's return half), the aux loss an average over the rows'
+    axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rules = SH.active_rules()
+    mesh = rules.mesh
+    xp = SH.kept(x, (0,))
+    expert_axes = set(rules.expert)
+    wp = [Shard(0) if a in expert_axes and p_.is_replicate() else Replicate()
+          for a, p_ in zip(mesh.mesh_dim_names, xp)]
+    n_e, e_idx = SH.split_of(wp, 0, mesh)
+    E_l = cfg.n_experts // n_e
+    out_p = [Partial() if w.is_shard() else x_ for w, x_ in zip(wp, xp)]
+    aux_p = [Partial("avg") if x_.is_shard() else Replicate() for x_ in xp]
+
+    def local(xl, router, wg, wu, wd):
+        return _moe_local(cfg, xl, router, wg, wu, wd, e_idx * E_l)
+
+    rep = [Replicate()] * mesh.ndim
+    dt = cdt(cfg)  # the weights gathered in the compute type
+    return SH.local_call(local, (x, p["router"], p["w_gate"].to(dt),
+                                 p["w_up"].to(dt), p["w_down"].to(dt)),
+                         (xp, rep, wp, wp, wp), (out_p, aux_p))
+
+
+def _moe_local(cfg: ModelConfig, x, router, w_gate, w_up, w_down, e_lo: int):
+    """The MoE FFN of x's tokens over the experts ``e_lo`` onwards whose
+    weights are given (all of them on one device): the routing over all E
+    experts, each of these experts' products, and their share of the
+    output (slots of the other experts weigh 0)."""
     B, S, D = x.shape
     E = cfg.n_experts
+    E_l = w_gate.shape[0]
     T_ = B * S
     g = min(MOE_GROUP, T_)
     G = max(1, T_ // g)
@@ -419,23 +571,28 @@ def moe_ffn(p, cfg: ModelConfig, x):
         raise ValueError(f"B * S = {T_} tokens are not whole groups of "
                          f"MOE_GROUP = {MOE_GROUP} tokens")
     toks = x.reshape(G, g, D)
-    r = moe_route(p["router"], cfg, toks)
+    r = moe_route(router, cfg, toks)
     C = r.capacity
     dt = cdt(cfg)
     dev = x.device
     group = torch.arange(G, device=dev)[:, None, None].expand_as(r.idx)
     token = torch.arange(g, device=dev)[None, :, None].expand_as(r.idx)
     row = group * C + torch.where(r.keep, r.pos, 0)
-    # dropped slots go to a spare expert E, which is never computed
-    buf = torch.zeros((E + 1, G * C, D), dtype=dt, device=dev)
-    buf[torch.where(r.keep, r.idx, E), row] = toks[group, token].to(dt)
-    xe = buf[:E]
+    idx, mine = r.idx, r.keep
+    if E_l < E:  # another device computes the other experts' slots
+        idx = r.idx - e_lo
+        mine = r.keep & (idx >= 0) & (idx < E_l)
+        idx = torch.where(mine, idx, 0)
+    # dropped slots go to a spare expert E_l, which is never computed
+    buf = torch.zeros((E_l + 1, G * C, D), dtype=dt, device=dev)
+    buf[torch.where(mine, idx, E_l), row] = toks[group, token].to(dt)
+    xe = buf[:E_l]
     act = "gelu" if cfg.mlp_variant == "gelu" else "silu"
-    h = expert_matmul(xe, p["w_gate"].to(dt), activation=act) \
-        * expert_matmul(xe, p["w_up"].to(dt))
-    expert_out = expert_matmul(h, p["w_down"].to(dt))  # (E, G * C, D)
-    comb = (r.gates * r.keep).to(dt)  # (G, g, k), 0 where dropped
-    picked = expert_out[r.idx, row]   # (G, g, k, D)
+    h = expert_matmul(xe, w_gate.to(dt), activation=act) \
+        * expert_matmul(xe, w_up.to(dt))
+    expert_out = expert_matmul(h, w_down.to(dt))  # (E_l, G * C, D)
+    comb = (r.gates * mine).to(dt)  # (G, g, k), 0 where dropped
+    picked = expert_out[idx, row]   # (G, g, k, D)
     out = (comb.float()[..., None] * picked.float()).sum(dim=2).to(dt)
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e
@@ -574,10 +731,21 @@ def rglru_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
     else:
         if cache is not None and "h" in cache:  # prefill from a state
             bx[:, 0] += a[:, 0] * cache["h"][:, 0]
-        y32 = rglru_scan(a.contiguous(), bx.contiguous())
+        y32 = _rglru_recurrence(a, bx)
         new_cache = ({"h": y32[:, -1:].clone(), "conv": new_conv}
                      if cache is not None else None)
     return (y32.to(dt) * gate_branch) @ p["w_out"].to(dt), new_cache
+
+
+def _rglru_recurrence(a, b):
+    """The RG-LRU kernel; under mesh rules on DTensors on each device's
+    shards of rows and channels (a sequence split is gathered)."""
+    if SH.sharded(a, b):
+        ap = SH.kept(a, (0, 2))
+        return SH.local_call(
+            lambda al, bl: rglru_scan(al.contiguous(), bl.contiguous()),
+            (a, b), (ap, ap), ap)
+    return rglru_scan(a.contiguous(), b.contiguous())
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
@@ -643,14 +811,34 @@ def ssd_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
         new_cache = {"h": h, "conv": new_conv}
     else:
         h0 = cache["h"] if (cache is not None and "h" in cache) else None
-        y, h_last = ssd_forward(xh, dtv, A, Bm.float(), Cm.float(), h0,
-                                cfg.ssm_chunk)
+        y, h_last = _ssd_scan(xh, dtv, A, Bm.float(), Cm.float(), h0,
+                              cfg.ssm_chunk)
         new_cache = ({"h": h_last, "conv": new_conv} if cache is not None
                      else None)
     y = y + p["D_skip"][None, None, :, None] * xh
     y = y.reshape(B, S, Di).to(dt_)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"].to(dt_), new_cache
+
+
+def _ssd_scan(xh, dtv, A, Bm, Cm, h0, chunk: int):
+    """:func:`ssd_forward`; under mesh rules on DTensors on each device's
+    shards of rows and heads (B and C follow the rows; a sequence split is
+    gathered)."""
+    if not SH.sharded(xh, dtv, Bm):
+        return ssd_forward(xh, dtv, A, Bm, Cm, h0, chunk)
+    xp = SH.kept(xh, (0, 2))
+    dtp = SH.like(xp, {0: 0, 2: 2})
+    bp = SH.like(xp, {0: 0})
+    hp = SH.like(xp, {0: 0, 2: 1})
+
+    def local(x, d, a, b, c, h):
+        return ssd_forward(x, d, a, b, c, h, chunk)
+
+    return SH.local_call(
+        local, (xh, dtv, A, Bm, Cm, h0),
+        (xp, dtp, SH.like(xp, {2: 0}), bp, bp, None if h0 is None else hp),
+        (xp, hp))
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, *, device) -> dict:

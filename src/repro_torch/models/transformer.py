@@ -25,6 +25,7 @@ from ..configs.base import ModelConfig
 from ..core.torch_solvers import resolve_device
 from . import layers as L
 from .layers import Ctx
+from .sharding import constrain, constrain_grad, lookup, positions
 
 # block kinds the port runs
 KINDS = ("attn", "local_attn", "xattn", "dec_block", "moe", "moe_dense",
@@ -78,57 +79,75 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
+def _sp_gather(h):
+    """Sequence-parallel entry: the (normed) sublayer input gathered."""
+    return constrain(h, ("batch", None, None))
+
+
+def _sp_scatter(h):
+    """Sequence-parallel exit: the sublayer output reduce-scattered back to
+    the sequence-sharded residual layout; its gradient gathered back to
+    the sublayer's layout (the product that made it flattens (B, S),
+    which DTensor cannot do over two split dims)."""
+    return constrain(constrain_grad(h, ("batch", None, None)),
+                     ("batch", "seq", None))
+
+
 def apply_block(p, cfg: ModelConfig, kind: str, x, ctx: Ctx, cache):
     """Pre-norm block; returns (x, new_cache, aux_loss), the aux loss being
     the MoE load-balance loss of a ``moe`` / ``moe_dense`` block and 0
-    otherwise.  A decode step needs the block's cache."""
+    otherwise.  A decode step needs the block's cache.
+
+    Under mesh rules the residual stream stays sequence-sharded between
+    sublayers (Megatron-SP): each sublayer gathers its normed input and
+    reduce-scatters its output, as the JAX package's block does
+    (``transformer.py:64-128`` there); without rules these are no-ops."""
     _check_kind(kind)
     if ctx.decoding and cache is None:
         raise ValueError(f"a decode step of a {kind!r} block needs its cache")
+
+    def norm_in(name: str):
+        return _sp_gather(L.rmsnorm(x, p[name], cfg.norm_eps))
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("attn", "local_attn", "moe", "moe_dense"):
         window = cfg.window if kind == "local_attn" else None
-        h, cache = L.attention_block(
-            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx, cache,
-            window=window)
-        x = x + h
-        hin = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        h, cache = L.attention_block(p["attn"], cfg, norm_in("ln1"), ctx,
+                                     cache, window=window)
+        x = x + _sp_scatter(h)
+        hin = norm_in("ln2")
         if kind in ("moe", "moe_dense"):
             y, aux = L.moe_ffn(p["moe"], cfg, hin)
             if kind == "moe_dense":
                 y = y + L.mlp(p["mlp"], cfg, hin)
         else:
             y = L.mlp(p["mlp"], cfg, hin)
-        x = x + y
+        x = x + _sp_scatter(y)
     elif kind == "xattn":
-        h, cache = L.attention_block(
-            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx, cache,
-            cross=True)
-        x = x + h
-        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+        h, cache = L.attention_block(p["attn"], cfg, norm_in("ln1"), ctx,
+                                     cache, cross=True)
+        x = x + _sp_scatter(h)
+        x = x + _sp_scatter(L.mlp(p["mlp"], cfg, norm_in("ln2")))
     elif kind == "dec_block":
         h, c_self = L.attention_block(
-            p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
+            p["attn"], cfg, norm_in("ln1"), ctx,
             cache["self"] if cache is not None else None)
-        x = x + h
+        x = x + _sp_scatter(h)
         h, c_cross = L.attention_block(
-            p["xattn"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps), ctx,
+            p["xattn"], cfg, norm_in("ln2"), ctx,
             cache["cross"] if cache is not None else None, cross=True)
-        x = x + h
-        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln3"], cfg.norm_eps))
+        x = x + _sp_scatter(h)
+        x = x + _sp_scatter(L.mlp(p["mlp"], cfg, norm_in("ln3")))
         if cache is not None:
             cache = {"self": c_self, "cross": c_cross}
     elif kind == "rglru":
-        h, cache = L.rglru_block(p["rglru"], cfg,
-                                 L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
-                                 cache)
-        x = x + h
-        x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+        h, cache = L.rglru_block(p["rglru"], cfg, norm_in("ln1"), ctx, cache)
+        x = x + _sp_scatter(h)
+        x = x + _sp_scatter(L.mlp(p["mlp"], cfg, norm_in("ln2")))
     else:  # ssd
-        h, cache = L.ssd_block(p["ssd"], cfg,
-                               L.rmsnorm(x, p["ln1"], cfg.norm_eps), ctx,
-                               cache)
-        x = x + h
+        h, cache = L.ssd_block(p["ssd"], cfg, norm_in("ln1"), ctx, cache)
+        x = x + _sp_scatter(h)
+    x = constrain(x, ("batch", "seq", None))
     return x, cache, aux
 
 
@@ -247,6 +266,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map2(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
 def tree_leaves(tree) -> list:
     """The leaves of nested dicts and lists, in order."""
     if isinstance(tree, dict):
@@ -294,7 +322,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens].to(L.cdt(cfg))
+    x = lookup(params["embed"], tokens).to(L.cdt(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=L.cdt(cfg),
                              device=x.device).sqrt()
@@ -314,8 +342,7 @@ def encode_memory(params, cfg: ModelConfig, memory):
     x = memory.to(L.cdt(cfg))
     if not cfg.enc_layers:
         return x
-    B, M, _ = memory.shape
-    pos = torch.arange(M, device=memory.device).expand(B, M)
+    pos = positions(memory, memory.shape[1])
     ctx = Ctx(mode="train", positions=pos, causal=False)
     x, _, _ = apply_stack(params["encoder"], cfg, cfg.enc_layers, ENC_PATTERN,
                           x, ctx, None)
@@ -332,6 +359,7 @@ def forward(params, cfg: ModelConfig, tokens, ctx: Ctx, cache=None,
         ctx = dataclasses.replace(ctx, memory=encode_memory(params, cfg,
                                                             memory))
     x = embed_tokens(params, cfg, tokens)
+    x = constrain(x, ("batch", "seq", None))
     x, new_cache, aux = apply_stack(params["stack"], cfg, cfg.n_layers,
                                     cfg.pattern, x, ctx, cache)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

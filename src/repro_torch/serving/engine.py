@@ -34,17 +34,22 @@ from ..configs.base import ModelConfig
 from ..core.torch_solvers import resolve_device
 from ..models import transformer as T
 from ..models.layers import Ctx
+from ..models.sharding import positions
 
 
 @torch.inference_mode()
-def prefill(params, cfg: ModelConfig, tokens, cache_len: int, memory=None):
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int, memory=None,
+            cache=None):
     """tokens (B, S) -> (next-token logits (B, 1, V) float32, cache), on
     the tokens' device.  Positions are ``0 .. S-1`` for every row.  A
     ``memory`` (B, M, D) is encoded once (``encode_memory``) and kept in
-    the cache as ``enc_memory``."""
+    the cache as ``enc_memory``.  ``cache`` is the empty stack cache to
+    fill (``init_cache(cfg, B, cache_len)``'s, made here when None; the dry
+    run passes one laid out over its mesh)."""
     B, S = tokens.shape
-    cache = T.init_cache(cfg, B, cache_len, device=tokens.device)
-    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    if cache is None:
+        cache = T.init_cache(cfg, B, cache_len, device=tokens.device)
+    pos = positions(tokens, S)
     enc = (T.encode_memory(params, cfg, memory) if memory is not None
            else None)
     hidden, cache, _ = T.forward(params, cfg, tokens,

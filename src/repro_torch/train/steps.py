@@ -5,8 +5,9 @@ The loss is taken in token chunks (``cfg.loss_chunk``), each chunk's
 (tokens, vocab) float32 logits recomputed in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so they
 are never all kept: one qwen2-1.5b chunk of 4,096 tokens is 4,096 x
-151,936 x 4 B = 2.5 GB.  The reference's sharding constraints have no
-counterpart on one device.  The step runs wherever the parameters live:
+151,936 x 4 B = 2.5 GB.  The head and each chunk's logits carry the
+reference's sharding constraints (vocab over TP), no-ops without mesh
+rules.  The step runs wherever the parameters live:
 through the port's kernels on the card, through their plain versions on
 the CPU.
 """
@@ -18,6 +19,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..models import transformer as T
 from ..models.layers import Ctx, softcap
+from ..models import sharding as SH
+from ..models.sharding import constrain
 from ..optim import Optimizer, clip_by_global_norm
 
 AUX_LOSS_COEF = 0.01
@@ -25,14 +28,45 @@ AUX_LOSS_COEF = 0.01
 
 def _chunk_nll(xc, tc, head_w, final_softcap):
     """Summed negative log-likelihood of one chunk: (B, Sc, D), (B, Sc)."""
-    logits = (xc @ head_w).float()
+    # tokens on the DP axes, vocab on TP: dlogits in the layout the head's
+    # gradient needs
+    logits = constrain((xc @ head_w).float(), ("batch", None, "tp"))
     if final_softcap:
         logits = softcap(logits, final_softcap)
+    if SH.sharded(logits):
+        return _sharded_nll(logits, tc)
     lse = torch.logsumexp(logits, dim=-1)
     # the gold logit by a gather: the reference's one-hot contraction adds
     # exact zeros to it, so the two are equal
     gold = torch.gather(logits, -1, tc[..., None])[..., 0]
     return torch.sum(lse - gold)
+
+
+def _sharded_nll(logits, tc):
+    """:func:`_chunk_nll`'s sum of a DTensor chunk whose vocab is split
+    over ranks (vocab-parallel cross-entropy): the log-sum-exp from the
+    shards' maxima and sums of exponentials, the gold logit picked on the
+    rank that holds it (a partial sum over the vocab's ranks)."""
+    from torch.distributed.tensor import Partial
+
+    mesh = SH.active_rules().mesh
+    lp = SH.kept(logits, (0, 2))
+    _, v_idx = SH.split_of(lp, 2, mesh)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+
+    def gold(lg, t):
+        lo = v_idx * lg.shape[-1]
+        t = t - lo
+        mine = (t >= 0) & (t < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+        return g * mine
+
+    rows = SH.like(lp, {0: 0})
+    g = SH.local_call(gold, (logits, tc), (lp, rows),
+                      [Partial() if p.is_shard(2) else r
+                       for p, r in zip(lp, rows)])
+    return torch.sum(lse - g)
 
 
 def chunked_xent(hidden, head_w, targets, cfg: ModelConfig):
@@ -42,6 +76,11 @@ def chunked_xent(hidden, head_w, targets, cfg: ModelConfig):
     chunk's logits are recomputed in the backward."""
     B, S, D = hidden.shape
     T_ = B * S
+    # vocab-sharded, D-replicated head: contracting against the ZeRO layout
+    # instead gathers the whole (D, V) matrix inside the chunk loop; the
+    # hidden states' sequence whole (each chunk's product flattens (B, Sc))
+    head_w = constrain(head_w, (None, "tp"))
+    hidden = constrain(hidden, ("batch", None, None))
     n = max(1, min(8, T_ // max(1, cfg.loss_chunk)))
     while S % n:
         n -= 1
@@ -58,8 +97,7 @@ def loss_fn(params, cfg: ModelConfig, batch, mode: str = "train"):
     """(loss, {"nll", "aux"}) of a batch of ``tokens`` and ``targets``
     (B, S) on the parameters' device."""
     tokens, targets = batch["tokens"], batch["targets"]
-    B, S = tokens.shape
-    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    pos = SH.positions(tokens, tokens.shape[1])
     ctx = Ctx(mode=mode, positions=pos)
     hidden, _, aux = T.forward(params, cfg, tokens, ctx,
                                memory=batch.get("memory"))
@@ -103,6 +141,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = value_and_grad(
             lambda p: loss_fn(p, cfg, batch), params)
+        # each gradient laid out as its parameter (reduced once), under
+        # mesh rules; the gradients themselves without
+        grads = T.tree_map2(SH.laid_out_as, grads, params)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         params, opt_state = opt.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}

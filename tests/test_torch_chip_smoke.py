@@ -9,6 +9,7 @@ wrong decodes its teacher-forced gate must reject."""
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import importlib
 import types
@@ -1380,3 +1381,123 @@ def test_cross_path_rejects_a_wrong_cross_block(fault, gate, cross_rehearsal,
         monkeypatch.setattr(ML, "_cross_attention", again)
     with pytest.raises(AssertionError, match=gate):
         cs.run_cross_path("whisper-small", cross_rehearsal, "cpu")
+
+
+# ---------------------------------------------------------------- path 9 --
+# path 9 at reduced size: a production-style cell on a 2 x 2 fake mesh and
+# the two one-card cells, the configs shrunk as the other rehearsals shrink
+# them
+DRYRUN_REDUCED = {"n_layers": 2}
+DRYRUN_TRAIN = ["dry_train", 64, 2, "train"]
+DRYRUN_DECODE = ["dry_decode", 32, 4, "decode"]
+
+
+def _dryrun_rehearsal_specs():
+    cell = {"arch": "qwen2-1.5b", "mesh": [2, 2], "shape": DRYRUN_TRAIN,
+            "reduced": DRYRUN_REDUCED}
+    train = dict(cell, mesh=[1, 1])
+    decode = {"arch": "qwen3-moe-30b-a3b", "mesh": [1, 1],
+              "shape": DRYRUN_DECODE, "reduced": DRYRUN_REDUCED,
+              "overrides": cs.MODELS["qwen3-moe-30b-a3b"].overrides}
+    return [cell], train, decode
+
+
+def _real_step_args():
+    """The reduced steps' arguments on the CPU, as paths 4 and 3 hold them
+    on the card, and a CPU time of each step (for the p50 gate)."""
+    import time
+
+    from repro_torch import serving as SV
+    from repro_torch.data import BatchSpec, SyntheticLM, shard_batch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    S, B = DRYRUN_TRAIN[1:3]
+    cfg = ARCHS["qwen2-1.5b"].reduced(**DRYRUN_REDUCED)
+    params = MT.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    opt = make_optimizer(cfg.optimizer)
+    state = opt.init(params, cfg)
+    batch = shard_batch(SyntheticLM(BatchSpec(B, S, cfg.vocab_size))
+                        .batch_at(0), "cpu")
+    train_bytes = cs.storage_bytes((params, state, batch))
+    t0 = time.perf_counter()
+    make_train_step(cfg, opt)(params, state, batch)
+    train_ms = (time.perf_counter() - t0) * 1e3
+
+    moe = dataclasses.replace(
+        ARCHS["qwen3-moe-30b-a3b"].reduced(**DRYRUN_REDUCED),
+        **cs.MODELS["qwen3-moe-30b-a3b"].overrides)
+    Bd, L = DRYRUN_DECODE[2], DRYRUN_DECODE[1]
+    mparams = MT.init_params(torch.Generator().manual_seed(0), moe, "cpu")
+    cache = {"stack": MT.init_cache(moe, Bd, L, "cpu")}
+    toks = torch.zeros((Bd, 1), dtype=torch.int64)
+    pos = torch.full((Bd, 1), 3)
+    decode_bytes = cs.storage_bytes((mparams, cache, (toks, pos)))
+    t0 = time.perf_counter()
+    SV.decode_step(mparams, moe, cache, toks, pos)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    return {"qwen2-1.5b": {"train": {
+        "arg_bytes": train_bytes, "step_ms_p50": train_ms,
+        "peak_bytes": 0}},
+        "qwen3-moe-30b-a3b": {"serve": {
+            "decode_arg_bytes": decode_bytes, "decode_ms_p50": decode_ms,
+            "decode_bytes": 0, "peak_bytes": 0}}}
+
+
+@pytest.fixture(scope="module")
+def dryrun_rehearsal():
+    """Path 9 run once at reduced size: its artifacts and the CPU's
+    numbers."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cs, "dryrun_specs", _dryrun_rehearsal_specs)
+    try:
+        by_model = _real_step_args()
+        run = cs.run_dryrun_path(by_model, "cpu")
+    finally:
+        mp.undo()
+    return run, by_model
+
+
+def test_dryrun_path_rehearsed_on_the_cpu(dryrun_rehearsal):
+    """run_dryrun_path at reduced size: the production-style cell on a
+    2 x 2 fake mesh passes its gates, and each one-card cell's argument
+    bytes equal the storages of the same arguments made on the CPU."""
+    run, by_model = dryrun_rehearsal
+    (cell,), tr, de = run["cells"], run["train"], run["decode"]
+    assert cell["status"] == "ok" and cell["devices"] == 4
+    assert tr["memory"]["argument_bytes"] == by_model["qwen2-1.5b"][
+        "train"]["arg_bytes"]
+    assert de["memory"]["argument_bytes"] == by_model["qwen3-moe-30b-a3b"][
+        "serve"]["decode_arg_bytes"]
+    assert tr["cost"]["kernel_flops"]["flash_attention_bwd"] > 0
+    assert de["cost"]["kernel_flops"]["moe_gmm"] > 0
+
+
+@pytest.mark.parametrize("fault", ["global FLOPs as one card's",
+                                   "an argument count that drops a leaf",
+                                   "the H100 peak 10 times too high"])
+def test_dryrun_gates_reject_wrong_counts(fault, dryrun_rehearsal):
+    run, by_model = dryrun_rehearsal
+    cell = copy.deepcopy(run["cells"][0])
+    tr = copy.deepcopy(run["train"])
+    train = by_model["qwen2-1.5b"]["train"]
+    cs._dryrun_gate(cell, "train")
+    cs._one_card_gate("train", tr, train["arg_bytes"], train["step_ms_p50"])
+    if fault == "global FLOPs as one card's":
+        cell["cost"]["flops_per_device"] *= cell["devices"]
+        with pytest.raises(AssertionError, match="share"):
+            cs._dryrun_gate(cell, "train")
+        return
+    if fault == "an argument count that drops a leaf":
+        cfg = ARCHS["qwen2-1.5b"].reduced(**DRYRUN_REDUCED)
+        leaf = cfg.d_model * 4  # final_norm's float32 storage
+        tr["memory"]["argument_bytes"] -= leaf
+        with pytest.raises(AssertionError, match="arguments hold"):
+            cs._one_card_gate("train", tr, train["arg_bytes"],
+                              train["step_ms_p50"])
+        return
+    tr["roofline"]["peak_flops"] *= 10
+    with pytest.raises(AssertionError, match="compute term"):
+        cs._one_card_gate("train", tr, train["arg_bytes"],
+                          train["step_ms_p50"])
+
