@@ -57,11 +57,14 @@ bench-serve:
 bench-serve-smoke:
 	$(PYTHON) -m benchmarks.serve_throughput --smoke
 
-## lint: repro-lint in --strict mode (docs/analysis.md) + ruff's pyflakes
-## tier as the generic complement where installed (CI installs it; local
-## trees without ruff still get the full repro-lint gate)
+## lint: repro-lint in --strict mode (docs/analysis.md), the JAX package's
+## copy over src/repro and the port's over src/repro_torch (its baseline
+## lint_baseline_torch.txt), + ruff's pyflakes tier over src/repro as the
+## generic complement where installed (CI installs it; local trees without
+## ruff still get the full repro-lint gate)
 lint:
 	$(PYTHON) -m repro.analysis --strict src/repro
+	$(PYTHON) -m repro_torch.analysis --strict src/repro_torch
 	@if command -v ruff > /dev/null 2>&1; then \
 		ruff check src/repro; \
 	else \

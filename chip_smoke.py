@@ -101,6 +101,12 @@ bound (the larger of its compute and memory terms).  The four dry runs
 run in subprocesses started together just before path 8, on the host
 while the card runs path 8; their gates come after it.
 
+The lint phase is the port's repro-lint (``python -m repro_torch.analysis
+--strict src/repro_torch``, pure stdlib) on the host, never the card: a
+subprocess started with the smoke, beside the card paths, that must exit
+0 under ``lint_baseline_torch.txt``; it is gated before the summary, its
+findings, files and wall printed on a line of their own.
+
 Phases, in order; any failure exits non-zero:
 
 1. device: a CUDA card is required; its name and power limit are printed;
@@ -284,8 +290,8 @@ Phases, in order; any failure exits non-zero:
    and lambda without a's shift), flash's yardstick the backward of
    ``scaled_dot_product_attention``, the expert matmul's two ``torch.bmm``
    (dX and dW from the plain dZ);
-7. each phase's wall, one JSON line of per-kernel numbers, the card line,
-   then the result line.
+7. the lint phase's gate; each phase's wall, one JSON line of per-kernel
+   numbers, the card line, then the result line.
 """
 from __future__ import annotations
 
@@ -298,9 +304,11 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -5783,6 +5791,103 @@ def run_dryrun_path(by_model: dict, card: str,
             "seconds": seconds}
 
 
+# The lint phase: the port's repro-lint over its own tree, in a subprocess
+# started with the smoke (on the host, beside the card paths)
+LINT_ARGS = ("-m", "repro_torch.analysis", "--strict", "src/repro_torch")
+LINT_TIMEOUT_S = 300
+LINT_SUMMARY = re.compile(r"repro-lint: (\d+) finding\(s\) in "
+                          r"(\d+) file\(s\)(?:, (\d+) baseline-suppressed)?")
+
+
+class Lint(NamedTuple):
+    """The lint started by ``start_lint``: its process, and what a thread
+    waiting on it keeps (its output, and the clock when it ended)."""
+    proc: subprocess.Popen
+    t0: float
+    done: dict
+    waiter: threading.Thread
+
+    def stop(self) -> None:
+        """Kills it if it still runs (a failure elsewhere ends it)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.waiter.join()
+
+
+def start_lint(root: Path = ROOT) -> Lint:
+    """``python -m repro_torch.analysis --strict src/repro_torch`` started
+    in a subprocess from ``root`` (``PYTHONPATH`` its ``src``)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *LINT_ARGS],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=str(root))
+    done = {}
+
+    def wait():
+        done["stdout"], done["stderr"] = proc.communicate()
+        done["t1"] = time.perf_counter()
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return Lint(proc, t0, done, waiter)
+
+
+def run_lint_phase(lint: Lint) -> dict:
+    """The lint phase's gate: the lint must exit 0 within LINT_TIMEOUT_S
+    of its start; prints its findings, files and wall."""
+    lint.waiter.join(max(0.0, LINT_TIMEOUT_S - (time.perf_counter()
+                                                 - lint.t0)))
+    if lint.waiter.is_alive():
+        lint.stop()
+        raise AssertionError(f"lint: took more than {LINT_TIMEOUT_S} s")
+    out = lint.done["stdout"] + lint.done["stderr"]
+    if lint.proc.returncode != 0:
+        raise AssertionError(f"lint: python {' '.join(LINT_ARGS)} exited "
+                             f"{lint.proc.returncode}:\n{out[-3000:]}")
+    m = LINT_SUMMARY.search(out)
+    if m is None:
+        raise AssertionError(f"lint: no summary line in its output:\n"
+                             f"{out[-3000:]}")
+    res = {"findings": int(m[1]), "files": int(m[2]),
+           "suppressed": int(m[3] or 0),
+           "seconds": lint.done["t1"] - lint.t0}
+    print(f"lint: python {' '.join(LINT_ARGS)} exit 0: {res['findings']} "
+          f"finding(s) in {res['files']} file(s), {res['suppressed']} "
+          f"baseline-suppressed; {res['seconds']!r} s of wall in its "
+          f"subprocess, beside the card paths")
+    return res
+
+
+KERNEL_KEYS = ["name", "route", "source", "replaces", "launches",
+               "mismatches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms", "same_bytes_ms", "grad_ms",
+               "ops_per_s", "bytes_per_s", "bound_share", "fp32_bound_ms",
+               "fp32_bound_by", "fp32_bound_share", "shape",
+               "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
+               "note", "witness_float64", "shapes"]
+
+
+def report(lint: Lint, walls: dict, kernels: list, card: str,
+           t_start: float, kind: str, count: int) -> int:
+    """The lint phase's gate, then the summary: each phase's wall, the
+    kernels line, the card line and, last, the result line (a failing gate
+    raises before any of them)."""
+    t0 = time.perf_counter()
+    run_lint_phase(lint)
+    walls["lint"] = time.perf_counter() - t0
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start!r} s; wall by phase (s): {walls}")
+    print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS
+                                   if k in kern} for kern in kernels]}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -5793,6 +5898,16 @@ def main() -> int:
     import repro_torch.core.torch_solvers as TS
 
     t_start = time.perf_counter()
+    # the lint phase on the host, beside the card paths; gated in report
+    lint = start_lint()
+    try:
+        return run_phases(C, TS, lint, t_start)
+    finally:
+        lint.stop()
+
+
+def run_phases(C, TS, lint: Lint, t_start: float) -> int:
+    """Every phase after the lint's start, then ``report``."""
     device = torch.device("cuda")
     card = _card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5906,25 +6021,11 @@ def main() -> int:
               f"temperature): {_clocks_line()}; its checks and timings in "
               f"{time.perf_counter() - t_kernel!r} s")
 
-    order = ["name", "route", "source", "replaces", "launches", "mismatches",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "same_bytes_ms", "grad_ms", "ops_per_s",
-             "bytes_per_s",
-             "bound_share", "fp32_bound_ms", "fp32_bound_by",
-             "fp32_bound_share", "shape", "launches_by_path", "call_ms", "plain_call_ms", "held_ms",
-             "note", "witness_float64", "shapes"]
     walls["kernel checks and timings"] = time.perf_counter() - t_start - sum(
         walls.values())
     walls["generic"] += walls.pop("generic +")
-    print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start!r} s; wall by phase (s): {walls}")
-    print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
-                                  for kern in kernels]}))
-    print(f"card: {card}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return report(lint, walls, kernels, card, t_start,
+                  torch.cuda.get_device_name(0), torch.cuda.device_count())
 
 
 if __name__ == "__main__":

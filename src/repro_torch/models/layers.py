@@ -719,8 +719,8 @@ def rglru_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
     gate_branch = gelu_tanh(x @ p["w_gate_branch"].to(dt))
     u, new_conv = _causal_depthwise_conv(u, p["conv_w"].to(dt),
                                          cache.get("conv") if cache else None)
-    i_gate = torch.sigmoid(u @ p["w_input_gate"].to(dt)).float()
-    r_gate = torch.sigmoid(u @ p["w_rec_gate"].to(dt)).float()
+    i_gate = torch.sigmoid(_gate_product(u, p["w_input_gate"].to(dt))).float()
+    r_gate = torch.sigmoid(_gate_product(u, p["w_rec_gate"].to(dt))).float()
     log_a = -8.0 * r_gate * F.softplus(p["lam"].float())  # gated decay
     a = torch.exp(log_a)
     bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -735,6 +735,36 @@ def rglru_block(p, cfg: ModelConfig, x, ctx: Ctx, cache):
         new_cache = ({"h": y32[:, -1:].clone(), "conv": new_conv}
                      if cache is not None else None)
     return (y32.to(dt) * gate_branch) @ p["w_out"].to(dt), new_cache
+
+
+def _gate_product(u, w):
+    """``u @ w`` of an RG-LRU gate; under mesh rules on DTensors on each
+    device's shards, the reference's layout: on each mesh dim u's rows or
+    positions split as they lie, else its channels as w's input dim is
+    (its ('tp', None)), a partial sum, else the output's channels as a
+    slice of w.  DTensor's own rule leaves the product's gradient split
+    over the sequence, and the weight gradient then multiplies a strided
+    shard of the flattened (B, S), whose offsets DTensor cannot compute
+    on fake tensors."""
+    if not SH.sharded(u, w):
+        return u @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    up, wp, out = [], [], []
+    for pu, pw in zip(u.placements, w.placements):
+        if pu.is_shard(0) or pu.is_shard(1):
+            up.append(pu)
+            wp.append(Replicate())
+            out.append(pu)
+        elif pw.is_shard(0):
+            up.append(Shard(2))
+            wp.append(pw)
+            out.append(Partial())
+        else:
+            up.append(Replicate())
+            wp.append(Shard(1))
+            out.append(Shard(2))
+    return SH.local_call(lambda ul, wl: ul @ wl, (u, w), (up, wp), out)
 
 
 def _rglru_recurrence(a, b):

@@ -323,13 +323,29 @@ def local_call(fn, args: tuple, in_placements: tuple, out_placements):
     """``fn`` on each device's shards of ``args`` (``local_map``): every
     DTensor argument redistributed to its ``in_placements`` entry (None
     for an argument that is no tensor), the outputs laid out by
-    ``out_placements``.  For the ops DTensor has no rule for, and the
-    kernels, which take plain tensors."""
+    ``out_placements`` (a list, or a tuple of them for several outputs).
+    For the ops DTensor has no rule for, and the kernels, which take plain
+    tensors.
+
+    An argument replicated on a mesh dim where an output is split or a
+    partial sum gets a gradient that is a partial sum there: each device
+    differentiates its own share of the output (``local_map`` would
+    otherwise take that gradient as replicated, one device's share)."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
+    mesh = _ACTIVE.get().mesh
+    outs = (out_placements if isinstance(out_placements, tuple)
+            else (out_placements,))
+    varies = [any(o is not None and not o[i].is_replicate() for o in outs)
+              for i in range(mesh.ndim)]
+    grads = tuple(None if pl is None else [
+        Partial() if v and p.is_replicate() else p
+        for p, v in zip(pl, varies)] for pl in in_placements)
     return local_map(fn, out_placements=out_placements,
                      in_placements=in_placements,
-                     device_mesh=_ACTIVE.get().mesh,
+                     in_grad_placements=grads,
+                     device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 
 

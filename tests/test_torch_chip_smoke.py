@@ -12,7 +12,12 @@ import collections
 import copy
 import dataclasses
 import importlib
+import json
+import shutil
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1500,4 +1505,55 @@ def test_dryrun_gates_reject_wrong_counts(fault, dryrun_rehearsal):
     with pytest.raises(AssertionError, match="compute term"):
         cs._one_card_gate("train", tr, train["arg_bytes"],
                           train["step_ms_p50"])
+
+
+# ------------------------------------------------------------ lint phase --
+REPO = Path(cs.__file__).resolve().parent
+# the lint phase and the summary after it (chip_smoke.report), run as the
+# smoke's process runs them: the lint started from ``root``
+LINT_RUN = r"""
+import sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+lint = cs.start_lint(Path(sys.argv[2]))
+try:
+    sys.exit(cs.report(lint, {}, [], "card", 0.0, "cpu", 0))
+finally:
+    lint.stop()
+"""
+
+
+def _lint_run(root: Path) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", LINT_RUN, str(REPO),
+                           str(root)], capture_output=True, text=True,
+                          timeout=300, env={"PATH": "/usr/bin:/bin"})
+
+
+def test_lint_phase_passes_on_the_tree():
+    """The port's tree lints clean under its baseline: the phase prints its
+    line and the run ends with the result line."""
+    proc = _lint_run(REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["ok"] is True
+    lint = next(ln for ln in lines if ln.startswith("lint: "))
+    assert "exit 0: 0 finding(s)" in lint and "1 baseline-suppressed" in lint
+
+
+def test_lint_phase_fails_the_run_on_a_seeded_finding(tmp_path):
+    """A copy of the tree with a wall-clock read seeded in its ``core/``:
+    the lint exits 1, the run exits non-zero and prints no result line."""
+    shutil.copytree(REPO / "src" / "repro_torch",
+                    tmp_path / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "csrc"))
+    shutil.copy(REPO / "lint_baseline_torch.txt", tmp_path)
+    (tmp_path / "pytest.ini").write_text("[pytest]\n")  # the root marker
+    (tmp_path / "src" / "repro_torch" / "core" / "seeded.py").write_text(
+        "import time\n\n\ndef stamp():\n    return time.time()\n")
+    proc = _lint_run(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "src/repro_torch/core/seeded.py:5:0: [determinism] wall-clock " \
+        "call time.time()" in proc.stderr
 
