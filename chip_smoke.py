@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's nine paths once on an NVIDIA GPU; check them.
+"""Drive the PyTorch/CUDA port's ten paths once on an NVIDIA GPU; check them.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -97,9 +97,24 @@ qwen2-1.5b step and path 3's qwen3-moe-30b-a3b decode step dry-run on a
 one-rank mesh, their argument bytes ``==`` the storages of the card's
 arguments, their compute term at least the model's FLOPs at the card's
 peak over ONE_CARD_SLACK, and the card's p50 at least the dry run's
-bound (the larger of its compute and memory terms).  The four dry runs
-run in subprocesses started together just before path 8, on the host
-while the card runs path 8; their gates come after it.
+bound (the larger of its compute and memory terms); and the pipelined
+train step's dry run (``repro_torch.launch.dryrun_pp``, DRYRUN_PP:
+qwen3-14b at K 4 on 512 cards, every stage counted as its rank), its plan
+``==`` the host planner's, every stage within HBM_PER_CARD, each stage's
+hand-off bytes ``==`` their closed form.  The five dry runs run in
+subprocesses started together just before path 8, on the host while the
+card runs path 8; their gates come after it.
+
+Path 10 is the pipeline with its stages in processes of their own and a
+data axis (``msl.make_pipeline_mesh`` in a started process group), after
+path 9: PP_MESH (K 2 x n_data 2) gloo ranks spawned on the one card (the
+gloo-card route: hand-offs and gradient reductions through pinned host
+buffers), qwen2-1.5b at full width and PP_TRAFFIC's 8 layers on fresh
+float32 weights that every rank draws, keeping its stage; B 4 x S 2048 in
+PIPE_MICRO microbatches, two AdamW steps at TRAIN_LR with remat on; held
+to the one-process runtime's ``(2, 1)`` step on the same weights and the
+whole batch, run first (``run_ranks_path``: the losses, every parameter,
+the update, the replicas' copies and each rank's flash launches).
 
 The lint phase is the port's repro-lint (``python -m repro_torch.analysis
 --strict src/repro_torch``, pure stdlib) on the host, never the card: a
@@ -244,7 +259,14 @@ Phases, in order; any failure exits non-zero:
    the cache's memory zeroed (the cross K/V reused), and whisper's
    gradients at TRAIN_CHECK_DEPTH repetitions card vs CPU within CHECK_TOL
    (encoder and gates among them), then its 4 AdamW steps counted, the
-   loss falling;
+   loss falling; then path 9's gates, and path 10 (``run_ranks_path``): the ranks' counts
+   set to 0 just before their steps and read just after, each rank's
+   flash forward and backward launches those of its layers, M and remat;
+   every rank's losses within CHECK_TOL of the one-process step's, every
+   parameter within CHECK_TOL of the model's largest magnitude, the
+   update within PP_UPDATE_TOL in 2-norm, the replicas' and the tied
+   table's copies the same bits; each rank's route, losses, step ms and
+   p50 and peak printed beside the card;
 6. the min-plus product timed at EXTRA_SHAPE; kernel vs plain at the
    shapes of paths 1-3 and 5-8, on the recorded operands and random ones:
    the scan ``==`` its plain version at every shape paths 1, 2 and 5-7
@@ -602,7 +624,11 @@ def _costs(gen, shape, device, *, ties=False, p_inf=0.2):
 
 
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
-PAD_LAUNCHES = 4
+# an H100 run lost the first 36 device events of every window (164 of 200
+# scan launches, 4,764 of 4,800 plain-version launches) past 4 pad
+# launches: 397 windows were timed again, most of the kernel timings'
+# wall; 64 pads at each edge take such a loss
+PAD_LAUNCHES = 64
 # profiler windows a timing may take: even between PAD_KERNEL launches the
 # profiler lost 2 of 300 device events in one window on an H100
 PROFILE_WINDOWS = 3
@@ -4383,15 +4409,18 @@ def run_pipeline_path(name: str, cfg, params, traffic: PipeTraffic,
             "sequential_s": seq_s, "peak_bytes": peak}
 
 
-def _pipe_train_launches(cfg, kernel: str, n_micro: int) -> tuple[int, int]:
-    """A pipelined train step's (forward, backward) launches of ``kernel``:
+def _pipe_train_launches(cfg, kernel: str, n_micro: int,
+                         layers: range | None = None) -> tuple[int, int]:
+    """A pipelined train step's (forward, backward) launches of ``kernel``
+    (over ``layers``, every layer by default: one stage's in path 10):
     each layer of its kinds once each way per microbatch, and the forward
     once more under ``cfg.remat``, which recomputes every group slot."""
     from repro_torch.models import transformer as MT
 
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    layers = range(cfg.n_layers) if layers is None else layers
     n = KERNEL_CALLS.get(kernel, 1) * sum(
-        kind in KERNEL_KINDS[kernel]
-        for kind in MT.layer_kinds(cfg.n_layers, cfg.pattern))
+        kinds[i] in KERNEL_KINDS[kernel] for i in layers)
     return n_micro * n * (2 if cfg.remat else 1), n_micro * n
 
 
@@ -5571,6 +5600,10 @@ ONE_CARD = {"qwen2-1.5b": "train", "qwen3-moe-30b-a3b": "decode"}
 # a one-card cell counts at least 1 / ONE_CARD_SLACK of its model FLOPs (a
 # decode step's embedding lookup is model FLOPs that no product computes)
 ONE_CARD_SLACK = 2.0
+# path 9's pipelined step (launch/dryrun_pp.py): qwen3-14b at K 4 on 512
+# cards, the reference's train_4k (B 256 x S 4096)
+DRYRUN_PP = {"pp": "qwen3-14b", "K": 4, "n_cards": 512, "batch": 256,
+             "seq": 4096}
 SHAPES_KIND = {"train_4k": "train", "prefill_32k": "prefill",
                "decode_32k": "decode", "long_500k": "decode"}
 DRYRUN_TIMEOUT_S = 600
@@ -5581,7 +5614,14 @@ from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import make_mesh, start_fake_group
 spec = json.loads(sys.argv[1])
-if isinstance(spec["mesh"], str):
+if "pp" in spec:
+    from repro_torch.launch.dryrun_pp import run_pp
+    cfg = get_config(spec["pp"])
+    if spec.get("reduced") is not None:
+        cfg = cfg.reduced(**spec["reduced"])
+    out = run_pp(cfg, [spec["K"]], n_cards=spec["n_cards"],
+                 batch=spec["batch"], seq=spec["seq"])
+elif isinstance(spec["mesh"], str):
     out = run_cell(spec["arch"], spec["shape"], spec["mesh"])
 else:
     dims = tuple(spec["mesh"])
@@ -5715,11 +5755,11 @@ def _one_card_gate(name: str, art, arg_bytes: int, p50_ms: float) -> dict:
             "t_memory": t_memory}
 
 
-def dryrun_specs() -> tuple[list, dict, dict]:
-    """Path 9's cells: DRYRUN_CELLS, and the one-card cells of ONE_CARD,
+def dryrun_specs() -> tuple[list, dict, dict, dict]:
+    """Path 9's cells: DRYRUN_CELLS, the one-card cells of ONE_CARD,
     path 4's train step of qwen2-1.5b and path 3's decode step of
     qwen3-moe-30b-a3b, each on a one-rank mesh with its path's config
-    changes."""
+    changes, and DRYRUN_PP's pipelined step (``launch.dryrun_pp``)."""
     moe, qwen2 = SERVE["qwen3-moe-30b-a3b"], TRAIN["qwen2-1.5b"]
     train = {"arch": "qwen2-1.5b", "mesh": [1, 1],
              "shape": ["path4_train", qwen2.seq, qwen2.batch, "train"],
@@ -5728,13 +5768,70 @@ def dryrun_specs() -> tuple[list, dict, dict]:
               "shape": ["path3_decode", moe.cache_len, moe.batch, "decode"],
               "overrides": MODELS["qwen3-moe-30b-a3b"].overrides}
     return ([{"arch": a, "shape": s, "mesh": m} for a, s, m in DRYRUN_CELLS],
-            train, decode)
+            train, decode, DRYRUN_PP)
 
 
 def start_dryrun_path() -> DryRuns:
     """Path 9's dry runs started: ``dryrun_specs``' cells in order."""
-    cells, train_spec, decode_spec = dryrun_specs()
-    return start_dryruns(cells + [train_spec, decode_spec])
+    cells, train_spec, decode_spec, pp_spec = dryrun_specs()
+    return start_dryruns(cells + [train_spec, decode_spec, pp_spec])
+
+
+def _dryrun_pp_gate(art, spec: dict) -> str:
+    """The pipelined step's dry run of ``spec`` (DRYRUN_PP's keys): ``ok``;
+    its plan ``==`` the host planner's (``plan_pipeline`` on the CPU at the
+    same microbatch and K, then ``even_split``); every stage's peak within
+    HBM_PER_CARD; each stage's hand-off bytes ``==`` their closed form
+    (``dryrun_pp.handoff_bytes``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import even_split
+    from repro_torch.launch.dryrun_pp import handoff_bytes
+    from repro_torch.launch.mesh import HBM_PER_CARD
+    from repro_torch.msl import plan_pipeline
+
+    K, n_cards = spec["K"], spec["n_cards"]
+    name = f"{spec['pp']} pipelined train step {art.get('mesh')}"
+    if art.get("status") != "ok":
+        raise AssertionError(f"path 9: {name}: status {art.get('status')}")
+    cfg = get_config(spec["pp"])
+    if spec.get("reduced") is not None:
+        cfg = cfg.reduced(**spec["reduced"])
+    plan = plan_pipeline(cfg, seq_len=spec["seq"], microbatch=n_cards // K,
+                         candidate_K=(K,), device="cpu")
+    want = {"K": plan.K, "segments": [list(x) for x in even_split(
+                plan.n_groups, plan.K)],
+            "placement": plan.placement,
+            "predicted_latency_s": plan.predicted_latency_s,
+            "breakdown": plan.breakdown}
+    if art["plan"] != want:
+        raise AssertionError(f"path 9: {name}: the plan {art['plan']} is not "
+                             f"the host planner's {want}")
+    M, n_data = art["n_micro"], n_cards // K
+    lines = []
+    for st in art["stages"]:
+        peak = st["memory"]["per_device_bytes"]
+        if not peak <= HBM_PER_CARD:
+            raise AssertionError(f"path 9: {name}: stage {st['stage']} "
+                                 f"peaks at {peak} B a card, over "
+                                 f"{HBM_PER_CARD}")
+        closed = handoff_bytes(cfg, K, M, n_data, spec["batch"], spec["seq"],
+                               st["stage"])
+        if st["handoff_bytes"] != closed:
+            raise AssertionError(f"path 9: {name}: stage {st['stage']}'s "
+                                 f"hand-offs count {st['handoff_bytes']} B, "
+                                 f"their closed form {closed} B")
+        rf = st["roofline"]
+        lines.append(f"stage {st['stage']} (groups {st['groups']}): "
+                     f"{st['flops_per_device']!r} FLOP, "
+                     f"{st['hbm_bytes_per_device']!r} B, "
+                     f"{st['coll_bytes_per_device']!r} B of collectives, "
+                     f"hand-offs {st['handoff_bytes']!r} B == closed form, "
+                     f"peak {peak} B, {rf['bottleneck']}-bound (t_compute "
+                     f"{rf['t_compute']!r}, t_memory {rf['t_memory']!r}, "
+                     f"t_collective {rf['t_collective']!r} s)")
+    return (f"{name}: ok, plan K {K} segments {art['plan']['segments']} "
+            f"== the host planner's, M {M}; " + "; ".join(lines)
+            + f"; the slowest stage {art['roofline']['stage']}")
 
 
 def run_dryrun_path(by_model: dict, card: str,
@@ -5747,7 +5844,7 @@ def run_dryrun_path(by_model: dict, card: str,
     t0 = time.perf_counter()
     train = by_model["qwen2-1.5b"]["train"]
     serve = by_model["qwen3-moe-30b-a3b"]["serve"]
-    cells, train_spec, decode_spec = dryrun_specs()
+    cells, train_spec, decode_spec, pp_spec = dryrun_specs()
     runs = runs or start_dryrun_path()
     arts = dryrun_cells(runs)
     dry_s = time.perf_counter() - runs.t0
@@ -5755,7 +5852,8 @@ def run_dryrun_path(by_model: dict, card: str,
         kind = (SHAPES_KIND[spec["shape"]] if isinstance(spec["shape"], str)
                 else spec["shape"][3])
         print(f"path 9: {_dryrun_gate(art, kind)}")
-    tr, de = arts[len(cells):]
+    tr, de, pp = arts[len(cells):]
+    print(f"path 9: {_dryrun_pp_gate(pp, pp_spec)}")
     g_tr = _one_card_gate("qwen2-1.5b train step", tr, train["arg_bytes"],
                           train["step_ms_p50"])
     g_de = _one_card_gate("qwen3-moe-30b-a3b decode step", de,
@@ -5787,8 +5885,260 @@ def run_dryrun_path(by_model: dict, card: str,
     seconds = time.perf_counter() - t0
     print(f"path 9 in {seconds!r} s after path 8; its dry runs took "
           f"{dry_s!r} s from their start")
-    return {"cells": arts[:len(cells)], "train": tr, "decode": de,
+    return {"cells": arts[:len(cells)], "train": tr, "decode": de, "pp": pp,
             "seconds": seconds}
+
+
+# Path 10: the pipeline with its stages in processes of their own and a data
+# axis (msl.make_pipeline_mesh in a started group, ROADMAP A21): PP_MESH
+# (K 2 x n_data 2) gloo ranks spawned on the one card (the gloo-card route:
+# hand-offs and reductions through pinned host buffers; NCCL refuses two
+# ranks on one card), qwen2-1.5b at full width and PP_TRAFFIC's depth on
+# fresh float32 weights drawn by every rank, each keeping its stage; B 4 x
+# S 2048 in PIPE_MICRO microbatches (a row of each a replica), two AdamW
+# steps at TRAIN_LR with remat on, held to the one-process runtime's (2, 1)
+# step on the same weights and the whole batch
+PP_ARCH = "qwen2-1.5b"
+PP_MESH = (2, 2)
+PP_TRAFFIC = TrainTraffic(4, 2048, 2, ("flash_attention",
+                                       "flash_attention_bwd"), layers=8)
+# the ranks' update (parameters after the steps less the seeded weights)
+# against the one-process step's, in 2-norm over the whole model: AdamW's
+# first steps move a parameter by about lr whatever its gradient's size, so
+# a leaf whose gradient is rounding alone (an attention key bias: softmax
+# ignores it) moves by +-lr on either side by chance, and no per-leaf bound
+# holds; the reduced CPU rehearsal reads 0.025 in bf16, a late hand-off
+# 1.41, a step without the data reduction 0.93
+PP_UPDATE_TOL = 0.1
+PP_TIMEOUT_S = 420  # the ranks' whole run, spawn to exit
+PP_COLLECTIVE_TIMEOUT_S = 240  # a collective or hand-off that waits longer
+
+
+def _pp_plan(cfg):
+    """The reference's split of the R groups over 2 stages."""
+    from repro_torch.msl import PipelinePlan
+
+    R = -(-cfg.n_layers // len(cfg.pattern))
+    return PipelinePlan(K=2, segments=[(1, R // 2), (R // 2 + 1, R)],
+                        placement=["s0", "s1"], n_groups=R,
+                        predicted_latency_s=0.0, breakdown={})
+
+
+def _pp_setup(cfg, traffic: TrainTraffic):
+    """(plan, host batches, optimizer) of path 10: ``SyntheticLM``'s
+    batches 0 and 1 (one a step), AdamW at TRAIN_LR as path 7's."""
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.optim import make_optimizer
+
+    stream = SyntheticLM(BatchSpec(traffic.batch, traffic.seq,
+                                   cfg.vocab_size), seed=0)
+    return (_pp_plan(cfg), [stream.batch_at(i) for i in range(traffic.steps)],
+            make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup=1, total=50))
+
+
+def _pp_rank(rank: int, out_dir: str, device: str, cfg,
+             traffic: TrainTraffic, rank_setup=None) -> None:
+    """One rank of path 10 (in a process of its own): its mesh, the seeded
+    weights drawn on its device, its stage kept, then the steps with the
+    kernels' counts set to 0 just before them and read just after; what it
+    holds goes to ``out_dir/<rank>.pt``.  ``rank_setup``, where given, runs
+    first (the CPU rehearsal's counting wrappers)."""
+    if rank_setup is not None:
+        rank_setup()
+    from repro_torch.data import shard_batch
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import (
+        make_pipeline_mesh,
+        make_pipeline_train_step,
+        stage_params,
+    )
+
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in dict.fromkeys(map(_module, KERNELS))}
+    plan, batches, opt = _pp_setup(cfg, traffic)
+    mesh = make_pipeline_mesh(*PP_MESH, device=device)
+    # the first torch.utils.checkpoint call imports some 840 modules (1.9 s
+    # on one idle core): paid by every rank at once here, not by one stage
+    # after another along the chain of the first step (10.8-11.3 s each on
+    # the card's host, four ranks importing together)
+    from torch.utils.checkpoint import checkpoint
+
+    x = torch.ones(1, requires_grad=True)
+    checkpoint(torch.exp, x, use_reentrant=False).backward()
+    dev = mesh.device
+    params = MT.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    sp = stage_params(params, cfg, plan, mesh.stage)
+    del params  # the other stages' leaves go
+    state = opt.init(sp, cfg)
+    step = make_pipeline_train_step(cfg, mesh, plan, PIPE_MICRO, opt)
+    batches = [shard_batch(b, dev) for b in batches]
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(mods)
+    losses, ms = [], []
+    for b in batches:
+        if card:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sp, state, metrics = step(sp, state, b)
+        losses.append(float(metrics["loss"]))
+        if card:
+            torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _counts(mods)
+    torch.save({"stage": mesh.stage, "replica": mesh.replica,
+                "route": mesh.route, "losses": losses, "step_ms": ms,
+                "launches": launches,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                if card else 0,
+                "params": {"/".join(map(str, path)): t.detach().cpu()
+                           for path, t in MT.tree_paths(sp)}},
+               f"{out_dir}/{rank}.pt")
+
+
+def _pp_gates(cfg, traffic: TrainTraffic, ranks: list, want_losses: list,
+              want: dict, seeded: dict, route: str) -> str:
+    """Path 10's gates on what the ranks hold: each on ``route``; every
+    rank's losses within CHECK_TOL (relative) of the one-process step's;
+    a leaf held by several ranks (the replicas, the tied table's two
+    stages) the same bits on each; every parameter within CHECK_TOL of the
+    model's largest magnitude (the one-process step's); the update from
+    the ``seeded`` weights within PP_UPDATE_TOL of the one-process step's
+    in 2-norm; each rank's flash forward and backward launches
+    ``_pipe_train_launches`` of its layers a step.  Raises on a failure,
+    else returns the readings."""
+    fwd, bwd = traffic.kernels
+    plan = _pp_plan(cfg)
+    got: dict = {}
+    loss_err = 0.0
+    for r, res in enumerate(ranks):
+        if res["route"] != route:
+            raise AssertionError(f"path 10: rank {r} ran the {res['route']} "
+                                 f"route, not {route}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                      want_losses)]
+        loss_err = max([loss_err, *errs])
+        if not (len(errs) == len(want_losses) and max(errs) < CHECK_TOL):
+            raise AssertionError(f"path 10: rank {r}'s losses "
+                                 f"{res['losses']} against the one-process "
+                                 f"step's {want_losses} (limit {CHECK_TOL} "
+                                 f"relative)")
+        for key, t in res["params"].items():
+            if key in got and not torch.equal(got[key], t):
+                raise AssertionError(f"path 10: the ranks' copies of {key} "
+                                     f"differ (rank {r})")
+            got[key] = t
+        lo, hi = plan.segments[res["stage"]]
+        layers = range((lo - 1) * len(cfg.pattern),
+                       min(hi * len(cfg.pattern), cfg.n_layers))
+        per_step = _pipe_train_launches(cfg, fwd, PIPE_MICRO, layers)
+        n = tuple(traffic.steps * x for x in per_step)
+        if (res["launches"][fwd], res["launches"][bwd]) != n:
+            raise AssertionError(f"path 10: rank {r} launched "
+                                 f"{res['launches'][fwd]} {fwd} and "
+                                 f"{res['launches'][bwd]} {bwd} kernels in "
+                                 f"{traffic.steps} steps, not {n}")
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"path 10: the ranks hold {len(got)} leaves, "
+                             f"the model {len(want)}")
+    largest = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k].float() - want[k].float()).abs().max())
+            / largest for k in want}
+    worst = max(errs, key=errs.get)
+    if not errs[worst] < CHECK_TOL:
+        raise AssertionError(f"path 10: after {traffic.steps} steps {worst} "
+                             f"lies {errs[worst]!r} of the model's largest "
+                             f"magnitude {largest!r} from the one-process "
+                             f"step's (limit {CHECK_TOL})")
+    diff = math.sqrt(sum(float((got[k].double() - want[k].double()).norm())
+                         ** 2 for k in want))
+    step = math.sqrt(sum(float((want[k].double() - seeded[k].double()
+                                ).norm()) ** 2 for k in want))
+    if not diff < PP_UPDATE_TOL * step:
+        raise AssertionError(f"path 10: the ranks' update lies {diff / step!r}"
+                             f" of the one-process step's from it in 2-norm "
+                             f"(limit {PP_UPDATE_TOL})")
+    return (f"losses within {loss_err!r} (relative) of the one-process "
+            f"step's {want_losses}; the {len(want)} parameters within "
+            f"{errs[worst]!r} ({worst}) of the largest magnitude "
+            f"{largest!r}, the update within {diff / step!r} of the "
+            f"one-process step's in 2-norm, the replicas' and the tied "
+            f"table's copies the same bits")
+
+
+def run_ranks_path(mods: dict, device, card: str = "", *, cfg=None,
+                   traffic: TrainTraffic = PP_TRAFFIC,
+                   rank_setup=None) -> dict:
+    """Path 10: the one-process runtime's ``(2, 1)`` step on the seeded
+    weights and the whole batch (its losses and parameters to the host),
+    then PP_MESH gloo ranks spawned on ``device`` (``launch.ranks.spawn``:
+    a rank that raises fails the path with its traceback, its stderr the
+    smoke's; one past PP_TIMEOUT_S is killed and fails it), gated by
+    ``_pp_gates``.  Prints each rank's route, losses, step ms and p50,
+    peak device memory and launches beside the card."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models import transformer as MT
+    from repro_torch.msl import make_pipeline_mesh, make_pipeline_train_step
+
+    t_path = time.perf_counter()
+    device = torch.device(device)
+    cfg = cfg or dataclasses.replace(ARCHS[PP_ARCH], n_layers=traffic.layers)
+    K, n_data = PP_MESH
+    plan, batches, opt = _pp_setup(cfg, traffic)
+    params = MT.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg, device=device)
+    seeded = {"/".join(map(str, path)): t.detach().to("cpu", copy=True)
+              for path, t in MT.tree_paths(params)}
+    state = opt.init(params, cfg)
+    step = make_pipeline_train_step(cfg, make_pipeline_mesh(K, device=device),
+                                    plan, PIPE_MICRO, opt)
+    want_losses = []
+    for b in batches:
+        _, state, metrics = step(params, state, shard_batch(b, device))
+        want_losses.append(float(metrics["loss"]))
+    want = {"/".join(map(str, path)): t.detach().cpu()
+            for path, t in MT.tree_paths(params)}
+    del params, state, step
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_path
+    route = "gloo-card" if device.type == "cuda" else "gloo-cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(_pp_rank, K * n_data, (tmp, str(device), cfg, traffic,
+                                     rank_setup),
+              timeout_s=PP_TIMEOUT_S,
+              collective_timeout_s=PP_COLLECTIVE_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/{r}.pt") for r in range(K * n_data)]
+    line = _pp_gates(cfg, traffic, ranks, want_losses, want, seeded, route)
+    for r, res in enumerate(ranks):
+        print(f"path 10 on {card}: rank {r} (stage {res['stage']}, replica "
+              f"{res['replica']}, route {res['route']}): losses "
+              f"{res['losses']}, step ms {res['step_ms']}, p50 "
+              f"{statistics.median(res['step_ms'])!r} ms, peak device "
+              f"memory {res['peak_bytes']} B, launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }")
+    seconds = time.perf_counter() - t_path
+    print(f"path 10 on {card}: {cfg.name} at {cfg.n_layers} layers, "
+          f"{K} x {n_data} ranks over gloo ({route}), B {traffic.batch} x S "
+          f"{traffic.seq}, M {PIPE_MICRO}, {traffic.steps} AdamW steps at "
+          f"lr {TRAIN_LR}, remat {cfg.remat}: {line}; the one-process step "
+          f"{t_one!r} s, the ranks {t_ranks!r} s from spawn to exit, "
+          f"{seconds!r} s in all")
+    launches = {k: sum(res["launches"][k] for res in ranks) for k in KERNELS}
+    return {"launches": launches,
+            "recorded": {k: (collections.Counter(), {}) for k in KERNELS},
+            "seconds": seconds, "route": route,
+            "step_ms_p50": [statistics.median(res["step_ms"])
+                            for res in ranks],
+            "peak_bytes": [res["peak_bytes"] for res in ranks]}
 
 
 # The lint phase: the port's repro-lint over its own tree, in a subprocess
@@ -5957,6 +6307,7 @@ def run_phases(C, TS, lint: Lint, t_start: float) -> int:
         phase("path 9", run_dryrun_path, by_model, card, dry)
     finally:
         dry.stop()
+    ranks = phase("path 10", run_ranks_path, mods, device, card)
     pipe_runs = {f"pipeline/{name}": by_model[name]["pipeline"]
                  for name in MODELS}
     matmul["launches_by_path"] = {
@@ -6005,6 +6356,7 @@ def run_phases(C, TS, lint: Lint, t_start: float) -> int:
                 runs.append((f"pipeline train/{m}", res["pipeline train"]))
         if kernel in ("flash_attention", "flash_attention_bwd"):
             runs.append(("launchers", launchers))
+            runs.append((f"ranks/{PP_ARCH}", ranks))
         for m, res in cross.items():
             if kernel == "flash_attention":
                 runs += [(f"cross/{m}", res["forward"]),

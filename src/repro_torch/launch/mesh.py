@@ -23,14 +23,15 @@ HBM_PER_CARD = 85_017_493_504
 NVLINK_AXES = ("model",)  # mesh axes inside one NVLink node
 
 
-def start_fake_group(world_size: int) -> None:
-    """A fake process group of ``world_size`` ranks in this process (rank
-    0): collectives return at once and move nothing.  Process-global: one
-    group a process."""
+def start_fake_group(world_size: int, rank: int = 0) -> None:
+    """A fake process group of ``world_size`` ranks in this process, as
+    ``rank``: collectives return at once and move nothing.  Process-global:
+    one group at a time (``torch.distributed.destroy_process_group`` ends
+    it)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
 
 

@@ -9,8 +9,13 @@ data pipeline, as the JAX package's ``repro.launch.train``.
 It runs on the card unless ``--device cpu`` is given; without a card it
 exits 2.  ``dp`` is ``train.make_train_step``; ``msl-pp`` is
 ``msl.make_pipeline_train_step`` over the reference's split of the R
-pattern groups, ``[(1, R // 2), (R // 2 + 1, R)]``, both stages on the one
-device.  Checkpoints are the JAX package's format (``repro_torch.ckpt``),
+pattern groups, ``[(1, R // 2), (R // 2 + 1, R)]``: both stages on the one
+device, or, in a started process group of W ranks (torchrun's W processes
+start one), on the
+reference's ``(2, W // 2)`` mesh, a rank a (stage, replica), each
+updating its stage's leaves; rank 0 then prints and writes the
+checkpoints, of the whole tree gathered from the stages
+(``msl.pipeline.whole_state``).  Checkpoints are the JAX package's format (``repro_torch.ckpt``),
 so ``--resume`` takes one written by either package for the same config.
 ``--reduced`` is the JAX package's reduced config (``cfg.reduced()``, head
 width 16), so either package's checkpoint restores into the other's run.
@@ -21,6 +26,7 @@ memory, as the JAX package's pipeline carries none, and raises.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -67,21 +73,37 @@ def main(argv: list[str] | None = None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
-                           device=device)
-    opt = make_optimizer(cfg.optimizer, lr=args.lr, warmup=5,
-                         total=args.steps)
-    opt_state = opt.init(params, cfg)
-
+    mesh = plan = None
+    started = False  # this launcher started the process group
     if args.mode == "msl-pp":
-        from ..msl import make_pipeline_mesh, make_pipeline_train_step
-        from ..msl.planner import PipelinePlan
+        import torch.distributed as dist
+
+        from ..msl import PipelinePlan, StageMesh, make_pipeline_mesh
 
         R = -(-cfg.n_layers // len(cfg.pattern))
         plan = PipelinePlan(K=2, segments=[(1, R // 2), (R // 2 + 1, R)],
                             placement=["s0", "s1"], n_groups=R,
                             predicted_latency_s=0.0, breakdown={})
-        mesh = make_pipeline_mesh(2, device=device)
+        if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                            "1")) > 1:
+            # torchrun's ranks: its env:// rendezvous, nccl for cards
+            dist.init_process_group("nccl" if device.type == "cuda"
+                                    else "gloo")
+            started = True
+        n_data = dist.get_world_size() // 2 if dist.is_initialized() else 1
+        mesh = make_pipeline_mesh(2, n_data, device=device)
+    ranks = args.mode == "msl-pp" and isinstance(mesh, StageMesh)
+    if ranks:
+        device = mesh.device
+    lead = not ranks or dist.get_rank() == 0
+    params = T.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                           device=device)
+    opt = make_optimizer(cfg.optimizer, lr=args.lr, warmup=5,
+                         total=args.steps)
+
+    if args.mode == "msl-pp":
+        from ..msl import make_pipeline_train_step
+
         step_fn = make_pipeline_train_step(cfg, mesh, plan, args.n_micro, opt)
     else:
         step_fn = make_train_step(cfg, opt)
@@ -89,17 +111,34 @@ def main(argv: list[str] | None = None) -> int:
     ckpt = CheckpointManager(args.ckpt_dir or (
         f"{tempfile.gettempdir()}/repro_torch_{args.arch}_ckpt"))
     start = 0
+    opt_state = opt.init(params, cfg)
     if args.resume:
         s, state = ckpt.restore()
         if s is not None:
             params = params_from_jax(state["params"], cfg, device)
             opt_state = opt_state_from_jax(state["opt"], params, cfg, device)
             start = s + 1
-            print(f"[resume] from step {s}")
+            if lead:
+                print(f"[resume] from step {s}")
+    if ranks:
+        from ..msl.pipeline import stage_params, whole_state
+
+        # the rank's stage: its leaves and their moments, out of the whole
+        whole = opt_state
+        opt_state = opt.init(stage_params(params, cfg, plan, mesh.stage), cfg)
+        for k in ("m", "v"):
+            for dst, src in zip(T.tree_leaves(opt_state[k]), T.tree_leaves(
+                    stage_params(whole[k], cfg, plan, mesh.stage))):
+                dst.copy_(src)
+        opt_state["step"] = whole["step"]
+        del whole
 
     def jax_state():
-        return {"params": params_to_jax_layout(params, cfg),
-                "opt": opt_state_to_jax_layout(opt_state, params, cfg)}
+        p, st = params, opt_state
+        if ranks:
+            p, st = whole_state(params, opt_state, cfg, mesh, plan, opt)
+        return {"params": params_to_jax_layout(p, cfg),
+                "opt": opt_state_to_jax_layout(st, p, cfg)}
 
     spec = BatchSpec(args.batch, args.seq, cfg.vocab_size,
                      memory_len=cfg.memory_len, d_model=cfg.d_model)
@@ -110,17 +149,23 @@ def main(argv: list[str] | None = None) -> int:
             _, host_batch = prefetch.next()
             batch = shard_batch(host_batch, device)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-            if step % 10 == 0 or step == args.steps - 1:
+            if lead and (step % 10 == 0 or step == args.steps - 1):
                 dt = (time.time() - t0) / max(1, step - start + 1)
                 print(f"step {step:5d} loss={float(metrics['loss']):.4f} "
                       f"{dt*1e3:.0f} ms/step")
             if args.ckpt_every and step and step % args.ckpt_every == 0:
-                ckpt.save(step, jax_state(), blocking=False)
+                state = jax_state()  # every rank: the stages' gather
+                if lead:
+                    ckpt.save(step, state, blocking=False)
     finally:
         prefetch.close()
-    ckpt.save(args.steps - 1, jax_state())
-    print(f"done: {args.steps - start} steps; checkpoint at step "
-          f"{ckpt.latest_step()}")
+    state = jax_state()
+    if lead:
+        ckpt.save(args.steps - 1, state)
+        print(f"done: {args.steps - start} steps; checkpoint at step "
+              f"{ckpt.latest_step()}")
+    if started:
+        dist.destroy_process_group()
     return 0
 
 

@@ -5,8 +5,11 @@ package's ``src/repro/optim/compress.py``:
     4x fewer bytes for a data-parallel all-reduce;
   * top-k sparsification with error feedback.
 
-Pure tensor functions on any device; the data axis of the port's pipeline
-runtime (ROADMAP A21) is to use them.
+Pure tensor functions on any device.  The reference's docstring says its
+pipeline (``repro.msl.pipeline``) uses them, but nothing in the JAX package
+calls them: its pipelined step differentiates the whole batch's loss in
+full precision.  So the port's pipeline, whose data axis averages its
+replicas' gradients (``msl/pipeline.py``), does not call them either.
 """
 from __future__ import annotations
 

@@ -16,7 +16,8 @@ shards, and the functional collectives that move them; those it counts:
     moves, not the whole table it indexes;
   * collectives by type: the group's size, the ring volume of
     ``analysis.ring_volume``, and whether the group spans a mesh axis off
-    NVLink;
+    NVLink; a pipeline's point-to-point hand-offs, which reach no dispatch
+    mode, as collective-permutes (:func:`record_permute`);
   * memory: the bytes of the storages alive, argument storages included,
     and their peak.
 
@@ -122,6 +123,17 @@ def nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+_ACTIVE: list = []  # the OpCost modes entered, innermost last
+
+
+def record_permute(n_bytes: int) -> None:
+    """A point-to-point send of ``n_bytes`` (a pipeline hand-off, which
+    reaches no dispatch mode) into the innermost :class:`OpCost` entered,
+    as the reference's collective-permute; nothing outside one."""
+    if _ACTIVE:
+        _ACTIVE[-1].add_permute(n_bytes)
+
+
 def _group_of(mesh) -> dict:
     """{process group name: (size, mesh axis)} of every mesh dim."""
     if mesh is None:
@@ -173,6 +185,16 @@ class OpCost(TorchDispatchMode):
         self.cost.bytes += n_bytes
         self.flops_by_op[kernel] += n_ops
         self.bytes_by_op[kernel] += n_bytes
+
+    def add_permute(self, n_bytes: int) -> None:
+        """A hand-off to the next or the previous stage: its bytes sent,
+        across the network (the stage axis spans nodes)."""
+        op = "collective-permute"
+        self.cost.coll_bytes[op] += ring_volume(op, n_bytes, 2)
+        self.cost.coll_counts[op] += 1
+        self.cost.net_coll_bytes += n_bytes
+        self.cost.bytes += n_bytes
+        self.bytes_by_op[op] += n_bytes
 
     def _collective(self, name: str, args, out, alltoall: bool = False
                     ) -> None:
@@ -259,10 +281,12 @@ class OpCost(TorchDispatchMode):
     def __enter__(self):
         self._rec = kernel_work.recording(self.add_kernel)
         self._rec.__enter__()
+        _ACTIVE.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            _ACTIVE.remove(self)
             self._rec.__exit__(*exc)

@@ -393,12 +393,10 @@ SERVE_REHEARSAL = {
 }
 
 
-@pytest.fixture
-def cpu_launches(monkeypatch):
+def install_cpu_launches(monkeypatch):
     """The kernels' modules, with each wrapper at the site chip_smoke.py
-    records counting its CPU calls as launches (the counts restored after
-    the test), and torch.cuda's synchronise and memory statistics made
-    no-ops."""
+    records counting its CPU calls as launches (through ``monkeypatch``),
+    and torch.cuda's synchronise and memory statistics made no-ops."""
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
             for m in dict.fromkeys(map(cs._module, cs.KERNELS))}
     for name, spec in cs.KERNELS.items():
@@ -419,6 +417,12 @@ def cpu_launches(monkeypatch):
                         lambda *a, **kw: 0)
     monkeypatch.setattr(cs, "_card_line", lambda: "the CPU (rehearsal)")
     return mods
+
+
+@pytest.fixture
+def cpu_launches(monkeypatch):
+    """``install_cpu_launches``, the counts restored after the test."""
+    return install_cpu_launches(monkeypatch)
 
 
 def _serve(name, mods):
@@ -602,11 +606,10 @@ def route_backward(monkeypatch, gmm_bwd, rglru_bwd):
     monkeypatch.setattr(ML, "rglru_scan", scan)
 
 
-@pytest.fixture
-def cpu_backward(cpu_launches, monkeypatch):
-    """cpu_launches, with the backward of flash attention, SSD, the expert
-    matmul and the RG-LRU scan taken through their backward wrappers
-    (``_PlainWithBackward``)."""
+def install_cpu_backward(monkeypatch, cpu_launches):
+    """``cpu_launches`` (``install_cpu_launches``'s modules), with the
+    backward of flash attention, SSD, the expert matmul and the RG-LRU
+    scan taken through their backward wrappers (``_PlainWithBackward``)."""
     fa = cpu_launches["flash_attention"]
     ssd = cpu_launches["ssd"]
     from repro_torch.kernels import ops
@@ -637,6 +640,12 @@ def cpu_backward(cpu_launches, monkeypatch):
     monkeypatch.setattr(cs, "_device_us", lambda fn: (cs._wall(fn) * 1e6,
                                                       0.0, {}))
     return cpu_launches
+
+
+@pytest.fixture
+def cpu_backward(cpu_launches, monkeypatch):
+    """``install_cpu_backward`` on ``cpu_launches``."""
+    return install_cpu_backward(monkeypatch, cpu_launches)
 
 
 @pytest.mark.parametrize("name", list(TRAIN_REHEARSAL))
@@ -1297,6 +1306,82 @@ def test_launch_path_rehearsed_on_the_cpu(fault, cpu_backward, monkeypatch,
 # ------------------------------------------------------------- path 8 ---
 # reduced traffic: the reduced configs (head width 16, 8 memory positions),
 # B 2 x S 24 (vision B 1), prompts of 4-12 tokens and 8 new, four steps
+PP_REHEARSAL = cs.TrainTraffic(4, 32, 2, ("flash_attention",
+                                          "flash_attention_bwd"), layers=4)
+
+
+def ranks_setup(fault=None) -> None:
+    """A path 10 rank's rehearsal setup (run in each spawned rank): the
+    wrappers counting their CPU calls, the backward through the backward
+    wrappers, torch on one thread, and the fault named: "late hand-off"
+    hands each stage the microbatch before the one it should get (zeros
+    first), "no data reduction" leaves each replica its own gradients."""
+    from repro_torch.msl import pipeline as MP
+
+    mp_ = pytest.MonkeyPatch()
+    install_cpu_backward(mp_, install_cpu_launches(mp_))
+    torch.set_num_threads(1)
+    if fault == "late hand-off":
+        recv, held = MP._recv, {}
+
+        def late(mesh, specs, src, tag, keep):
+            got = recv(mesh, specs, src, tag, keep)
+            if tag != 0:  # the cotangents come back on time
+                return got
+            prev = held.get("prev", [torch.zeros_like(t) for t in got])
+            held["prev"] = got
+            return prev
+
+        mp_.setattr(MP, "_recv", late)
+    elif fault == "no data reduction":
+        reduce = MP._reduce_grads
+
+        def own(sp, grads, cfg, mesh, plan, keep):
+            return reduce(sp, grads, cfg, dataclasses.replace(mesh, n_data=1),
+                          plan, keep)
+
+        mp_.setattr(MP, "_reduce_grads", own)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("fault, match", [
+    (None, None), ("late hand-off", "update lies"),
+    ("no data reduction", "copies of")])
+def test_ranks_path_rehearsed_on_cpu_gloo_ranks(fault, match, cpu_backward,
+                                                capsys):
+    """run_ranks_path on 4 gloo ranks on the CPU (reduced qwen2, 4 layers,
+    B 4 x S 32, 2 steps): the ranks' losses and parameters within CHECK_TOL
+    of the one-process step's, their update within PP_UPDATE_TOL, the
+    replicas' copies the same bits, each rank's flash launches its two
+    layers' (M 2, remat: 8 forward and 4 backward a step); a late hand-off
+    fails the update gate (on random weights the loss is about log V
+    whatever the hidden state), and a step that skips the data reduction
+    the replicas' agreement."""
+    import functools
+
+    cfg = ARCHS["qwen2-1.5b"].reduced(n_layers=4)
+
+    def run():
+        return cs.run_ranks_path(
+            cpu_backward, "cpu", "the CPU (rehearsal)", cfg=cfg,
+            traffic=PP_REHEARSAL,
+            rank_setup=functools.partial(ranks_setup, fault))
+
+    if fault is not None:
+        with pytest.raises(AssertionError, match=f"path 10: .*{match}"):
+            run()
+        return
+    res = run()
+    assert res["route"] == "gloo-cpu"
+    assert cs._pipe_train_launches(cfg, "flash_attention", 2,
+                                   range(2)) == (8, 4)
+    assert res["launches"]["flash_attention"] == 4 * 2 * 8
+    assert res["launches"]["flash_attention_bwd"] == 4 * 2 * 4
+    out = capsys.readouterr().out
+    assert out.count("path 10 on the CPU (rehearsal): rank") == 4
+    assert "route gloo-cpu" in out and "the replicas'" in out
+
+
 CROSS_REHEARSAL = {
     "whisper-small": cs.CrossModel(
         2, 24, cs.ServeTraffic(2, 4, 12, 8, 24),
@@ -1404,7 +1489,9 @@ def _dryrun_rehearsal_specs():
     decode = {"arch": "qwen3-moe-30b-a3b", "mesh": [1, 1],
               "shape": DRYRUN_DECODE, "reduced": DRYRUN_REDUCED,
               "overrides": cs.MODELS["qwen3-moe-30b-a3b"].overrides}
-    return [cell], train, decode
+    pp = {"pp": "qwen2-1.5b", "K": 2, "reduced": {"n_layers": 4},
+          "n_cards": 8, "batch": 8, "seq": 64}
+    return [cell], train, decode, pp
 
 
 def _real_step_args():
@@ -1476,6 +1563,32 @@ def test_dryrun_path_rehearsed_on_the_cpu(dryrun_rehearsal):
         "serve"]["decode_arg_bytes"]
     assert tr["cost"]["kernel_flops"]["flash_attention_bwd"] > 0
     assert de["cost"]["kernel_flops"]["moe_gmm"] > 0
+
+
+@pytest.mark.parametrize("fault", [None, "a hand-off left out",
+                                   "a stage over the card"])
+def test_dryrun_pp_gate(fault, dryrun_rehearsal):
+    """The pipelined step's dry run at reduced size (K 2 x 4 fake ranks)
+    passes its gate: the plan the host planner's, the hand-offs their
+    closed form, every stage within a card; one tick's hand-off left out
+    and a stage's peak past the card's memory fail it."""
+    from repro_torch.launch.mesh import HBM_PER_CARD
+
+    run, _ = dryrun_rehearsal
+    spec = _dryrun_rehearsal_specs()[3]
+    pp = copy.deepcopy(run["pp"])
+    if fault is None:
+        assert "== the host planner's" in cs._dryrun_pp_gate(pp, spec)
+        return
+    if fault == "a hand-off left out":
+        pp["stages"][1]["handoff_bytes"] -= pp["stages"][1][
+            "handoff_bytes"] // 2
+        match = "hand-offs count"
+    else:
+        pp["stages"][0]["memory"]["per_device_bytes"] = HBM_PER_CARD + 1
+        match = "peaks at"
+    with pytest.raises(AssertionError, match=match):
+        cs._dryrun_pp_gate(pp, spec)
 
 
 @pytest.mark.parametrize("fault", ["global FLOPs as one card's",

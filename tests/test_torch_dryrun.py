@@ -195,6 +195,101 @@ def test_shard_sites_on_a_gloo_mesh_give_the_plain_values(tmp_path):
     assert len(errs) == 6 and max(errs) < 1e-12, errs
 
 
+# the pipelined train step's dry run (launch/dryrun_pp.py) at reduced size
+# on a fake mesh of 8: K 2 stages x 4 replicas, B 8 x S 64, M 2
+PP_CELL = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun_pp import run_pp
+cfg = get_config("qwen2-1.5b").reduced(n_layers=4)
+out = run_pp(cfg, [2], n_cards=8, batch=8, seq=64)
+open(sys.argv[1], "w").write(json.dumps(out))
+"""
+# a stage's FLOPs over 8 N T, N its layers' parameters (and the head's on
+# the last stage), T its replica's tokens: the forward, its recomputation
+# (remat, and the loss's checkpointed chunks) and the backward's two
+# products a weight; attention, norms and elementwise math add the rest
+PP_FLOPS_BAND = (1.0, 1.25)
+
+
+@pytest.fixture
+def jax_x64(monkeypatch):
+    """The JAX package reaches ``jax.experimental.enable_x64``, which this
+    JAX no longer has: alias it to ``jax.enable_x64`` for one test, then
+    remove the alias and drop the reference's cached jitted scans."""
+    import jax
+
+    from repro.core import jax_solvers
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                        raising=False)
+    yield
+    monkeypatch.undo()
+    jax_solvers._jx.cache_clear()
+
+
+def test_dryrun_pp_on_a_small_fake_mesh(tmp_path, jax_x64):
+    """The plan ``==`` the reference's ``plan_pipeline`` then ``even_split``;
+    each stage's FLOPs within PP_FLOPS_BAND of 8 N T; the hand-off bytes
+    ``==`` their closed form (each active tick's (h, aux) to the next stage
+    and its cotangent back) and a collective-permute's four counts a stage;
+    every leaf gathered and its gradient reduce-scattered once."""
+    import torch
+
+    from repro.configs import get_config as jax_config
+    from repro.core import even_split
+    from repro.msl.planner import plan_pipeline
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.msl import PipelinePlan, stage_params
+
+    art = tmp_path / "pp.json"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", PP_CELL, str(art)],
+                          capture_output=True, text=True, timeout=180,
+                          env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    j = json.loads(art.read_text())
+    assert j["status"] == "ok" and j["mesh"] == "pp2x4" and j["n_micro"] == 2
+    ref = plan_pipeline(jax_config("qwen2-1.5b").reduced(n_layers=4),
+                        seq_len=64, microbatch=4, candidate_K=(2,))
+    assert j["plan"]["K"] == ref.K
+    assert j["plan"]["segments"] == [list(x) for x in even_split(
+        ref.n_groups, ref.K)]
+    assert j["plan"]["placement"] == list(ref.placement)
+    assert j["plan"]["predicted_latency_s"] == ref.predicted_latency_s
+    assert j["plan"]["breakdown"] == ref.breakdown
+
+    cfg = get_config("qwen2-1.5b").reduced(n_layers=4)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    plan = PipelinePlan(K=2, segments=[tuple(x) for x in j["plan"]["segments"]],
+                        placement=j["plan"]["placement"], n_groups=4,
+                        predicted_latency_s=0.0, breakdown={})
+    tokens = 2 * 1 * 64  # M x a replica's rows of a microbatch x S
+    per_tick = 1 * 64 * cfg.d_model * 2 + 4  # bf16 h, float32 aux
+    for s, st in enumerate(j["stages"]):
+        sp = stage_params(params, cfg, plan, s)
+        n = sum(t.numel() for t in T.tree_leaves(sp["stack"]))
+        if s == 1:  # the tied table as the head
+            n += params["embed"].numel()
+        ratio = st["flops_per_device"] / (8 * n * tokens)
+        assert PP_FLOPS_BAND[0] <= ratio <= PP_FLOPS_BAND[1], (s, ratio)
+        # M ticks, one way: stage 0 forward, stage 1 its cotangents back
+        assert st["handoff_bytes"] == st["handoff_closed_form"] \
+            == 2 * per_tick
+        counts = st["collectives"]["counts"]
+        assert counts["collective-permute"] == 4
+        leaves = len(T.tree_leaves(sp))
+        assert counts["all-gather"] == counts["reduce-scatter"] == leaves
+        # the tied table's sum, and the metrics' mean on every rank
+        assert counts["all-reduce"] == 2
+        assert st["memory"]["fits_80gb"]
+    assert j["roofline"]["stage"] in (0, 1)
+    assert j["memory"]["per_device_bytes"] == max(
+        st["memory"]["per_device_bytes"] for st in j["stages"])
+
+
 def test_constraint_sites_are_identity_without_rules():
     x = torch.randn(2, 8, 4, 16)
     assert S.constrain(x, ("batch", "seq", None, None)) is x

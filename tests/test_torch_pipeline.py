@@ -435,12 +435,17 @@ def test_a_plan_that_leaves_out_layers_raises():
 
 
 def test_mesh_runs_on_the_card_and_has_no_data_axis():
-    from repro_torch.msl import make_pipeline_mesh
+    """Without a process group the mesh is this process's: its stages on
+    the card unless the caller asks for the CPU, and no data axis: one
+    raises, naming how to start a group of one process a (stage, replica)
+    (``tests/test_torch_pipeline_dist.py`` runs such groups)."""
+    from repro_torch.msl import PipelineMesh, make_pipeline_mesh
 
-    with pytest.raises(NotImplementedError, match="A21"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         make_pipeline_mesh(2, 2, device="cpu")
-    assert make_pipeline_mesh(3, device="cpu").stages == (
-        torch.device("cpu"),) * 3
+    mesh = make_pipeline_mesh(3, device="cpu")
+    assert isinstance(mesh, PipelineMesh)
+    assert mesh.stages == (torch.device("cpu"),) * 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_pipeline_mesh(2)
