@@ -10,8 +10,8 @@ scan kernel (one launch per scan; ``dfts_torch`` runs every instance's
 tours in lockstep waves, one scan per (K, S) group of a wave).
 Path 2 is plan execution: ``repro_torch.msl.plan_pipeline`` (``bcd_torch``
 on ``cuda``, the scan kernel again) -> ``ChainSimulator.run_plan``,
-which runs four models at full width and full depth with random weights
-from a seed, one after the other (MODELS):
+which runs eight models at full width with random weights from a seed,
+one after the other (MODELS), all but arctic-480b at full depth:
 
 * qwen2-1.5b, B 2 x S 2048, every block through the flash-attention kernel;
 * mamba2-370m, B 2 x S 2048, every block through the SSD kernel;
@@ -22,10 +22,25 @@ from a seed, one after the other (MODELS):
   anyway; the router stays float32;
 * recurrentgemma-9b, B 1 x S 4096 (so that the 2048-token window of its
   local attention cuts keys), its ``rglru`` blocks through the RG-LRU kernel
-  and its ``local_attn`` blocks through flash attention at head width 256.
+  and its ``local_attn`` blocks through flash attention at head width 256;
+* gemma2-27b, B 1 x S 8192 (so that the 4096-token window of its local
+  layers cuts keys), every block through flash attention with the tanh
+  softcap of 50 (head groups of 2), its GeGLU MLP, ``embed_scale`` and tied
+  256,000-row head; its one change: bf16 weights (54.5 GB; 109 GB in
+  float32);
+* arctic-480b, B 2 x S 2048, at 2 of its 35 layers in its published bf16
+  (about 55 GB: a layer's 128 experts are 26.8 GB), its ``moe_dense``
+  blocks through flash attention (G 7) and three expert-matmul launches at
+  (128, 80, 7168) x (128, 7168, 4864) and back; its card-vs-CPU check is
+  narrowed to its first layer (check_layers: the second would put the
+  whole model on the host), which the run prints;
+* qwen3-14b (qk-norm, G 5) and starcoder2-7b (QKV and MLP biases, G 9),
+  B 2 x S 2048, in their published float32.
 
-Path 3 is serving, inside the turns of all four models on the same
-weights (SERVE): ``repro_torch.serving.prefill`` of left-padded prompts
+Path 3 is serving, inside the turns of qwen2-1.5b, mamba2-370m,
+qwen3-moe-30b-a3b, recurrentgemma-9b and gemma2-27b on the same weights
+(SERVE; gemma2's prompt of 4,608 tokens runs past the end of its 4,096-slot
+local ring): ``repro_torch.serving.prefill`` of left-padded prompts
 through the flash, SSD, RG-LRU and expert-matmul kernels, then greedy
 ``decode_step``s over the KV rings and the SSD and RG-LRU states, in plain
 PyTorch but for qwen3-moe-30b-a3b's expert products (three expert-matmul
@@ -175,11 +190,14 @@ Phases, in order; any failure exits non-zero:
 5. path 2, one model after the other: the counts set to 0, the plan and the
    planned chain run on the card, the counts read (the scan and each of the
    model's kernels must have launched), every kernel call's shape and first
-   operands recorded; the chain's hidden state ``==`` the port's monolithic
-   ``apply_stack`` on the card (the same blocks in the same order); the
-   first two groups at S 512 on the card (kernels) within CHECK_TOL of
-   their largest magnitude of the same groups on the CPU (plain versions),
-   in bf16; route-aware for MoE: every expert pick of the card that the
+   operands recorded (one set, copied to the host, for a shape whose
+   operands pass RECORDED_BYTES_CAP); the chain's hidden state ``==`` the
+   port's monolithic ``apply_stack`` on the card (the same blocks in the
+   same order); the first two groups at S 512 on the card (kernels) within
+   CHECK_TOL of their largest magnitude of the same groups on the CPU
+   (plain versions), in bf16 (arctic-480b's first layer only); each turn's
+   wall, peak device memory by path and the host's MemAvailable before and
+   after printed; route-aware for MoE: every expert pick of the card that the
    CPU's router would not make must be a near tie there, the tokens of
    each sequence before its first token that routes otherwise are held to
    the CPU's own run, and every token to a second CPU run that replays the
@@ -283,10 +301,14 @@ Phases, in order; any failure exits non-zero:
    both RG-LRU gates three (the state restarted every RGLRU_STAGE steps, a
    slab carrying the previous slab's state, the last stage unwritten); the
    expert matmul at GMM_TOL, which must also reject two wrong outputs (one
-   GMM_TILE slice of D left out, one counted twice); then each shape timed
-   by ``torch.profiler`` device time (a time on a held stream by CUDA
-   events beside it, the clock used when the profiler loses events in
-   every window) beside its plain version, its bound, the operations and
+   GMM_TILE slice of D left out, one counted twice), a shape whose
+   operands pass RECORDED_BYTES_CAP having been checked (on random
+   operands drawn on the card too) and timed alone in its model's turn;
+   then each shape timed by ``torch.profiler`` device time (a time on a
+   held stream by CUDA events beside it, the clock used when the profiler
+   loses events in every window; a window that reads under the shape's
+   bound lost events, and a held stream that does raises) beside its
+   plain version, its bound, the operations and
    bytes per second it achieved and its share of the bound (SSD's bound is
    its TF32 tensor-core work; the same work at the fp32 rate is printed
    beside it), and its library
@@ -332,6 +354,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, NamedTuple
@@ -355,6 +378,13 @@ SCAN_GENERIC = [(1, 1, 4), (3, 1, 33), (7, 2, 1), (5, 2, 7), (33, 3, 5),
                 (1024, 5, 64), (2, 2, 1500)]
 MAX_WARM_SCANS = 20  # scans of the warm 1024-instance dfts_torch pass
 RECORDED_OPERANDS = 3  # operand sets kept per shape of a kernel's calls
+# A shape whose operand set passes RECORDED_BYTES_CAP keeps one set, copied
+# straight to the host (arctic-480b's expert products read 8.93 GB of
+# weights a call: three sets of its three products would be 80 GB on a
+# card holding 55 GB of weights), and its model's turn ends by moving such
+# a shape's operands to the card and checking and timing it alone
+# (``settle_big_shapes``)
+RECORDED_BYTES_CAP = 2 ** 32
 CHECK_SEQ = 512        # path 2: sequence of the card-vs-CPU check
 # Flash attention, bf16: the kernel rounds p to bf16 before P.V (as the
 # JAX model's blocked_attention does) where the plain version keeps it
@@ -446,20 +476,37 @@ GRAD_FLOOR_FACTOR = 1.1
 
 class PathModel(NamedTuple):
     """One model of path 2: the kernels its blocks run, its batch and
-    sequence, and its changes from the published config."""
+    sequence, its changes from the published config, the layers of its
+    card-vs-CPU check where fewer than SERVE_CHECK_DEPTH pattern
+    repetitions (a gate narrowed, printed as such)."""
     kernels: tuple[str, ...]
     batch: int
     seq: int
     overrides: dict = {}
+    check_layers: int | None = None
 
 
-# path 2, in this order
+# path 2, in this order.  gemma2-27b in bf16 (27.2 B parameters, 54.5 GB;
+# float32 would be 109 GB) at S 8192, past its window of 4096; arctic-480b
+# at 2 of its 35 layers in its published bf16 (about 55 GB: a layer's
+# experts are 128 x 3 x 7168 x 4864 x 2 B = 26.8 GB), B 2 x S 2048 as 4
+# MoE groups of 1,024 at C 20, so its expert products are (128, 80, 7168) x
+# (128, 7168, 4864); its card-vs-CPU check takes its first layer only (one
+# moe_dense block, 26.9 GB on the host, where two would be the whole
+# model); qwen3-14b (59 GB) and starcoder2-7b (30 GB) in their published
+# float32
 MODELS = {
     "qwen2-1.5b": PathModel(("flash_attention",), 2, 2048),
     "mamba2-370m": PathModel(("ssd",), 2, 2048),
     "qwen3-moe-30b-a3b": PathModel(("flash_attention", "moe_gmm"), 2, 2048,
                                    {"param_dtype": "bfloat16"}),
     "recurrentgemma-9b": PathModel(("flash_attention", "rglru"), 1, 4096),
+    "gemma2-27b": PathModel(("flash_attention",), 1, 8192,
+                            {"param_dtype": "bfloat16"}),
+    "arctic-480b": PathModel(("flash_attention", "moe_gmm"), 2, 2048,
+                             {"n_layers": 2}, check_layers=1),
+    "qwen3-14b": PathModel(("flash_attention",), 2, 2048),
+    "starcoder2-7b": PathModel(("flash_attention",), 2, 2048),
 }
 
 
@@ -480,12 +527,18 @@ class ServeTraffic(NamedTuple):
 # at C 80 (a 1.27 GB dispatch buffer), its 48 KV rings hold 3.2 GB beside
 # the 61.1 GB of weights, a decode step routes its 32 tokens at C 2, and
 # prompt and generated tokens make 1,024 a row (whole groups for any rows);
-# recurrentgemma's 2048-slot local ring wraps at every decode step
+# recurrentgemma's 2048-slot local ring wraps at every decode step;
+# gemma2's prompt of 4,608 tokens runs past the end of its local ring of
+# min(4672, 4096) slots, which every decode step wraps again, its 23 global
+# caches hold 0.88 GB, and every served logit passes the final softcap and
+# the tied head of 256,000 rows (at 8,192 tokens the full-depth floor's
+# plain attention would hold 8.6 GB of float32 scores a copy)
 SERVE = {
     "qwen2-1.5b": ServeTraffic(8, 256, 2048, 128, 2176),
     "mamba2-370m": ServeTraffic(8, 256, 1792, 256, 2048),
     "qwen3-moe-30b-a3b": ServeTraffic(32, 128, 960, 64, 1024),
     "recurrentgemma-9b": ServeTraffic(1, 4096, 4096, 64, 4160),
+    "gemma2-27b": ServeTraffic(1, 4608, 4608, 64, 4672),
 }
 # path 3's MoE card-vs-CPU gate at 2 layers runs the last SERVE_CPU_TOKENS
 # tokens of every padded prompt (2 whole groups of 1,024 at C 80 over the
@@ -554,7 +607,10 @@ TRAIN_CHECK_DEPTH = SERVE_CHECK_DEPTH  # repetitions of the card-vs-CPU
 # cases, rows that see no key, randomised GQA shapes, head width 16 (the
 # reduced configs', 32-byte swizzled rows) causal and with Sq != Skv, and
 # whisper-small's cross-attention (448 queries over 1500 frames, ragged
-# against both tiles)
+# against both tiles), head groups of 5, 7 and 9 (qwen3-14b's 40 / 8,
+# arctic-480b's 56 / 8, starcoder2-7b's 36 / 4: the backward's dK / dV sum
+# over G) at hd 128, and gemma2-27b's mask at hd 128 (a window that masks,
+# softcap 50)
 FLASH_GENERIC = [
     (1, 129, 129, 4, 2, 16, True, None, None),
     (1, 191, 300, 4, 2, 16, False, None, None),
@@ -572,6 +628,10 @@ FLASH_GENERIC = [
     (1, 200, 200, 4, 1, 256, True, None, None),
     (1, 300, 300, 4, 2, 256, True, 128, None),
     (2, 96, 96, 2, 1, 256, False, 40, 30.0),
+    (1, 256, 256, 10, 2, 128, True, None, None),
+    (1, 192, 192, 7, 1, 128, True, None, None),
+    (1, 320, 320, 9, 1, 128, True, None, 50.0),
+    (1, 640, 640, 4, 2, 128, True, 256, 50.0),
 ]
 # (B, S, H, P, N, Q): tests/test_kernels.py's cases, head width 16, a ragged
 # Q, 5 heads (one past the kernel's group of 4), N off a multiple of 4, and
@@ -594,6 +654,19 @@ GMM_GENERIC = [(4, 64, 96, 80, "none"), (2, 128, 256, 128, "silu"),
 # forward kernel's cp.async route; the backward's cases too
 RGLRU_GENERIC = [(2, 64, 128), (1, 100, 48), (3, 256, 512), (2, 1, 300),
                  (1, 192, 1000), (2, 77, 75), (3, 130, 96, 1)]
+
+
+def _mem_available() -> int | None:
+    """The host's MemAvailable in bytes (``/proc/meminfo``), None where
+    there is no such file."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
 
 
 def _smi(query: str) -> str:
@@ -656,13 +729,16 @@ def _device_events(fn) -> tuple[float, dict, collections.Counter]:
     kernel name, device events by kernel name).  The profiler can miss the
     device events at the edges of its window (on an H100 it recorded 18 of
     20 launches of one kernel, each time), so ``fn`` runs between two runs
-    of PAD_KERNEL launches, which are left out of the counts."""
+    of PAD_KERNEL launches, which are left out of the counts.  It records
+    the CUDA activity alone: the host's op events are never read, and with
+    them this smoke's kernel phase on an H100 took 381.6 s and timed 307
+    windows again, against 166.5 s and 15 without (on a host slower by
+    1.3-1.7 times in every other phase; PERF.md)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _pad()
         t0 = time.perf_counter()
         fn()
@@ -778,11 +854,13 @@ def time_minplus_matmul(mp, device, row: dict) -> None:
     """The min-plus product timed at EXTRA_SHAPE, into its ``row``."""
     extra = ((EXTRA_SHAPE[0],),) + EXTRA_SHAPE[1:]
     a, b = _random_pairs(torch.Generator().manual_seed(4), extra, device)[0]
-    ms = _kernel_device_ms(lambda: mp.minplus_matmul(a, b), 200,
-                           "minplus_kernel")
-    plain = _kernel_device_ms(lambda: mp.minplus_reference(a, b), 200, None)
-    held = _held_queue_ms(lambda: mp.minplus_matmul(a, b), 200)
     bound, by, n_bytes = _bound_ms(extra)
+    ms = _kernel_device_ms(lambda: mp.minplus_matmul(a, b), 200,
+                           "minplus_kernel", bound)
+    plain = _kernel_device_ms(lambda: mp.minplus_reference(a, b), 200, None,
+                              bound)
+    held = _over_bound(_held_queue_ms(lambda: mp.minplus_matmul(a, b), 200),
+                       bound, "minplus_matmul on a held stream")
     print(f"minplus_matmul {extra} float64 (off the paths): device time per "
           f"launch (torch.profiler) kernel {ms!r} ms, plain {plain!r} ms; "
           f"kernel on a held stream (CUDA events) {held!r} ms; bound "
@@ -820,7 +898,19 @@ def _held_queue_ms(fn, calls) -> float:
                          f"than a hold of {cycles // 4} cycles")
 
 
-def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
+def _over_bound(ms: float, bound_ms: float | None, what: str) -> float:
+    """``ms``, raising where it is under ``bound_ms``: no timing of the
+    same work can beat its bound (the card's peak rates, which no reading
+    on an H100 has come nearer than 0.95 of), so such a reading is a
+    timing at fault."""
+    if bound_ms is not None and ms < bound_ms:
+        raise AssertionError(f"{what} timed at {ms!r} ms, under its bound "
+                             f"{bound_ms!r} ms")
+    return ms
+
+
+def _kernel_device_ms(fn, calls, must_see: str | None,
+                      bound_ms: float | None = None) -> float:
     """Device time per call of ``fn`` under ``torch.profiler``, summed over
     every device kernel (or only those whose name holds ``must_see``).
     Every call launches the same kernels, so a window with no device event
@@ -840,7 +930,11 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
     counts a multiple of ``calls`` (the likely reason an H100 run read
     ``torch.bmm``, a memset and a GEMM a call, at half its time): such a
     window is read only
-    when the window before it saw the same events, kernel by kernel."""
+    when the window before it saw the same events, kernel by kernel.  A
+    window that reads under ``bound_ms``, the least time of the work, lost
+    events too (an H100 run read SDPA at 0.91 of its bound, and the expert
+    matmul at 0.65, windows whose counts were whole), and the held stream's
+    reading is held to it as well (``_over_bound``)."""
     what = must_see or "the plain version"
     matched = any_events = False
     most = 0  # the most events of ``what`` a window saw
@@ -861,6 +955,11 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
             whole, before = counts == before, counts
             if not whole:
                 continue
+        if whole and bound_ms is not None and us / calls / 1e3 < bound_ms:
+            print(f"profiler: {what} read {us / calls / 1e3!r} ms a call, "
+                  f"under its bound {bound_ms!r} ms: events lost, timed "
+                  f"again")
+            continue
         if whole:
             return us / calls / 1e3
         print(f"profiler: {events} device events of {what} over {calls} "
@@ -875,7 +974,7 @@ def _kernel_device_ms(fn, calls, must_see: str | None) -> float:
           f"{PROFILE_WINDOWS} windows: timed by CUDA events on a held "
           f"stream instead, {held_calls} calls of {per_call} launches, "
           f"{ms!r} ms per call")
-    return ms
+    return _over_bound(ms, bound_ms, f"{what} on a held stream")
 
 
 def _kernel_work():
@@ -968,12 +1067,13 @@ def check_scan_path(mp, device, recorded, launches_by_path: dict,
     rows = {}
     for s in order:
         ops = _scan_cases(gen, s, device)[0]
-        ms = _kernel_device_ms(lambda: mp.minplus_scan(*ops), 200,
-                               "minplus_scan")
-        plain = _kernel_device_ms(lambda: mp.minplus_scan_reference(*ops),
-                                  200, None)
-        held = _held_queue_ms(lambda: mp.minplus_scan(*ops), 200)
         bound, by, n_ops, n_bytes = _scan_bound(s)
+        ms = _kernel_device_ms(lambda: mp.minplus_scan(*ops), 200,
+                               "minplus_scan", bound)
+        plain = _kernel_device_ms(lambda: mp.minplus_scan_reference(*ops),
+                                  200, None, bound)
+        held = _over_bound(_held_queue_ms(lambda: mp.minplus_scan(*ops), 200),
+                           bound, "minplus_scan on a held stream")
         rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
                    "plain_ms": plain, "held_ms": held, "bound_ms": bound,
                    "bound_by": by, "library_ms": None,
@@ -1995,11 +2095,13 @@ def _ssd_rejects_wrong_outputs(ssd, args) -> None:
 
 def _gmm_operands(gen, shape, device):
     """x and w of an expert matmul at ``(E, C, D, F, activation)`` in bf16,
-    w scaled by D^-1/2 (outputs of order 1), with the activation as kw."""
+    w scaled by D^-1/2 (outputs of order 1), with the activation as kw;
+    drawn on the generator's device."""
     E, C, D, F_, act = shape
-    x = torch.randn((E, C, D), generator=gen).to(device, torch.bfloat16)
-    w = (torch.randn((E, D, F_), generator=gen) * D ** -0.5).to(
+    x = torch.randn((E, C, D), generator=gen, device=gen.device).to(
         device, torch.bfloat16)
+    w = (torch.randn((E, D, F_), generator=gen, device=gen.device)
+         * D ** -0.5).to(device, torch.bfloat16)
     return (x, w), {"activation": act}
 
 
@@ -2742,15 +2844,65 @@ def check_generic(mods, device) -> dict:
             "generic")}
 
 
+def _call_bytes(call) -> int:
+    """The bytes of the tensors of one recorded call ``(args, kw)``."""
+    args, kw = call
+    return sum(a.numel() * a.element_size() for a in (*args, *kw.values())
+               if torch.is_tensor(a))
+
+
+def _big(calls) -> bool:
+    """Whether a shape's recorded operand sets pass RECORDED_BYTES_CAP."""
+    return _call_bytes(calls[0]) > RECORDED_BYTES_CAP
+
+
+# host copies of the tensors of operand sets past RECORDED_BYTES_CAP, by
+# the id of the tensor copied: an expert weight recorded by path 2 and again
+# by path 7 is copied once, and path 2's card-vs-CPU check takes it from
+# here (``_on_host``); an entry goes with its tensor
+_HOST_COPIES: dict = {}
+
+
+def _known_copy(a):
+    """``a``'s host copy made by ``_host_copy``, if ``a`` has one and has
+    not changed since, else None."""
+    hit = _HOST_COPIES.get(id(a))
+    if hit is not None and hit[0]() is a and hit[1] == a._version:
+        return hit[2]
+    return None
+
+
+def _on_host(t):
+    """``t`` on the host: its ``_host_copy`` where it has one (arctic-480b's
+    expert weights, recorded by path 2 before its card-vs-CPU check), else
+    ``t.cpu()``."""
+    known = _known_copy(t)
+    return t.cpu() if known is None else known
+
+
+def _host_copy(a):
+    """``a`` detached and copied to the host, once while ``a`` lives
+    unchanged."""
+    known = _known_copy(a)
+    if known is not None:
+        return known
+    copy = a.detach().to("cpu", copy=True)
+    _HOST_COPIES[id(a)] = (weakref.ref(a, lambda _, k=id(a):
+                                       _HOST_COPIES.pop(k, None)),
+                           a._version, copy)
+    return copy
+
+
 @contextlib.contextmanager
 def record_calls(module, name: str, key_fn, device=None,
                  keep: int = RECORDED_OPERANDS):
     """Record every call of ``module.<name>`` inside the block: a count per
     ``key_fn(*args, **kw)`` and up to ``keep`` clones of its operands per
     key (tensors among its keyword arguments too), detached from any
-    autograd graph (copied to ``device`` where it is given).  The recorder
-    calls the function it replaced, so the wrappers' launch counts are
-    untouched."""
+    autograd graph (copied to ``device`` where it is given); a key whose
+    operands pass RECORDED_BYTES_CAP keeps one set, copied to the host
+    (``_host_copy``).  The recorder calls the function it replaced, so the
+    wrappers' launch counts are untouched."""
     shapes: collections.Counter = collections.Counter()
     operands: dict = collections.defaultdict(list)
     wrapped = getattr(module, name)
@@ -2758,10 +2910,14 @@ def record_calls(module, name: str, key_fn, device=None,
     def recorder(*args, **kw):
         key = key_fn(*args, **kw)
         shapes[key] += 1
-        if len(operands[key]) < keep:
+        big = _call_bytes((args, kw)) > RECORDED_BYTES_CAP
+        if len(operands[key]) < (1 if big else keep):
             def clone(a):
-                return (a.detach().to(device or a.device, copy=True)
-                        if torch.is_tensor(a) else a)
+                if not torch.is_tensor(a):
+                    return a
+                if big:
+                    return _host_copy(a)
+                return a.detach().to(device or a.device, copy=True)
             operands[key].append((tuple(map(clone, args)),
                                   {k: clone(v) for k, v in kw.items()}))
         return wrapped(*args, **kw)
@@ -2913,21 +3069,30 @@ def _moe_gate(got, own, replayed, card_routes, cpu_routes, rows: int,
     return line
 
 
-def _check_on_cpu(name, cfg, params, tokens, pos) -> None:
+def _check_on_cpu(name, cfg, params, tokens, pos,
+                  layers: int | None = None) -> None:
     """The first two groups at S = CHECK_SEQ on the card (kernels) against
     the same groups on the CPU (plain versions), within CHECK_TOL of the
-    largest magnitude.  Where they hold MoE layers the CPU runs twice, with
-    its own routing and with the card's expert picks replayed, and
-    ``_moe_gate`` holds every token."""
+    largest magnitude; the first ``layers`` layers instead where given (a
+    narrowed gate, printed as such).  Where they hold MoE layers the CPU
+    runs twice, with its own routing and with the card's expert picks
+    replayed, and ``_moe_gate`` holds every token."""
     from repro_torch.models import layers as ML
     from repro_torch.models import transformer as MT
 
     n = 2 * len(cfg.pattern)
+    if layers is not None:
+        print(f"{name}: the card-vs-CPU check narrowed to the first "
+              f"{layers} of the {n} layers of two pattern repetitions "
+              f"({cfg.n_layers} layers on the card): those are copied to "
+              f"the host and run there through the plain versions")
+        n = layers
     sub = {"layers": params["stack"]["layers"][:n]}
     x = MT.embed_tokens(params, cfg, tokens[:, :CHECK_SEQ])
     ctx = ML.Ctx(mode="prefill", positions=pos[:, :CHECK_SEQ])
-    cpu_sub = MT.tree_map(lambda t: t.cpu(), sub)
+    cpu_sub = MT.tree_map(_on_host, sub)
     cpu_ctx = ML.Ctx(mode="prefill", positions=ctx.positions.cpu())
+    copied = _mem_available()
     t0 = time.perf_counter()
     with record_routes() as card_routes:
         on_card, _, _ = MT.apply_stack(sub, cfg, n, cfg.pattern, x, ctx,
@@ -2955,7 +3120,8 @@ def _check_on_cpu(name, cfg, params, tokens, pos) -> None:
         line = f"{err!r} of the largest magnitude (limit {CHECK_TOL})"
     print(f"{name}: first {n} blocks at S {CHECK_SEQ}, card (kernels) vs CPU "
           f"(plain versions) in {cfg.compute_dtype}: {line}, in "
-          f"{time.perf_counter() - t0!r} s")
+          f"{time.perf_counter() - t0!r} s; host MemAvailable {copied} B "
+          f"with their {storage_bytes(cpu_sub)} B of weights on it")
 
 
 def run_model_path(name: str, mods: dict, device) -> dict:
@@ -3043,10 +3209,11 @@ def run_model_path(name: str, mods: dict, device) -> dict:
         raise AssertionError(f"{name}: the chain's hidden state differs from "
                              f"apply_stack by up to "
                              f"{float((h.float() - mono.float()).abs().max())}")
+    peak = torch.cuda.max_memory_allocated()
     print(f"{name}: chain's hidden state == monolithic apply_stack on the card "
           f"(max |h| {float(h.float().abs().max())!r}); peak device memory "
-          f"{torch.cuda.max_memory_allocated()} B")
-    _check_on_cpu(name, cfg, params, tokens, pos)
+          f"{peak} B")
+    _check_on_cpu(name, cfg, params, tokens, pos, spec.check_layers)
     del sim, out, warm, h, mono
     torch.cuda.empty_cache()
     pipeline = run_pipeline_path(name, cfg, params, PIPELINE[name], mods,
@@ -3074,9 +3241,11 @@ def run_model_path(name: str, mods: dict, device) -> dict:
     elif name in TRAIN:
         pipeline_train = run_pipeline_train_path(name, cfg, TRAIN[name],
                                                  mods, device, train)
-    return {"launches": launches, "recorded": recorded, "serve": serve,
-            "train": train, "pipeline": pipeline,
-            "pipeline train": pipeline_train}
+    out = {"launches": launches, "recorded": recorded, "serve": serve,
+           "train": train, "pipeline": pipeline,
+           "pipeline train": pipeline_train, "peak_bytes": peak}
+    settle_big_shapes(mods, out, device)
+    return out
 
 
 def serve_prompts(traffic: ServeTraffic, vocab: int) -> list:
@@ -4230,6 +4399,10 @@ PIPELINE = {
     "mamba2-370m": PipeTraffic(2, 2048),
     "qwen3-moe-30b-a3b": PipeTraffic(2, 2048),
     "recurrentgemma-9b": PipeTraffic(2, 4096),
+    "gemma2-27b": PipeTraffic(2, 8192),
+    "arctic-480b": PipeTraffic(2, 2048),
+    "qwen3-14b": PipeTraffic(2, 2048),
+    "starcoder2-7b": PipeTraffic(2, 2048),
 }
 LAUNCH_ARCH = "qwen2-1.5b"  # the launchers' model, at --reduced
 
@@ -4734,7 +4907,7 @@ def _cross_check_on_cpu(name, cfg, params, tokens, memory) -> str:
 
     t0 = time.perf_counter()
     sub, sub_cfg = _cross_sub(params, cfg, SERVE_CHECK_DEPTH)
-    cpu_sub = MT.tree_map(lambda t: t.cpu(), sub)
+    cpu_sub = MT.tree_map(_on_host, sub)
     toks, mem = tokens[:CROSS_CHECK_ROWS], memory[:CROSS_CHECK_ROWS]
     B, S = toks.shape
     pos = torch.arange(S).expand(B, S)
@@ -5431,81 +5604,157 @@ KERNELS = {
 }
 
 
+class Settled(NamedTuple):
+    """A recorded shape past RECORDED_BYTES_CAP, checked and timed on the
+    card at the end of its model's turn (``settle_big_shapes``),
+    its operands dropped: its row of the kernels line, its max_abs_err and
+    its float64 witness (a backward kernel's, else None)."""
+    row: dict
+    err: float
+    witness: dict | None
+
+
+def _shape_row(name: str, mod, s, call, launches: int) -> dict:
+    """One recorded shape of a kernel timed on its operands ``call``
+    (``(args, kw)`` on the card): the kernel, its plain version, a held
+    stream, under grad where the kernel is so timed, its library yardstick
+    and its same-bytes call, beside its bound; printed and returned as its
+    row of the kernels line."""
+    spec = KERNELS[name]
+    args, kw = call
+    wrapper, plain = getattr(mod, spec.wrapper), getattr(mod, spec.plain)
+    bound, by, n_ops, n_bytes = spec.bound(s)
+    ms = _kernel_device_ms(lambda: wrapper(*args, **kw), 20, spec.profiled,
+                           bound)
+    plain_ms = _kernel_device_ms(lambda: plain(*args, **kw), 20, None, bound)
+    held_ms = _over_bound(_held_queue_ms(lambda: wrapper(*args, **kw), 20),
+                          bound, f"{name} {s} on a held stream")
+    grad_ms = None
+    if spec.grad_timed:
+        leaf = args[0].detach().requires_grad_()
+
+        def under_grad():
+            with torch.enable_grad():
+                return wrapper(leaf, *args[1:], **kw)
+
+        grad_ms = _kernel_device_ms(under_grad, 20, spec.profiled, bound)
+        print(f"{name} {s}: device time per launch as the forward under "
+              f"grad launches it (the first operand requiring grad) "
+              f"{grad_ms!r} ms")
+    library = spec.library(args, kw)
+    library_ms = None
+    if library is not None:
+        lib_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(_tuple(library()),
+                                      _tuple(plain(*args, **kw))))
+        library_ms = _kernel_device_ms(library, 20, None, bound)
+        print(f"{name} {s}: library yardstick (never called by the port) "
+              f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
+    same_bytes = spec.same_bytes(args, kw)
+    same_ms = None
+    if same_bytes is not None:
+        same_ms = _kernel_device_ms(same_bytes, 20, None)
+        print(f"{name} {s}: the same bytes without the work "
+              f"{same_ms!r} ms: {bound / same_ms!r} of the bound")
+    rate, share = n_ops / (ms * 1e-3), bound / ms
+    byte_rate = n_bytes / (ms * 1e-3)
+    row = {"shape": list(s), "launches": launches, "ms": ms,
+           "plain_ms": plain_ms, "held_ms": held_ms,
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms, "ops_per_s": rate,
+           "bytes_per_s": byte_rate, "bound_share": share,
+           **({"grad_ms": grad_ms} if grad_ms is not None else {}),
+           **({"same_bytes_ms": same_ms} if same_ms is not None else {})}
+    fp32 = spec.fp32_bound(s)
+    if fp32 is not None:
+        row.update(fp32_bound_ms=fp32[0], fp32_bound_by=fp32[1],
+                   fp32_bound_share=fp32[0] / ms)
+        print(f"{name} {s}: the same work at the fp32 rate outside the "
+              f"tensor cores would take {fp32[0]!r} ms by {fp32[1]}: "
+              f"{fp32[0] / ms!r} of the kernel's time")
+    print(f"{name} {s}, {launches} launches on paths 2-3: device time "
+          f"per launch (torch.profiler) kernel {ms!r} ms, plain "
+          f"{plain_ms!r} "
+          f"ms, library {library_ms!r} ms; kernel on a held stream "
+          f"(CUDA events) {held_ms!r} ms; bound {bound!r} ms by {by} "
+          f"({n_ops} operations, {n_bytes} B); achieved "
+          f"{rate / 1e12!r} T operations/s, {byte_rate / 1e12!r} TB/s, "
+          f"{share!r} of the bound")
+    return row
+
+
+def _settle(name: str, mod, s, calls, launches: int, device) -> Settled:
+    """A shape past RECORDED_BYTES_CAP alone: its operands moved to the
+    card, the kernel checked on them and on random ones drawn there, then
+    timed (``_shape_row``), and the card's copies freed."""
+    spec = KERNELS[name]
+    cases = _moved(calls, device)
+    err, witness = spec.check(mod, cases, [spec.random_operands(
+        torch.Generator(device=device).manual_seed(3), s, cases[0][1],
+        device)])
+    print(f"{name} {s}: {_call_bytes(cases[0])} B of operands, past "
+          f"RECORDED_BYTES_CAP ({RECORDED_BYTES_CAP} B): moved to the card, "
+          f"checked and timed alone")
+    row = _shape_row(name, mod, s, cases[0], launches)
+    del cases
+    torch.cuda.empty_cache()
+    return Settled(row, err, witness)
+
+
+def settle_big_shapes(mods: dict, run, device) -> None:
+    """Every shape of the records in a path's result (nested dicts, walked
+    as ``park`` walks them) whose operands pass RECORDED_BYTES_CAP checked
+    and timed now (``_settle``) and replaced by its ``Settled``, in place:
+    the host keeps none of them to the kernel phase (arctic-480b's three
+    expert weights are 26.8 GB)."""
+    if not isinstance(run, dict):
+        return
+    for key, value in run.items():
+        if key != "recorded":
+            settle_big_shapes(mods, value, device)
+            continue
+        for k, (shapes, operands) in value.items():
+            if KERNELS[k].check is None:
+                continue
+            for s, calls in operands.items():
+                if not isinstance(calls, Settled) and _big(calls):
+                    operands[s] = _settle(k, mods[_module(k)], s, calls,
+                                          shapes[s], device)
+
+
 def check_model_path(name: str, mod, recorded, launches_by_path: dict,
                      generic_err: float, device) -> dict:
     """Phase 6 for a kernel of paths 2 and 3: the kernel against its plain
     version at every shape they launched (recorded operands and random ones),
-    then each shape timed.  Returns the kernels-line entry: the numbers of
-    the shape with the most launches, and every shape's under ``shapes``."""
+    then each shape timed; a shape past RECORDED_BYTES_CAP comes settled in
+    its model's turn (``settle_big_shapes``), and one that does not
+    raises.  Returns the kernels-line entry: the numbers of the shape with
+    the most launches, and every shape's under ``shapes``."""
     spec = KERNELS[name]
     shapes, operands = recorded
     gen = torch.Generator().manual_seed(3)
     order = sorted(shapes, key=lambda s: (-shapes[s], str(s)))
+    alone = [s for s in order if isinstance(operands[s], Settled)]
+    unsettled = [s for s in order if s not in alone and _big(operands[s])]
+    if unsettled:
+        raise AssertionError(f"{name}: shapes past RECORDED_BYTES_CAP that "
+                             f"no turn settled: {unsettled}")
+    together = [s for s in order if s not in alone]
+    for s in together:
+        operands[s] = _moved(operands[s], device)
     err, witness = spec.check(
-        mod, [case for s in order for case in operands[s]],
+        mod, [case for s in together for case in operands[s]],
         [spec.random_operands(gen, s, operands[s][0][1], device)
-         for s in order])
+         for s in together]) if together else (0.0, None)
     rows = {}
     for s in order:
-        args, kw = operands[s][0]
-        wrapper, plain = getattr(mod, spec.wrapper), getattr(mod, spec.plain)
-        ms = _kernel_device_ms(lambda: wrapper(*args, **kw), 20,
-                               spec.profiled)
-        plain_ms = _kernel_device_ms(lambda: plain(*args, **kw), 20, None)
-        held_ms = _held_queue_ms(lambda: wrapper(*args, **kw), 20)
-        grad_ms = None
-        if spec.grad_timed:
-            leaf = args[0].detach().requires_grad_()
-
-            def under_grad():
-                with torch.enable_grad():
-                    return wrapper(leaf, *args[1:], **kw)
-
-            grad_ms = _kernel_device_ms(under_grad, 20, spec.profiled)
-            print(f"{name} {s}: device time per launch as the forward under "
-                  f"grad launches it (the first operand requiring grad) "
-                  f"{grad_ms!r} ms")
-        bound, by, n_ops, n_bytes = spec.bound(s)
-        library = spec.library(args, kw)
-        library_ms = None
-        if library is not None:
-            lib_err = max(float((a.float() - b.float()).abs().max())
-                          for a, b in zip(_tuple(library()),
-                                          _tuple(plain(*args, **kw))))
-            library_ms = _kernel_device_ms(library, 20, None)
-            print(f"{name} {s}: library yardstick (never called by the port) "
-                  f"{library_ms!r} ms, max_abs_err vs plain {lib_err!r}")
-        same_bytes = spec.same_bytes(args, kw)
-        same_ms = None
-        if same_bytes is not None:
-            same_ms = _kernel_device_ms(same_bytes, 20, None)
-            print(f"{name} {s}: the same bytes without the work "
-                  f"{same_ms!r} ms: {bound / same_ms!r} of the bound")
-        rate, share = n_ops / (ms * 1e-3), bound / ms
-        byte_rate = n_bytes / (ms * 1e-3)
-        rows[s] = {"shape": list(s), "launches": shapes[s], "ms": ms,
-                   "plain_ms": plain_ms, "held_ms": held_ms,
-                   "bound_ms": bound, "bound_by": by,
-                   "library_ms": library_ms, "ops_per_s": rate,
-                   "bytes_per_s": byte_rate, "bound_share": share,
-                   **({"grad_ms": grad_ms} if grad_ms is not None else {}),
-                   **({"same_bytes_ms": same_ms} if same_ms is not None
-                      else {})}
-        fp32 = spec.fp32_bound(s)
-        if fp32 is not None:
-            rows[s].update(fp32_bound_ms=fp32[0], fp32_bound_by=fp32[1],
-                           fp32_bound_share=fp32[0] / ms)
-            print(f"{name} {s}: the same work at the fp32 rate outside the "
-                  f"tensor cores would take {fp32[0]!r} ms by {fp32[1]}: "
-                  f"{fp32[0] / ms!r} of the kernel's time")
-        print(f"{name} {s}, {shapes[s]} launches on paths 2-3: device time "
-              f"per launch (torch.profiler) kernel {ms!r} ms, plain "
-              f"{plain_ms!r} "
-              f"ms, library {library_ms!r} ms; kernel on a held stream "
-              f"(CUDA events) {held_ms!r} ms; bound {bound!r} ms by {by} "
-              f"({n_ops} operations, {n_bytes} B); achieved "
-              f"{rate / 1e12!r} T operations/s, {byte_rate / 1e12!r} TB/s, "
-              f"{share!r} of the bound")
+        if s not in alone:
+            rows[s] = _shape_row(name, mod, s, operands[s][0], shapes[s])
+            continue
+        done = operands[s]
+        rows[s] = dict(done.row, launches=shapes[s])
+        err, witness = max(err, done.err), _merge_witness(witness,
+                                                          done.witness)
     top = rows[order[0]]
     return {"name": name, "route": "cuda", "source": spec.source,
             "replaces": spec.replaces,
@@ -5527,20 +5776,38 @@ def _merge(recorded: list) -> tuple:
     return shapes, operands
 
 
+def _moved(calls, device) -> list:
+    """Recorded calls ``[(args, kw), ...]`` with their tensors on
+    ``device``."""
+    def to(a):
+        return a.to(device) if torch.is_tensor(a) else a
+
+    return [(tuple(map(to, args)), {k: to(v) for k, v in kw.items()})
+            for args, kw in calls]
+
+
 def _operands_to(recorded, device) -> tuple:
     """One kernel's recorded calls (``(shapes, operands)``, as
     ``record_calls`` yields them) with their operands moved to ``device``,
     in place; returns the record."""
     _, operands = recorded
-
-    def to(a):
-        return a.to(device) if torch.is_tensor(a) else a
-
     for key, calls in operands.items():
-        operands[key] = [(tuple(map(to, args)),
-                          {k: to(v) for k, v in kw.items()})
-                         for args, kw in calls]
+        if not isinstance(calls, Settled):
+            operands[key] = _moved(calls, device)
     return recorded
+
+
+def _merge_witness(a: dict | None, b: dict | None) -> dict | None:
+    """Two float64 witness summaries (``_witness_summary``'s) as one: by
+    gradient, the reading nearest its limit."""
+    if not (a and b):
+        return a or b
+    out = dict(a)
+    for name, r in b.items():
+        if name not in out or r["kernel"] / r["limit"] > \
+                out[name]["kernel"] / out[name]["limit"]:
+            out[name] = r
+    return out
 
 
 def park(run, device="cpu") -> None:
@@ -6288,8 +6555,17 @@ def run_phases(C, TS, lint: Lint, t_start: float) -> int:
     for run in (path, stack, sweep):
         park(run)
     for name in MODELS:
+        before = _mem_available()
         by_model[name] = phase(name, run_model_path, name, mods, device)
         park(by_model[name])
+        res = by_model[name]
+        peaks = {path: run["peak_bytes"] for path, run in (
+            ("path 2", res), ("path 7", res["pipeline"]),
+            ("path 3", res["serve"]), ("path 4", res["train"]))
+            if run and "peak_bytes" in run}
+        print(f"{name}: its turn in {walls[name]!r} s on {card}; peak device "
+              f"memory (B) {peaks}; host MemAvailable {before} B before it, "
+              f"{_mem_available()} B after")
         t_pipe += by_model[name]["pipeline"]["seconds"] + (
             by_model[name]["pipeline train"] or {}).get("seconds", 0.0)
     launchers = phase("launchers", run_launch_path, mods, device)
@@ -6365,8 +6641,7 @@ def run_phases(C, TS, lint: Lint, t_start: float) -> int:
                 runs.append((f"cross train/{m}", res["train"]))
         kernels.append(check_model_path(
             kernel, mods[_module(kernel)],
-            _operands_to(_merge([run["recorded"][kernel] for _, run in runs]),
-                         device),
+            _merge([run["recorded"][kernel] for _, run in runs]),
             {path: run["launches"][kernel] for path, run in runs},
             generic_new[kernel], device))
         print(f"clocks after the {kernel} timings (sm, max sm, "

@@ -82,10 +82,13 @@ def pdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _dense_init(gen: torch.Generator, shape, dtype, scale=None):
+    """A float32 normal draw scaled in place (one float32 copy beside the
+    result: arctic-480b's experts are 17.8 GB a weight in float32), then
+    cast to ``dtype``."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    x = torch.randn(shape, generator=gen, device=gen.device) * scale
-    return x.to(dtype)
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return x.mul_(scale).to(dtype)
 
 
 def _zeros(gen: torch.Generator, shape, dtype):

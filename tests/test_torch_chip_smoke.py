@@ -1,11 +1,13 @@
 """chip_smoke.py's checks on the CPU: the rule for profiler windows (with a
 stand-in profiler, a window that lost device events is never read, the
 next one is, and when every window lost events the calls are timed on a
-held stream), SSD's bound, SSD's witness against wrong outputs, the
+held stream; a reading under its bound is never reported), SSD's bound, SSD's witness against wrong outputs, the
 card-vs-CPU gate of the MoE models on a hand-made routing, the fused
 min-plus scan's bound, path 1's recording and host split rehearsed on the
-CPU, and path 3 (serving) rehearsed on the CPU at reduced size, with two
-wrong decodes its teacher-forced gate must reject."""
+CPU, path 3 (serving) rehearsed on the CPU at reduced size, with two
+wrong decodes its teacher-forced gate must reject, and path 2 of the four
+configs added last (gemma2-27b, arctic-480b, qwen3-14b, starcoder2-7b) with
+the cap on recorded operand sets."""
 from __future__ import annotations
 
 import collections
@@ -16,6 +18,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -98,6 +101,66 @@ def test_the_held_stream_fallback_keeps_its_queue_short(monkeypatch, capsys,
     assert taken == [want_calls]
     assert f"{want_calls} calls of {per_call} launches" in \
         capsys.readouterr().out
+
+
+BOUND_MS = 2.0e-3  # the least time of the stand-in work: 2 us a call
+
+
+@pytest.mark.parametrize("windows, must_see, held, want", [
+    ([_window(1.0, CALLS), _window(2.5, CALLS)], KERNEL, 7.5, 2.5e-3),
+    ([_window(0.5, CALLS, other=CALLS)] * 2
+     + [_window(2.5, CALLS, other=CALLS)], None, 7.5, 3.5e-3),
+    ([_window(1.0, CALLS)] * cs.PROFILE_WINDOWS, KERNEL, 7.5, 7.5),
+    ([_window(1.0, CALLS)] * cs.PROFILE_WINDOWS, KERNEL, 1.0e-3, "raises"),
+], ids=["half-then-whole", "half-then-whole-plain", "all-half-held",
+        "held-under-bound"])
+def test_a_reading_under_its_bound_is_never_reported(monkeypatch, capsys,
+                                                     windows, must_see,
+                                                     held, want):
+    """A window whose events are whole but read half the work's least time
+    lost events too: it is timed again, the held stream is used when every
+    window so reads, and a held stream under the bound raises."""
+    left = list(windows)
+    monkeypatch.setattr(cs, "_device_events", lambda fn: left.pop(0))
+    monkeypatch.setattr(cs, "_held_queue_ms", lambda fn, calls: held)
+    if want == "raises":
+        with pytest.raises(AssertionError, match="under its bound"):
+            cs._kernel_device_ms(lambda: None, CALLS, must_see, BOUND_MS)
+        return
+    got = cs._kernel_device_ms(lambda: None, CALLS, must_see, BOUND_MS)
+    assert got == pytest.approx(want) and got >= BOUND_MS
+    assert not left
+    assert "under its bound" in capsys.readouterr().out
+
+
+def test_every_reading_of_a_shape_row_is_held_to_its_bound(monkeypatch):
+    """``_shape_row`` gives the shape's bound to each timing of the same
+    function (the kernel, its plain version, under grad, the library call)
+    and holds the held stream's reading to it; the same-bytes call, which
+    skips the work, is held to none."""
+    name, spec = "moe_gmm", cs.KERNELS["moe_gmm"]
+    s = (4, 8, 32, 16, "silu")
+    call = spec.random_operands(torch.Generator().manual_seed(0), s, {},
+                                "cpu")
+    bound = spec.bound(s)[0]
+    given = []
+
+    def timed(fn, calls, must_see, bound_ms=None):
+        given.append(bound_ms)
+        return 2 * bound
+
+    monkeypatch.setattr(cs, "_kernel_device_ms", timed)
+    monkeypatch.setattr(cs, "_held_queue_ms", lambda fn, calls: 2 * bound)
+    row = cs._shape_row(name, importlib.import_module(
+        "repro_torch.kernels.moe_gmm"), s, call, 1)
+    n_same = "same_bytes_ms" in row
+    assert given == [bound] * (len(given) - n_same) + [None] * n_same
+    assert len(given) - n_same == 2 + spec.grad_timed + (
+        row["library_ms"] is not None)
+    monkeypatch.setattr(cs, "_held_queue_ms", lambda fn, calls: bound / 2)
+    with pytest.raises(AssertionError, match="held stream"):
+        cs._shape_row(name, importlib.import_module(
+            "repro_torch.kernels.moe_gmm"), s, call, 1)
 
 
 def test_a_name_no_window_saw_raises(monkeypatch):
@@ -383,13 +446,14 @@ def test_host_split_times_each_part_and_restores_the_functions():
 # 12, so that with MoE groups of 16 (``moe_groups``) the prefill's 48
 # tokens are three groups and the forward's 4 x 20 five, as the card's are
 # whole groups of 1,024, and a decode step routes its 4 tokens at C 2;
-# recurrentgemma's 40-token prompt overfills its 32-slot ring, which every
-# decode step wraps
+# recurrentgemma's and gemma2's 40-token prompts overfill their 32-slot
+# rings, which every decode step wraps
 SERVE_REHEARSAL = {
     "qwen2-1.5b": cs.ServeTraffic(2, 20, 32, 16, 48),
     "mamba2-370m": cs.ServeTraffic(2, 20, 32, 16, 48),
     "qwen3-moe-30b-a3b": cs.ServeTraffic(4, 8, 12, 8, 24),
     "recurrentgemma-9b": cs.ServeTraffic(1, 40, 40, 8, 48),
+    "gemma2-27b": cs.ServeTraffic(1, 40, 40, 8, 48),
 }
 
 
@@ -535,6 +599,166 @@ def test_serve_path_rejects_a_wrong_decode(fault, cpu_launches,
         name = "mamba2-370m"
     with pytest.raises(AssertionError, match="teacher-forced"):
         _serve(name, cpu_launches)
+
+
+# ------------------------------------------------- path 2, the last four ---
+# run_model_path for the configs path 2 added last, reduced: gemma2 at B 1
+# x S 64 (past its window of 32; path 3's traffic SERVE_REHEARSAL's),
+# arctic (2 layers, as on the card), qwen3-14b and starcoder2 at B 2 x S
+# 32; the card-vs-CPU check at S 16 (arctic's at its first layer, as on the
+# card), path 7's forward on the same traffic in two microbatches
+MODEL_REHEARSAL = {"gemma2-27b": (1, 64), "arctic-480b": (2, 32),
+                   "qwen3-14b": (2, 32), "starcoder2-7b": (2, 32)}
+
+
+def _wall_ms(fn, *_args) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@pytest.fixture
+def model_rehearsal(cpu_launches, monkeypatch):
+    """The patches run_model_path needs on the CPU: the reduced configs of
+    MODEL_REHEARSAL's models, their traffic, CHECK_SEQ 16, the profiler's
+    chain run timed by the wall, MoE groups of 16 tokens (a microbatch of
+    32 is two, as on the card) and GMM_TILE 16 (the reduced D of 64 is under
+    three tiles); yields the kernels' modules."""
+    monkeypatch.setattr(ML, "MOE_GROUP", 16)
+    monkeypatch.setattr(cs, "GMM_TILE", 16)
+    monkeypatch.setattr(cs, "CHECK_SEQ", 16)
+    monkeypatch.setattr(cs, "_device_us",
+                        lambda fn: (_wall_ms(fn) * 1e3, 0.0, {}))
+    monkeypatch.setattr(cs, "_kernel_device_ms",
+                        lambda fn, calls, must_see, bound_ms=None:
+                        _wall_ms(fn))
+    monkeypatch.setattr(cs, "_held_queue_ms", _wall_ms)
+    for name, (batch, seq) in MODEL_REHEARSAL.items():
+        monkeypatch.setitem(ARCHS, name, ARCHS[name].reduced())
+        monkeypatch.setitem(cs.MODELS, name, cs.MODELS[name]._replace(
+            batch=batch, seq=seq))
+        monkeypatch.setitem(cs.PIPELINE, name, cs.PipeTraffic(2, seq))
+    monkeypatch.setitem(cs.SERVE, "gemma2-27b",
+                        SERVE_REHEARSAL["gemma2-27b"])
+    return cpu_launches
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", list(MODEL_REHEARSAL))
+def test_model_path_of_the_last_configs_rehearsed_on_the_cpu(
+        name, model_rehearsal, capsys):
+    """run_model_path at reduced size, the plain versions standing in for
+    the kernels: every gate of paths 2 and 7 passes (the chain ``==``
+    apply_stack, the card-vs-CPU check, each microbatch ``==`` its
+    forward), and for gemma2 path 3's; the scan and the model's kernels
+    launch, each call recorded, flash once a layer and the expert matmul
+    three times an MoE layer; arctic's card-vs-CPU check is printed as
+    narrowed to its first layer."""
+    run = cs.run_model_path(name, model_rehearsal, "cpu")
+    cfg = ARCHS[name]
+    kinds = MT.layer_kinds(cfg.n_layers, cfg.pattern)
+    assert run["launches"]["minplus_scan"] > 0
+    assert run["launches"]["flash_attention"] == len(kinds)
+    assert run["launches"]["moe_gmm"] == 3 * kinds.count("moe_dense")
+    for k in cs.KERNELS:
+        assert sum(run["recorded"][k][0].values()) == run["launches"][k]
+    assert run["pipeline"]["launches"]["flash_attention"] == \
+        cs.PIPE_MICRO * len(kinds)
+    assert (run["serve"] is not None) == (name == "gemma2-27b")
+    out = capsys.readouterr().out
+    assert "chain's hidden state == monolithic apply_stack" in out
+    assert "pipelined forward == T.forward of each microbatch's rows" in out
+    narrowed = "the card-vs-CPU check narrowed to the first 1 of the 2 layers"
+    assert (narrowed in out) == (name == "arctic-480b")
+    n = 1 if name == "arctic-480b" else 2 * len(cfg.pattern)
+    assert f"{name}: first {n} blocks at S 16" in out
+    if name == "gemma2-27b":
+        assert "the same tokens as the loop" in out
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_operand_cap_keeps_one_host_set_and_times_it_alone(
+        model_rehearsal, monkeypatch, capsys):
+    """With RECORDED_BYTES_CAP below the expert matmul's operand sets and
+    above flash attention's (32 KiB against 42-52 KiB and 16 KiB at
+    reduced size, as arctic-480b's expert products pass it on the card and
+    its attention does not), a recorded shape past it keeps one set,
+    copied to the host, the expert weights that paths 2 and 7 both record
+    copied once and taken from there by the card-vs-CPU check; once the
+    model's weights are freed each such shape is checked and timed alone
+    (``settle_big_shapes``) and its operands dropped, and the kernel phase
+    takes its row as settled."""
+    monkeypatch.setattr(cs, "RECORDED_BYTES_CAP", 2 ** 15)
+    settled, settle = [], cs._settle
+
+    def watched(name, mod, s, calls, launches, device):
+        assert len(calls) == 1
+        assert all(t.device.type == "cpu" for t in calls[0][0])
+        settled.append((name, s, calls[0][0][1]))
+        return settle(name, mod, s, calls, launches, device)
+
+    monkeypatch.setattr(cs, "_settle", watched)
+    hosted = []
+    on_host = cs._on_host
+    monkeypatch.setattr(cs, "_on_host",
+                        lambda t: hosted.append(on_host(t)) or hosted[-1])
+    run = cs.run_model_path("arctic-480b", model_rehearsal, "cpu")
+    assert {name for name, _, _ in settled} == {"moe_gmm"}
+    weights = {}
+    for _, s, w in settled:
+        weights.setdefault(s[1], set()).add(id(w))
+    assert len(weights) == 2  # path 2's C and path 7's
+    assert weights[max(weights)] == weights[min(weights)]  # one host copy
+    assert weights[min(weights)] <= {id(t) for t in hosted}
+    records = [run["recorded"]["moe_gmm"], run["pipeline"]["recorded"][
+        "moe_gmm"]]
+    for _, operands in records:
+        assert all(isinstance(v, cs.Settled) for v in operands.values())
+    out = capsys.readouterr().out
+    n_settled = out.count("checked and timed alone")
+    assert n_settled == len(settled) > 0
+    merged = cs._merge(records)
+    row = cs.check_model_path(
+        "moe_gmm", model_rehearsal["moe_gmm"], merged,
+        {"arctic-480b": run["launches"]["moe_gmm"],
+         "pipeline/arctic-480b": run["pipeline"]["launches"]["moe_gmm"]},
+        0.0, "cpu")
+    assert "checked and timed alone" not in capsys.readouterr().out
+    assert len(row["shapes"]) == len(merged[0])
+    assert [r["launches"] for r in row["shapes"]] == sorted(
+        merged[0].values(), reverse=True)
+    assert row["launches"] == sum(merged[0].values())
+
+
+def test_an_unsettled_shape_past_the_cap_raises(monkeypatch):
+    """The kernel phase takes a shape past RECORDED_BYTES_CAP only as its
+    model's turn settled it: one that arrives with its operands raises."""
+    monkeypatch.setattr(cs, "RECORDED_BYTES_CAP", 2 ** 10)
+    s = (4, 8, 32, 16, "silu")  # 6 KiB of operands
+    call = cs.KERNELS["moe_gmm"].random_operands(
+        torch.Generator().manual_seed(0), s, {}, "cpu")
+    recorded = (collections.Counter({s: 3}), {s: [call]})
+    with pytest.raises(AssertionError, match="no turn settled"):
+        cs.check_model_path("moe_gmm", importlib.import_module(
+            "repro_torch.kernels.moe_gmm"), recorded, {"arctic-480b": 3},
+            0.0, "cpu")
+
+
+def test_new_generic_flash_rows_pass_check_generic(monkeypatch):
+    """The FLASH_GENERIC rows of head groups 5, 7 and 9 and of gemma2-27b's
+    mask through ``check_generic`` on the CPU (forward and backward against
+    the plain versions there; the card holds the kernels to them), the
+    other kernels' lists cut to their first case."""
+    rows = cs.FLASH_GENERIC[-4:]
+    assert [hq // hkv for _, _, _, hq, hkv, *_ in rows[:3]] == [5, 7, 9]
+    assert rows[3][5:] == (128, True, 256, 50.0)
+    monkeypatch.setattr(cs, "FLASH_GENERIC", rows)
+    for name in ("SSD_GENERIC", "GMM_GENERIC", "RGLRU_GENERIC"):
+        monkeypatch.setattr(cs, name, getattr(cs, name)[:1])
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in dict.fromkeys(map(cs._module, cs.KERNELS))}
+    errs = cs.check_generic(mods, "cpu")
+    assert set(errs) >= {"flash_attention", "flash_attention_bwd"}
 
 
 # ------------------------------------------------------------- path 4 ---

@@ -267,6 +267,11 @@ FLASH_CASES = [
     (1, 200, 200, 8, 1, 128, True, None, None),   # G = 8
     (1, 160, 160, 16, 1, 64, True, None, None),   # G = 16
     (1, 256, 256, 16, 1, 256, True, 128, None),   # G = 16 at hd 256
+    # chip_smoke.py's FLASH_GENERIC rows of the configs path 2 added last
+    (1, 256, 256, 10, 2, 128, True, None, None),  # G = 5 (qwen3-14b)
+    (1, 192, 192, 7, 1, 128, True, None, None),   # G = 7 (arctic-480b)
+    (1, 320, 320, 9, 1, 128, True, None, 50.0),   # G = 9 (starcoder2-7b)
+    (1, 640, 640, 4, 2, 128, True, 256, 50.0),    # gemma2-27b's mask
 ]
 
 
@@ -833,6 +838,7 @@ FLASH_BWD_CASES = FLASH_CASES[:6] + [
     (1, 129, 129, 4, 2, 16, True, None, None),    # hd 16, causal
     (1, 191, 300, 4, 2, 16, False, None, None),   # hd 16, Sq != Skv
     (2, 130, 130, 2, 2, 16, True, 40, 30.0),      # hd 16, window, softcap
+    *FLASH_CASES[-4:],  # G 5, 7 and 9, and gemma2-27b's mask, at hd 128
     (2, 448, 1500, 12, 12, 64, False, None, None),  # whisper's cross
 ]
 

@@ -2,10 +2,12 @@
 
 JAX parameters (``repro.models.transformer.init_params``) are carried over
 with ``repro_torch.models.convert.params_from_jax``; then each block kind
-(``attn`` of qwen2-1.5b and qwen3-14b, ``ssd`` of mamba2-370m, ``moe`` of
-qwen3-moe-30b-a3b, ``moe_dense`` of arctic-480b, ``rglru`` of
-recurrentgemma-9b, all reduced) and the whole stack run in both packages on
-the same numpy inputs.  In float32 compute the two agree to 1e-5 of the
+(``attn`` of qwen2-1.5b, qwen3-14b and starcoder2-7b with its biases,
+``local_attn`` and ``attn`` of gemma2-27b with its softcaps, ``ssd`` of
+mamba2-370m, ``moe`` of qwen3-moe-30b-a3b, ``moe_dense`` of arctic-480b,
+``rglru`` of recurrentgemma-9b, all reduced) and the whole stack run in
+both packages on the same numpy inputs; gemma2-27b also past its reduced
+window, and reduced configs at head groups of 5 and 9.  In float32 compute the two agree to 1e-5 of the
 output's largest magnitude (float32 sums in other orders), and every MoE
 layer routes every token alike: that is the check of the algorithm.
 
@@ -35,6 +37,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -54,9 +58,11 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # one block
 TOL_STACK = {"float32": 1e-5, "bfloat16": 5e-2}  # several blocks
 BLOCKS = [("qwen2-1.5b", "attn"), ("qwen3-14b", "attn"),
           ("mamba2-370m", "ssd"), ("qwen3-moe-30b-a3b", "moe"),
-          ("arctic-480b", "moe_dense"), ("recurrentgemma-9b", "rglru")]
+          ("arctic-480b", "moe_dense"), ("recurrentgemma-9b", "rglru"),
+          ("gemma2-27b", "local_attn"), ("gemma2-27b", "attn"),
+          ("starcoder2-7b", "attn")]
 STACKS = ["qwen2-1.5b", "mamba2-370m", "qwen3-14b", "qwen3-moe-30b-a3b",
-          "arctic-480b", "recurrentgemma-9b"]
+          "arctic-480b", "recurrentgemma-9b", "gemma2-27b", "starcoder2-7b"]
 B, S = 2, 16  # the sizes of tests/test_simulator.py
 
 
@@ -270,6 +276,62 @@ def test_stack_and_forward_match_jax(arch, compute_dtype, monkeypatch):
         TOL_STACK[compute_dtype]
 
 
+def _stack_logits(jcfg, cfg, seq: int, seed: int = 2):
+    """The stack and the last position's logits of both packages over
+    (B, seq) tokens: (port's hidden, JAX's hidden, port's logits, JAX's
+    logits), the JAX ones as numpy."""
+    jp, tp = _params(jcfg, cfg)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (B, seq))
+    pos = np.broadcast_to(np.arange(seq), (B, seq))
+    hid_j, _, _ = JT.forward(jp, jcfg, jnp.asarray(tokens, jnp.int32),
+                             JL.Ctx(mode="prefill",
+                                    positions=jnp.asarray(pos, jnp.int32)))
+    hid_t, _, _ = T.forward(tp, cfg, torch.from_numpy(tokens),
+                            L.Ctx(mode="prefill",
+                                  positions=torch.from_numpy(pos.copy())))
+    return (hid_t, hid_j, T.logits_last(tp, cfg, hid_t),
+            np.asarray(JT.logits_last(jp, jcfg, hid_j)))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gemma2_past_its_window_matches_jax(compute_dtype):
+    """gemma2-27b reduced (window 32) at S 64: its local layers' window
+    masks the first half of the keys of the last positions, and the final
+    softcap of 30 shapes the logits.  The stack and the last position's
+    logits within the stack's tolerance of the JAX package's; the same
+    model without its window gives other hidden states (so the window did
+    mask), and every logit lies inside the softcap."""
+    seq = 64
+    jcfg, cfg = _configs("gemma2-27b", compute_dtype)
+    assert cfg.window == 32 < seq and cfg.final_softcap == 30.0
+    hid_t, hid_j, logits_t, logits_j = _stack_logits(jcfg, cfg, seq)
+    assert hid_t.shape == (B, seq, cfg.d_model)
+    assert _rel_err(hid_t, hid_j) < TOL_STACK[compute_dtype]
+    assert logits_t.shape == (B, 1, cfg.vocab_size)
+    assert _rel_err(logits_t, logits_j) < TOL_STACK[compute_dtype]
+    assert float(logits_t.abs().max()) <= cfg.final_softcap
+    unmasked = _stack_logits(*(dataclasses.replace(c, window=None)
+                               for c in (jcfg, cfg)), seq)[0]
+    assert _rel_err(unmasked, np.asarray(hid_t.float())) > \
+        TOL_STACK[compute_dtype]
+
+
+@pytest.mark.parametrize("arch,heads", [("qwen3-14b", (10, 2)),
+                                        ("starcoder2-7b", (9, 1))])
+def test_odd_head_groups_match_jax(arch, heads):
+    """Head groups of 5 (qwen3-14b's 40 / 8) and 9 (starcoder2-7b's 36 /
+    4) at reduced width: every block's query heads share their KV head by
+    ``h // G``; the stack and the last logits within 1e-5 of the JAX
+    package's in float32."""
+    n_heads, n_kv = heads
+    jcfg, cfg = _configs(arch, "float32", n_heads=n_heads, n_kv_heads=n_kv)
+    assert cfg.n_heads // cfg.n_kv_heads in (5, 9)
+    hid_t, hid_j, logits_t, logits_j = _stack_logits(jcfg, cfg, S)
+    assert _rel_err(hid_t, hid_j) < TOL_STACK["float32"]
+    assert _rel_err(logits_t, logits_j) < TOL_STACK["float32"]
+
+
 def test_layer_helpers_keep_the_jax_semantics():
     """rmsnorm scales by 1 + scale, rope rotates halves, gelu is the tanh
     approximation."""
@@ -395,6 +457,50 @@ def test_cache_and_decode_are_not_ported_yet():
     assert (tcache["pos"] == -1).all()
     assert max(_cached_block_steps("qwen2-1.5b", "attn", jcache,
                                    tcache)) < 1e-5
+
+
+class _PeakBytes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The most bytes of storage that the ops inside the block held alive
+    at once (each storage counted once, from its first op to its tensor's
+    end)."""
+
+    def __init__(self):
+        super().__init__()
+        self.live, self.peak, self.ptrs = 0, 0, set()
+
+    def _free(self, ptr, n):
+        self.ptrs.discard(ptr)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in self.ptrs:
+                    n = t.untyped_storage().nbytes()
+                    self.ptrs.add(ptr)
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(t, self._free, ptr, n)
+        return out
+
+
+def test_dense_init_holds_one_float32_draw():
+    """A bf16 weight is drawn in float32, scaled and cast: at most the
+    draw and the bf16 result alive at once (6 bytes an element), the values
+    those of ``(randn * scale).to(bf16)``.  Scaling out of place held a
+    second float32 copy (8 bytes an element): on the card, arctic-480b's
+    init at 2 layers asked for 16.6 GiB more with 59.3 GiB allocated."""
+    shape = (4, 96, 40)
+    with _PeakBytes() as mode:
+        got = L._dense_init(torch.Generator().manual_seed(5), shape,
+                            torch.bfloat16)
+    n = math.prod(shape)
+    assert mode.peak <= 6 * n
+    want = (torch.randn(shape, generator=torch.Generator().manual_seed(5))
+            * (1.0 / math.sqrt(shape[-2]))).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 def test_init_params_without_a_card_raises(monkeypatch):

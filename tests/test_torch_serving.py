@@ -50,7 +50,7 @@ from test_torch_models import jax_route
 
 MOE = ["qwen3-moe-30b-a3b", "arctic-480b"]
 MODELS = ["qwen2-1.5b", "qwen3-14b", "mamba2-370m", "recurrentgemma-9b",
-          *MOE]
+          "gemma2-27b", "starcoder2-7b", *MOE]
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 B, LENGTHS, CACHE_LEN = 2, (12, 32), 48
 STEPS = {"float32": 8, "bfloat16": 4}
@@ -233,6 +233,44 @@ def test_recurrentgemma_ring_wraps():
     assert pos.shape[-1] == cfg.window == 32
     want = np.concatenate([np.arange(32, 40), np.arange(8, 32)])
     np.testing.assert_array_equal(pos, np.broadcast_to(want, pos.shape))
+
+
+def test_gemma2_prefill_past_its_ring_matches_jax():
+    """gemma2-27b reduced, float32: prompts of 12 and 40 tokens left-padded
+    to 40 into caches of 48 slots, so the prefill runs past the end of the
+    local ring of min(48, window 32) = 32 slots and keeps the last 32
+    positions (the JAX package's ``tail``), as path 3 of ``chip_smoke.py``
+    serves gemma2-27b at full width; then 4 decode steps wrap the ring
+    again.  Every call's logits and cache leaves within 1e-5 of the JAX
+    package's (``pos`` ``==``)."""
+    jcfg, cfg, jp, tp = _models("gemma2-27b", "float32")
+    rng = np.random.default_rng(7)
+    toks = S.left_pad([rng.integers(1, cfg.vocab_size, n) for n in (12, 40)],
+                      B)
+    assert toks.shape[1] == 40 > cfg.window
+    fed = _fed_tokens(cfg, 4)
+    logits_j, cache_j = JE.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32),
+                                   CACHE_LEN)
+    logits_t, cache_t = S.prefill(tp, cfg, torch.from_numpy(toks), CACHE_LEN)
+    slot = cfg.pattern.index("local_attn")
+    ring = cache_t["stack"]["layers"][slot]["pos"]
+    np.testing.assert_array_equal(
+        ring, np.broadcast_to(np.concatenate([np.arange(32, 40),
+                                              np.arange(8, 32)]), ring.shape))
+    for i in range(len(fed) + 1):
+        assert _rel(logits_t, logits_j) < TOL["float32"]
+        _assert_caches_match(convert.cache_to_jax_layout(cache_t, cfg),
+                             jax.tree.map(np.asarray, cache_j),
+                             TOL["float32"])
+        if i == len(fed):
+            break
+        pos = np.full((B, 1), toks.shape[1] + i)
+        logits_j, cache_j = JE.decode_step(jp, jcfg, cache_j,
+                                           jnp.asarray(fed[i], jnp.int32),
+                                           jnp.asarray(pos, jnp.int32))
+        logits_t, cache_t = S.decode_step(tp, cfg, cache_t,
+                                          torch.from_numpy(fed[i]),
+                                          torch.from_numpy(pos))
 
 
 @pytest.mark.parametrize("eos", ["never", "hit"])

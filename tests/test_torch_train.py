@@ -71,10 +71,12 @@ def _port_grads(cfg, params, batch):
     return loss.detach(), grads
 
 
-# float32 for every config; bf16 for qwen2-1.5b and mamba2-370m
+# float32 for every config; bf16 for qwen2-1.5b, mamba2-370m, gemma2-27b
+# (its tied table under the final softcap) and starcoder2-7b (its biases)
 @pytest.mark.parametrize("arch,compute_dtype", [
-    (a, "float32") for a in ARCH_NAMES] + [("qwen2-1.5b", "bfloat16"),
-                                          ("mamba2-370m", "bfloat16")])
+    (a, "float32") for a in ARCH_NAMES] + [
+    (a, "bfloat16") for a in ("qwen2-1.5b", "mamba2-370m", "gemma2-27b",
+                              "starcoder2-7b")])
 def test_loss_and_gradients_match_jax(arch, compute_dtype, monkeypatch):
     jcfg, cfg, jp, tp, batch = _setup(arch, compute_dtype)
     if cfg.n_experts:  # every token routes alike in float32
@@ -157,6 +159,31 @@ def test_train_step_through_the_backward_wrappers_matches_jax(
     assert float(m["loss"]) == pytest.approx(float(jloss), rel=TOL["float32"])
     assert float(m["grad_norm"]) == pytest.approx(float(jnorm),
                                                   rel=TOL["float32"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "starcoder2-7b"])
+def test_train_step_matches_jax(arch):
+    """One ``make_train_step`` (AdamW) in float32: its loss and gradient
+    norm those of the JAX package's ``loss_fn`` at 1e-5; the gradients of
+    gemma2-27b's tied table (the embedding scaled by sqrt(d) on the way in,
+    the head under the final softcap on the way out) and of starcoder2-7b's
+    QKV and MLP biases, each leaf at 1e-4 of its largest (``_hold_to_jax``);
+    the step moves every leaf."""
+    jcfg, cfg, jp, tp, batch = _setup(arch, "float32")
+    names = [k for k in ("bq", "bk", "bv") if k in
+             tp["stack"]["layers"][0]["attn"]]
+    assert bool(names) == (arch == "starcoder2-7b") == cfg.qkv_bias
+    assert ("head" in tp) == (not cfg.tie_embeddings)
+    jloss, jnorm = _hold_to_jax(jcfg, cfg, jp, tp, batch, "float32")
+    before = [t.detach().clone() for t in T.tree_leaves(tp)]
+    opt = optim.make_optimizer(cfg.optimizer, lr=3e-3, warmup=1, total=50)
+    params, _, m = train.make_train_step(cfg, opt)(
+        tp, opt.init(tp, cfg), shard_batch(batch, "cpu"))
+    assert float(m["loss"]) == pytest.approx(float(jloss), rel=TOL["float32"])
+    assert float(m["grad_norm"]) == pytest.approx(float(jnorm),
+                                                  rel=TOL["float32"])
+    assert all(not torch.equal(a, b.detach())
+               for a, b in zip(before, T.tree_leaves(params)))
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m",
